@@ -1,0 +1,101 @@
+"""CAM generation CLI (port of ``muscle_tpu/cli/infer_mcl.py``, same flags
+without --spatial, plus --fuse_mbconv and --device).
+
+Writes {class_idx: (H, W) float16} npy dicts of the SGC maps into
+<out_npy>_sgc/ (and the raw CAMs into <out_npy>/ with --save_cam 1).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+
+from muscle_tpu_torch.cli.common import (
+    add_voc_args,
+    load_lists,
+    load_model_state,
+    prefetch_chunks,
+    sort_by_orientation,
+)
+from muscle_tpu_torch.data.voc12 import get_img_path
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser()
+    p.add_argument("--weights", type=str, required=True)
+    p.add_argument("--infer_list", default="data/train.txt", type=str)
+    p.add_argument("--out_npy", default=None, type=str)
+    p.add_argument("--save_cam", default=0, type=int, help="also save raw CAM dicts")
+    p.add_argument("--batch_size", default=8, type=int)
+    p.add_argument("--scales", default="0.5,1,1.5,2", type=str)
+    p.add_argument("--backbone", default="efficientnet-b3", type=str,
+                   help="reference uses b3; smaller variants for smoke runs")
+    p.add_argument("--exact", default=0, type=int,
+                   help="shape-grouped unpadded TTA (parity mode)")
+    p.add_argument("--fast", default=1, type=int,
+                   help="1 = fast mode (K-class gather, stride-4 fusion grid + uint8 "
+                        "download, tight ycbcr420 upload); 0 = full-res f16")
+    p.add_argument("--fuse_mbconv", default=0, type=int,
+                   help="run stride-1 MBConv blocks with <= N input channels through "
+                        "the MBConv CUDA kernel (0 = none; 384 = all of b3's)")
+    p.add_argument("--device", default="cuda", type=str, help="cuda or cpu")
+    add_voc_args(p)
+    args = p.parse_args(argv)
+
+    from PIL import Image
+
+    from muscle_tpu_torch.inference import CamTTAEngine
+    from muscle_tpu_torch.models import MuSCLe
+
+    model = MuSCLe(num_classes=args.num_classes, backbone_name=args.backbone,
+                   bifpn_layers=3, mode="enc", last_pooling=False,
+                   fuse_mbconv=args.fuse_mbconv)
+    load_model_state(args.weights, model)
+    scales = tuple(float(s) for s in args.scales.split(","))
+    fast = dict(accum_stride=4, download_dtype="uint8", tight_upload=True,
+                upload_mode="ycbcr420")
+    engine = CamTTAEngine(
+        model, scales=scales, num_classes=args.num_classes,
+        return_cam=bool(args.save_cam), device=args.device,
+        **(fast if args.fast and not args.exact else {}),
+    )
+
+    names, labels = load_lists(args, args.infer_list)
+    if args.fast and not args.exact:
+        names = sort_by_orientation(names, args.voc12_root)
+    if args.out_npy:
+        os.makedirs(args.out_npy + "_sgc", exist_ok=True)
+        if args.save_cam:
+            os.makedirs(args.out_npy, exist_ok=True)
+
+    def save(records):
+        for rec in records:
+            if args.out_npy:
+                np.save(os.path.join(args.out_npy + "_sgc", rec["name"] + ".npy"), rec["sgc"])
+                if args.save_cam:
+                    np.save(os.path.join(args.out_npy, rec["name"] + ".npy"), rec["cam"])
+
+    def load(chunk):
+        return [Image.open(get_img_path(n, args.voc12_root)).convert("RGB") for n in chunk]
+
+    done = 0
+    if args.exact:
+        for chunk, imgs in prefetch_chunks(names, args.batch_size, load):
+            save(engine.run_batch_exact(imgs, chunk, [labels[n] for n in chunk]))
+            done += len(chunk)
+            print(f"{done}/{len(names)}")
+    else:
+        def batches():
+            for chunk, imgs in prefetch_chunks(names, args.batch_size, load):
+                yield imgs, chunk, [labels[n] for n in chunk]
+
+        for records in engine.run_stream(batches()):
+            save(records)
+            done += len(records)
+            print(f"{done}/{len(names)}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,91 @@
+"""Build and load the port's CUDA kernels (``muscle_tpu_torch/csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
+library with a plain C interface and loaded with ctypes.  Libraries land in
+``build/kernels/`` at the repository root (listed in ``.gitignore``), named
+by the hash of their source, so an edited source is rebuilt and an
+unchanged one is reused.  Nothing is built when a module is imported: the
+first launch builds, or ``build_all`` builds every source in parallel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                           "the CUDA toolkit is installed")
+    return path
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start(name: str):
+    """Start nvcc for ``csrc/<name>.cu`` unless its library is built;
+    returns (target, process or None)."""
+    target = _target(name)
+    if target.exists():
+        return target, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return target, (proc, tmp)
+
+
+def _finish(name: str, target: Path, pending) -> None:
+    if pending is None:
+        return
+    proc, tmp = pending
+    out, _ = proc.communicate()
+    target.with_suffix(".log").write_text(out)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
+    os.replace(tmp, target)
+
+
+def build_all(names) -> dict[str, str]:
+    """Compile every named source at once (one nvcc each, in parallel);
+    returns {name: nvcc's log} (register and shared-memory use per kernel
+    from ``-Xptxas -v``)."""
+    started = {n: _start(n) for n in names}
+    for n, (target, pending) in started.items():
+        _finish(n, target, pending)
+    logs = {}
+    for n, (target, _) in started.items():
+        log = target.with_suffix(".log")
+        logs[n] = log.read_text() if log.exists() else ""
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        if name not in _libs:
+            target, pending = _start(name)
+            _finish(name, target, pending)
+            _libs[name] = ctypes.CDLL(str(target))
+        return _libs[name]
