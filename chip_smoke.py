@@ -1,24 +1,38 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CAM-generation path on one CUDA card.
+"""Drive the PyTorch port's CAM-generation and IRN-refinement paths on
+one CUDA card.
 
     python3 chip_smoke.py            # every phase, the full check
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,profile   # where the device time goes
 
 Phases:
-  build    compile every CUDA kernel of the path from the checkout
-           (nvcc, sm_90a) and print the build seconds;
-  kernels  hold each kernel against its plain PyTorch version at the b3
-           CAM shapes (VOC 500x375 image, TTA scales 1 and 2, B = 16),
-           with and without windows, and time both;
+  build    compile every CUDA kernel of the paths from the checkout
+           (nvcc, sm_90a, one process per source, in parallel) and print
+           the build seconds;
+  kernels  hold each kernel against its plain PyTorch version and time
+           both: the MBConv block at the b3 CAM shapes (VOC 500x375 image,
+           TTA scales 1 and 2, B = 16, with and without windows); the
+           stencil walk at B = 8, C = 20, 64 steps on the 128/96/64 walk
+           grids (the 512/384/256 buckets) and a 375x500 image's own
+           94x125 grid; the banded walk at C = 20, 64 steps on grid 64
+           (two images) and grid 128 (one image), beside 64 dense
+           torch.matmul steps (its library yardstick);
   main     run CamTTAEngine over synthetic VOC-shaped images at scales
            0.5/1/1.5/2 with MuSCLe-b3 (fuse_mbconv=384, float32, seeded
            random weights), count the kernel launches, and hold the
            results against the same engine with the plain blocks; then
            the same for the --fast 1 configuration;
-  profile  (not run by default) device time by kernel name over two
-           --fast 0 batches, with and without the kernel, and the
-           device's busy share of the wall time.
+  irn      run RandomWalkRefiner (ResNet-50 EdgeDisplacement, crop 512,
+           seeded random weights, fast IO, labels output: the infer_irn
+           default) over batches of 8 synthetic VOC-shaped images with
+           2-class CAM dicts, with the stencil kernel and with the plain
+           walk, counting launches and comparing labels; the scores output
+           on one batch; then one batch of 2 with the banded walk;
+  profile  (not run by default) device time by kernel name over --fast 0
+           CAM batches, with and without the MBConv kernel, and over IRN
+           batches with the stencil kernel, and the device's busy share of
+           the wall time.
 
 Prints the card's name and power limit, one JSON line per kernel shape,
 a {"kernels": [...]} summary line, and last the result line
@@ -58,9 +72,39 @@ KERNEL_REPS = 10  # timed launches per kernel shape, after one warm-up
 MAIN_BATCHES = 4  # timed TTA batches of 8 images per engine
 FLIP_TOL = 0.01  # share of a map's pixels whose pre-normalisation zeroing may flip
 
+# walk kernels: grids (h, w) of the stencil check, the first being the
+# main path's (crop 512, stride 4); (grid side, images) of the banded check
+STENCIL_GRIDS = ((128, 128), (96, 96), (64, 64), (94, 125))
+BANDED_CASES = ((64, 2), (128, 1))
+WALK_B, WALK_C, WALK_STEPS = 8, 20, 64
+WALK_REPS = 5
+# the JAX package's walk bounds: the stencil differs from its plain loop
+# in summation order only (relative to the output's scale); the banded walk
+# sums per column block (test_banded_walk.py)
+STENCIL_RTOL, STENCIL_ATOL = 2e-4, 1e-6
+BANDED_RTOL, BANDED_ATOL = 2e-3, 1e-5
+# kernel -> (source under muscle_tpu_torch/csrc, the TPU kernel's pallas_call)
+KERNEL_SOURCES = {
+    "mbconv_stride1": ("mbconv.cu", "muscle_tpu/ops/pallas/mbconv.py:299"),
+    "stencil_walk": ("stencil_walk.cu", "muscle_tpu/ops/pallas/stencil_walk.py:102"),
+    "banded_walk": ("banded_walk.cu", "muscle_tpu/ops/pallas/banded_walk.py:109"),
+}
+IRN_BATCHES = 4  # timed refinement batches of 8 images per walk
+LABEL_AGREE = 0.999  # labels: kernel and plain walk, argmax ties only
+IRN_SCORE_TOL = 1e-3  # f16 scores, kernel and plain walk
+
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
+
+
+def _zero_counts() -> None:
+    """Set every kernel wrapper's launch count to 0 (before a path runs)."""
+    from muscle_tpu_torch.ops import banded_walk, mbconv, stencil_walk
+
+    mbconv.mbconv_stride1.launches = 0
+    stencil_walk.stencil_walk.launches = 0
+    banded_walk.banded_walk.launches = 0
 
 
 def time_ms(fn, reps: int) -> float:
@@ -81,7 +125,7 @@ def phase_build() -> float:
     from muscle_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    logs = build.build_all(["mbconv"])
+    logs = build.build_all(["mbconv", "stencil_walk", "banded_walk"])
     secs = time.perf_counter() - t0
     for name, text in logs.items():
         for line in text.splitlines():
@@ -115,7 +159,7 @@ def _windows(stride: int, scale: float, device):
     return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
-def phase_kernels() -> dict:
+def _check_mbconv() -> dict:
     import torch
 
     from muscle_tpu_torch.inference.cam import _batch_canvas
@@ -164,6 +208,123 @@ def phase_kernels() -> dict:
                 total["max_abs_err"] = max(total["max_abs_err"], err)
             del x
     return total
+
+
+def _smooth_edges(b: int, h: int, w: int, gen, device):
+    """(B, h, w) edge maps in (0, 1): a seeded low-frequency random field,
+    so the affinities span their range instead of being all ~0 or ~1."""
+    import torch
+    import torch.nn.functional as F
+
+    z = torch.randn((b, 1, 6, 6), generator=gen, device=device)
+    z = F.interpolate(z, size=(h, w), mode="bicubic", align_corners=False)[:, 0]
+    return torch.sigmoid(2.5 * z - 1.0)
+
+
+def _check_stencil() -> dict:
+    import torch
+
+    from muscle_tpu_torch.ops import random_walk as R
+    from muscle_tpu_torch.ops import stencil_walk as S
+    from muscle_tpu_torch.ops.mbconv import bound_ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for h, w in STENCIL_GRIDS:
+        edge = _smooth_edges(WALK_B, h, w, gen, dev)
+        cam = torch.rand((WALK_B, WALK_C, h, w), generator=gen, device=dev)
+        with torch.inference_mode():
+            vs, inv, dirs = R.stencil_operands(edge)
+            x = (cam * (1.0 - edge)[:, None]).contiguous()
+            kw = dict(dirs=dirs, steps=WALK_STEPS)
+            before = S.stencil_walk.launches
+            got = S.stencil_walk(x, vs, inv, **kw)
+            want = S.stencil_walk_plain(x, vs, inv, **kw)
+            torch.cuda.synchronize()
+            launches = S.stencil_walk.launches - before
+            err = float((got - want).abs().max())
+            tol = STENCIL_RTOL * float(want.abs().max()) + STENCIL_ATOL
+            ms = time_ms(lambda: S.stencil_walk(x, vs, inv, **kw), WALK_REPS)
+            plain_ms = time_ms(lambda: S.stencil_walk_plain(x, vs, inv, **kw), 1)
+        bound, by = bound_ms(*S.walk_work(WALK_B, WALK_C, h, w, len(dirs), WALK_STEPS))
+        rec = {"kernel": "stencil_walk", "B": WALK_B, "C": WALK_C, "H": h, "W": w,
+               "steps": WALK_STEPS, "max_abs_err": err, "tol": tol, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
+               "launches": launches}
+        print(json.dumps(rec), flush=True)
+        if not err <= tol:
+            raise AssertionError(f"stencil walk {h}x{w}: max_abs_err {err} > {tol}")
+        out[(h, w)] = rec
+    return out
+
+
+def _check_banded() -> dict:
+    import torch
+
+    from muscle_tpu_torch.ops import banded_walk as BW
+    from muscle_tpu_torch.ops import random_walk as R
+    from muscle_tpu_torch.ops.mbconv import bound_ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {}
+    for side, b in BANDED_CASES:
+        v, band = side * side, BW.walk_band(side)
+        edge = _smooth_edges(b, side, side, gen, dev)
+        cam = torch.rand((b, WALK_C, side, side), generator=gen, device=dev)
+        kw = dict(steps=WALK_STEPS, band=band)
+        with torch.inference_mode():
+            trans = R.transition_matrices(edge)
+            x = (cam * (1.0 - edge)[:, None]).reshape(b, WALK_C, v).contiguous()
+            before = BW.banded_walk.launches
+            got = BW.banded_walk(x, trans, **kw)
+            want = BW.banded_walk_plain(x, trans, **kw)
+            torch.cuda.synchronize()
+            launches = BW.banded_walk.launches - before
+            err = float((got - want).abs().max())
+            excess = float(((got - want).abs() - BANDED_RTOL * want.abs()).max())
+
+            def library():
+                y = x
+                for _ in range(WALK_STEPS):
+                    y = torch.matmul(y, trans)
+                return y
+
+            ms = time_ms(lambda: BW.banded_walk(x, trans, **kw), WALK_REPS)
+            plain_ms = time_ms(lambda: BW.banded_walk_plain(x, trans, **kw), 1)
+            library_ms = time_ms(library, 1)
+        bound, by = bound_ms(*BW.walk_work(b, WALK_C, v, band, WALK_STEPS))
+        rec = {"kernel": "banded_walk", "B": b, "C": WALK_C, "V": v, "band": band,
+               "steps": WALK_STEPS, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+               "launches": launches}
+        print(json.dumps(rec), flush=True)
+        if not excess <= BANDED_ATOL:
+            raise AssertionError(f"banded walk grid {side}: |diff| exceeds rtol "
+                                 f"{BANDED_RTOL} * |plain| by {excess} > atol {BANDED_ATOL}")
+        out[side] = rec
+        del trans
+    return out
+
+
+def phase_kernels() -> dict:
+    """Every kernel against its plain version; returns the summaries the
+    {"kernels": ...} line reports, at the main paths' shapes."""
+    from muscle_tpu_torch.ops.mbconv import bound_ms
+
+    mb = _check_mbconv()
+    bound, by = bound_ms(mb["bytes"], mb["flops"])
+    stencil = _check_stencil()[STENCIL_GRIDS[0]]
+    banded = _check_banded()[BANDED_CASES[-1][0]]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {
+        "mbconv_stride1": {"max_abs_err": mb["max_abs_err"], "ms": mb["ms"],
+                           "plain_ms": mb["plain_ms"], "bound_ms": bound, "bound_by": by,
+                           "library_ms": None},
+        "stencil_walk": {k: stencil[k] for k in keys},
+        "banded_walk": {k: banded[k] for k in keys},
+    }
 
 
 def _images(n_batches: int, seed: int):
@@ -277,7 +438,7 @@ def phase_main(n_batches: int = MAIN_BATCHES) -> dict:
                                    **extra) for f in models}
         for e in engines.values():
             _run(e, warm)  # cuDNN autotune, allocator warm-up
-        M.mbconv_stride1.launches = 0
+        _zero_counts()
         fused, fused_s = _run(engines[384], batches)
         launches = M.mbconv_stride1.launches
         want = 23 * len(scales) * n_batches
@@ -297,10 +458,159 @@ def phase_main(n_batches: int = MAIN_BATCHES) -> dict:
     return out
 
 
+def _irn_model():
+    """EdgeDisplacement at crop 512 with seeded random weights (batch norms
+    near the identity with random statistics).  The edge head's weights
+    are scaled by 4 and its bias set to -4 so the random edge map spans
+    (0, 1) with median ~0.24 instead of sitting near 0.65, where the
+    affinities (1 - e)^8 would all be ~1e-4 and the walk trivial."""
+    import torch
+
+    from muscle_tpu_torch.models import EdgeDisplacement, init_weights
+
+    model = init_weights(EdgeDisplacement(crop_size=512), torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.fc_edge6.weight.mul_(4.0)
+        model.fc_edge6.bias.fill_(-4.0)
+    return model
+
+
+def _irn_batches(n_batches: int, seed: int, per_batch: int = 8):
+    """Orientation-homogeneous batches of synthetic VOC-shaped images, each
+    with a CAM dict of 2 classes: smooth f16 bumps at random centres."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, (imgs, _, _) in enumerate(_images(n_batches, seed)):
+        h, w = imgs[0].shape[:2]
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        dicts = []
+        for j in range(per_batch):
+            d = {}
+            for cls in ((i + j) % 20, (i + j + 7) % 20):
+                cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+                s = rng.uniform(0.15, 0.4) * min(h, w)
+                bump = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * s * s))
+                d[cls] = (bump + rng.uniform(0, 0.05, (h, w))).astype(np.float16)
+            dicts.append(d)
+        out.append((imgs[:per_batch], dicts))
+    return out
+
+
+def _refine(refiner, batches):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = [r for imgs, dicts in batches for r in refiner.refine_batch(imgs, dicts)]
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0
+
+
+def _labels_agreement(got, want, batches) -> float:
+    import numpy as np
+
+    flat = [(img, d) for imgs, dicts in batches for img, d in zip(imgs, dicts)]
+    assert len(got) == len(want) == len(flat)
+    agree = 1.0
+    for g, w, (img, d) in zip(got, want, flat):
+        assert g.shape == w.shape == img.shape[:2] and g.dtype == w.dtype == np.uint8
+        assert set(np.unique(g).tolist()) <= {0} | {c + 1 for c in d}
+        agree = min(agree, float((g == w).mean()))
+    return agree
+
+
+def phase_irn(n_batches: int = IRN_BATCHES) -> dict:
+    import numpy as np
+
+    from muscle_tpu_torch.inference import RandomWalkRefiner
+    from muscle_tpu_torch.ops.banded_walk import banded_walk
+    from muscle_tpu_torch.ops.stencil_walk import stencil_walk
+
+    model = _irn_model()
+    batches = _irn_batches(n_batches, seed=4)
+    warm = _irn_batches(1, seed=5)
+    kw = dict(crop_size=512, fast_io=True, device="cuda")
+    kern = RandomWalkRefiner(model, output="labels", **kw)
+    plain = RandomWalkRefiner(model, output="labels", walk_kernel=False, **kw)
+    for r in (kern, plain):
+        _refine(r, warm)  # cuDNN autotune, allocator warm-up
+    _zero_counts()
+    got, kern_s = _refine(kern, batches)
+    launches = stencil_walk.launches
+    if launches != n_batches:
+        raise AssertionError(f"irn: {launches} stencil launches, want {n_batches} "
+                             "(one walk per batch: every image falls in the 512 bucket)")
+    want, plain_s = _refine(plain, batches)
+    agree = _labels_agreement(got, want, batches)
+
+    # the scores output on one batch: f16 grid scores, host upsample
+    s_got, _ = _refine(RandomWalkRefiner(model, **kw), batches[:1])
+    s_want, _ = _refine(RandomWalkRefiner(model, walk_kernel=False, **kw), batches[:1])
+    score_err = max(float(np.abs(a - b).max()) for a, b in zip(s_got, s_want))
+    for sc, img in zip(s_got, batches[0][0]):
+        assert sc.shape == (*img.shape[:2], 21) and np.isfinite(sc).all()
+
+    # the banded walk on one batch of 2 (a dense (V, V) T per image, 1 GiB)
+    two = [(batches[0][0][:2], batches[0][1][:2])]
+    bkern = RandomWalkRefiner(model, walk_method="banded", output="labels", **kw)
+    bplain = RandomWalkRefiner(model, walk_method="banded", output="labels", walk_kernel=False,
+                               **kw)
+    _refine(bkern, [(warm[0][0][:2], warm[0][1][:2])])
+    _zero_counts()
+    b_got, bkern_s = _refine(bkern, two)
+    b_launches = banded_walk.launches
+    if b_launches != 1:
+        raise AssertionError(f"irn banded: {b_launches} banded launches, want 1")
+    b_want, bplain_s = _refine(bplain, two)
+    b_agree = _labels_agreement(b_got, b_want, two)
+
+    n_img = 8 * n_batches
+    rec = {"irn": "fast labels, crop 512", "images": n_img, "stencil_launches": launches,
+           "kernel_ms_per_image": kern_s * 1e3 / n_img,
+           "plain_walk_ms_per_image": plain_s * 1e3 / n_img,
+           "labels_agreement_min": agree, "scores_max_abs_err": score_err,
+           "banded_images": 2, "banded_launches": b_launches,
+           "banded_kernel_ms_per_image": bkern_s * 1e3 / 2,
+           "banded_plain_ms_per_image": bplain_s * 1e3 / 2,
+           "banded_labels_agreement_min": b_agree}
+    print(json.dumps(rec), flush=True)
+    if not (agree >= LABEL_AGREE and b_agree >= LABEL_AGREE and score_err <= IRN_SCORE_TOL):
+        raise AssertionError(f"irn: labels agreement {agree} / banded {b_agree} (min "
+                             f"{LABEL_AGREE}), scores err {score_err} (tol {IRN_SCORE_TOL})")
+    return rec
+
+
+def _device_rows(prof):
+    """(ms, calls, name) of the device-side events of a profile (kernels,
+    copies; no double count with host ops), largest first."""
+    rows = []
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = evt.self_cuda_time_total
+        if t > 0 and str(evt.device_type).endswith("CUDA"):
+            rows.append((t / 1e3, evt.count, evt.key))
+    rows.sort(reverse=True)
+    return rows
+
+
+def _profile_record(tag, n_batches, wall, rows, ours_name, ours_keys) -> None:
+    device_ms = sum(r[0] for r in rows)
+    ours = sum(r[0] for r in rows if any(f"namespace)::{k}" in r[2] for k in ours_keys))
+    print(json.dumps({
+        "profile": tag, "batches": n_batches, "wall_ms": wall * 1e3, "device_ms": device_ms,
+        "device_busy_share": device_ms / (wall * 1e3), ours_name: ours,
+        "top": [[name[:90], calls, ms] for ms, calls, name in rows[:15]],
+    }), flush=True)
+
+
 def phase_profile(n_batches: int) -> None:
-    """Where the device time of the --fast 0 main path goes: one
-    torch.profiler window over ``n_batches`` batches per engine (kernel
-    and plain blocks), device time summed by kernel name."""
+    """Where the device time goes: one torch.profiler window over
+    ``n_batches`` --fast 0 CAM batches per engine (kernel and plain
+    blocks), and one over ``n_batches`` IRN batches of 8 (stencil kernel);
+    device time summed by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -318,29 +628,24 @@ def phase_profile(n_batches: int) -> None:
         # and understate the busy share
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _, wall = _run(engine, batches)
-        rows = []  # device-side events only (kernels, copies): no double count
-        for evt in prof.key_averages():
-            t = getattr(evt, "self_device_time_total", None)
-            if t is None:
-                t = evt.self_cuda_time_total
-            if t > 0 and str(evt.device_type).endswith("CUDA"):
-                rows.append((t / 1e3, evt.count, evt.key))
-        rows.sort(reverse=True)
-        device_ms = sum(r[0] for r in rows)
-        ours = sum(r[0] for r in rows if any(
-            f"namespace)::{k}" in r[2] for k in ("expand_dw_kernel", "se_kernel",
-                                                 "project_kernel")))
-        print(json.dumps({
-            "profile": f"fast0 fuse_mbconv={fuse}", "batches": n_batches,
-            "wall_ms": wall * 1e3, "device_ms": device_ms,
-            "device_busy_share": device_ms / (wall * 1e3), "mbconv_kernel_ms": ours,
-            "top": [[name[:90], calls, ms] for ms, calls, name in rows[:15]],
-        }), flush=True)
+        _profile_record(f"fast0 fuse_mbconv={fuse}", n_batches, wall, _device_rows(prof),
+                        "mbconv_kernel_ms", ("expand_dw_kernel", "se_kernel", "project_kernel"))
+
+    from muscle_tpu_torch.inference import RandomWalkRefiner
+
+    refiner = RandomWalkRefiner(_irn_model(), crop_size=512, fast_io=True, output="labels",
+                                device="cuda")
+    _refine(refiner, _irn_batches(1, seed=5))
+    irn_batches = _irn_batches(n_batches, seed=6)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = _refine(refiner, irn_batches)
+    _profile_record("irn fast labels, stencil kernel", n_batches, wall, _device_rows(prof),
+                    "stencil_kernel_ms", ("stencil_step",))
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="build,kernels,main")
+    p.add_argument("--phases", default="build,kernels,main,irn")
     args = p.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -364,23 +669,24 @@ def main(argv=None) -> int:
 
     if "build" in phases:
         phase_build()
-    totals = phase_kernels() if "kernels" in phases else None
+    summaries = phase_kernels() if "kernels" in phases else None
     main_out = phase_main() if "main" in phases else None
+    irn_out = phase_irn() if "irn" in phases else None
     if "profile" in phases:
         phase_profile(4)
 
-    if totals is not None:
-        from muscle_tpu_torch.ops.mbconv import bound_ms
-
-        bound, by = bound_ms(totals["bytes"], totals["flops"])
-        entry = {"name": "mbconv_stride1", "route": "cuda",
-                 "source": "muscle_tpu_torch/csrc/mbconv.cu",
-                 "replaces": "muscle_tpu/ops/pallas/mbconv.py:299",
-                 "launches": main_out["fast0"]["launches"] if main_out else 0,
-                 "max_abs_err": totals["max_abs_err"], "ms": totals["ms"],
-                 "plain_ms": totals["plain_ms"], "bound_ms": bound, "bound_by": by,
-                 "library_ms": None}
-        print(json.dumps({"kernels": [entry]}), flush=True)
+    if summaries is not None:
+        # null, not 0, where the phase that drives the kernel's path did not run
+        launches = {
+            "mbconv_stride1": main_out["fast0"]["launches"] if main_out else None,
+            "stencil_walk": irn_out["stencil_launches"] if irn_out else None,
+            "banded_walk": irn_out["banded_launches"] if irn_out else None,
+        }
+        entries = [{"name": name, "route": "cuda",
+                    "source": f"muscle_tpu_torch/csrc/{KERNEL_SOURCES[name][0]}",
+                    "replaces": KERNEL_SOURCES[name][1], "launches": launches[name],
+                    **summaries[name]} for name in KERNEL_SOURCES]
+        print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -47,23 +47,38 @@ def _has(tree: Mapping[str, Any], path: tuple[str, ...]) -> bool:
     return True
 
 
-def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """The port's state dict for a JAX ``MuSCLe`` (enc mode) variable tree
-    ``{'params': ..., 'batch_stats': ...}`` of numpy arrays."""
+def _writers(variables: Mapping[str, Any], sd: dict[str, np.ndarray]):
+    """(conv, norm) functions copying a Flax conv / norm at ``path`` into
+    ``sd`` under the torch ``key``; a norm with running statistics in
+    ``batch_stats`` (BatchNorm) gets them too."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
-    sd: dict[str, np.ndarray] = {}
 
     def conv(path, key, bias=False):
         sd[key + ".weight"] = _get(params, path + ("kernel",)).transpose(3, 2, 0, 1)
         if bias:
             sd[key + ".bias"] = _get(params, path + ("bias",))
 
-    def bn(path, key):
+    def norm(path, key):
         sd[key + ".weight"] = _get(params, path + ("scale",))
         sd[key + ".bias"] = _get(params, path + ("bias",))
-        sd[key + ".running_mean"] = _get(stats, path + ("mean",))
-        sd[key + ".running_var"] = _get(stats, path + ("var",))
+        if _has(stats, path + ("mean",)):
+            sd[key + ".running_mean"] = _get(stats, path + ("mean",))
+            sd[key + ".running_var"] = _get(stats, path + ("var",))
+
+    return conv, norm
+
+
+def _tensors(sd: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+
+
+def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The port's state dict for a JAX ``MuSCLe`` (enc mode) variable tree
+    ``{'params': ..., 'batch_stats': ...}`` of numpy arrays."""
+    params = variables["params"]
+    sd: dict[str, np.ndarray] = {}
+    conv, bn = _writers(variables, sd)
 
     bb = ("backbone",)
     conv(bb + ("_conv_stem",), "backbone._conv_stem")
@@ -89,4 +104,40 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]
         sd["fc.weight"] = _get(params, ("fc", "kernel")).T
     if _has(params, ("fuse_dec",)):
         conv(("fuse_dec",), "fuse_dec", bias=True)
-    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+    return _tensors(sd)
+
+
+def irn_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The port's (and the reference's) state dict for a JAX
+    ``EdgeDisplacement`` variable tree ``{'params': ..., 'batch_stats': ...}``
+    of numpy arrays: the inverse of the JAX package's
+    ``convert_irn_state_dict``."""
+    sd: dict[str, np.ndarray] = {}
+    conv, norm = _writers(variables, sd)
+    net = ("net",)
+    rn = net + ("resnet50",)
+    conv(rn + ("conv1",), "resnet50.conv1")
+    norm(rn + ("bn1", "bn"), "resnet50.bn1")
+    for layer, blocks in (("layer1", 3), ("layer2", 4), ("layer3", 6), ("layer4", 3)):
+        for i in range(blocks):
+            src = rn + (f"{layer}_{i}",)
+            dst = f"resnet50.{layer}.{i}."
+            for c in ("conv1", "conv2", "conv3"):
+                conv(src + (c,), dst + c)
+            for b in ("bn1", "bn2", "bn3"):
+                norm(src + (b, "bn"), dst + b)
+            if _has(variables["params"], src + ("downsample_conv",)):
+                conv(src + ("downsample_conv",), dst + "downsample.0")
+                norm(src + ("downsample_bn", "bn"), dst + "downsample.1")
+    heads = [f"fc_edge{i}" for i in range(1, 6)] + [f"fc_dp{i}" for i in range(1, 7)]
+    for h in heads:
+        conv(net + (h, "conv"), h + ".0")
+        norm(net + (h, "gn"), h + ".1")
+    conv(net + ("fc_edge6",), "fc_edge6", bias=True)
+    conv(net + ("fc_dp7_pre", "conv"), "fc_dp7.0")
+    norm(net + ("fc_dp7_pre", "gn"), "fc_dp7.1")
+    conv(net + ("fc_dp7_out",), "fc_dp7.3")
+    stats = variables.get("batch_stats", {})
+    if _has(stats, net + ("mean_shift",)):
+        sd["mean_shift.running_mean"] = _get(stats, net + ("mean_shift",))
+    return _tensors(sd)

@@ -1,3 +1,4 @@
 from muscle_tpu_torch.inference.cam import CamTTAEngine
+from muscle_tpu_torch.inference.irn import RandomWalkRefiner
 
-__all__ = ["CamTTAEngine"]
+__all__ = ["CamTTAEngine", "RandomWalkRefiner"]

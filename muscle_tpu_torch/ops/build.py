@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (``muscle_tpu_torch/csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``muscle_tpu_torch/csrc/*.cu``:
+``mbconv``, ``stencil_walk``, ``banded_walk``).
 
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface and loaded with ctypes.  Libraries land in

@@ -47,7 +47,8 @@ def test_importing_every_module_loads_no_jax(block_pil):
     neither jax nor muscle_tpu is loaded (and, with Pillow made
     unimportable, the imports still succeed)."""
     mods = _modules()
-    assert "muscle_tpu_torch.inference.cam" in mods and "muscle_tpu_torch.cli.infer_mcl" in mods
+    for m in ("inference.cam", "cli.infer_mcl", "inference.irn", "cli.infer_irn"):
+        assert "muscle_tpu_torch." + m in mods
     code = "\n".join([
         "import sys, importlib",
         "if %r:" % block_pil,

@@ -12,9 +12,16 @@ import torch
 from muscle_tpu_torch.models.efficientnet import BlockArgs, MBConvBlock
 from muscle_tpu_torch.models.muscle import init_weights
 from muscle_tpu_torch.ops import mbconv as M
+from muscle_tpu_torch.ops import random_walk as R
+from muscle_tpu_torch.ops.banded_walk import banded_walk, banded_walk_plain
+from muscle_tpu_torch.ops.stencil_walk import stencil_walk, stencil_walk_plain
 
 # f32 kernel against f32 plain version (TF32 off): summation order only
 ATOL, RTOL = 1e-4, 1e-4
+# the walks: the JAX package's bounds for its walk kernels, summation order
+# compounded over the steps
+STENCIL_RTOL, STENCIL_ATOL = 2e-4, 1e-6
+BANDED_RTOL, BANDED_ATOL = 2e-3, 1e-5
 
 CASES = {
     # name: (BlockArgs, h, w, windows (h, w) per image or None)
@@ -77,3 +84,85 @@ def test_mbconv_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="weight"):
         M.mbconv_stride1(torch.zeros((1, 6, 6, 8), device=cuda),
                          {n: t.cpu() for n, t in wd.items()}, None, **kw)
+
+
+def _stencil_inputs(b, c, h, w, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    cam = torch.rand((b, c, h, w), generator=gen)
+    edge = 0.7 * torch.rand((b, h, w), generator=gen)
+    vs, inv, dirs = R.stencil_operands(edge.to(device))
+    x = (cam * (1.0 - edge)[:, None]).to(device).contiguous()
+    return x, vs, inv, dirs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 37, 53, 16), (1, 20, 16, 16, 64), (2, 3, 5, 3, 1),
+                                   (1, 2, 9, 7, 0)])
+def test_stencil_walk_kernel_matches_plain(cuda, shape):
+    b, c, h, w, steps = shape
+    x, vs, inv, dirs = _stencil_inputs(b, c, h, w, seed=h, device=cuda)
+    before = stencil_walk.launches
+    with torch.inference_mode():
+        got = stencil_walk(x, vs, inv, dirs=dirs, steps=steps)
+        want = stencil_walk_plain(x, vs, inv, dirs=dirs, steps=steps)
+        again = stencil_walk(x, vs, inv, dirs=dirs, steps=steps)
+    torch.cuda.synchronize()
+    assert stencil_walk.launches == before + 2
+    torch.testing.assert_close(got, want, rtol=STENCIL_RTOL, atol=STENCIL_ATOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_stencil_walk_kernel_rejects_other_directions(cuda):
+    x, vs, inv, dirs = _stencil_inputs(1, 2, 8, 8, seed=0, device=cuda)
+    swapped = (dirs[1], dirs[0]) + dirs[2:]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        stencil_walk(x, vs, inv, dirs=swapped, steps=2)
+
+
+def _banded(b, v, band, seed):
+    gen = torch.Generator().manual_seed(seed)
+    t = torch.rand((b, v, v), generator=gen)
+    i = torch.arange(v)
+    t = t * ((i[:, None] - i[None, :]).abs() <= band)
+    return t / t.sum(dim=1, keepdim=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 600, 37, 8), (1, 20, 1000, 64, 16), (1, 5, 97, 3, 1),
+                                   (2, 32, 300, 20, 3)])
+def test_banded_walk_kernel_matches_plain(cuda, shape):
+    b, c, v, band, steps = shape
+    t = _banded(b, v, band, seed=v).to(cuda)
+    x = torch.rand((b, c, v), generator=torch.Generator().manual_seed(c)).to(cuda)
+    before = banded_walk.launches
+    with torch.inference_mode():
+        got = banded_walk(x, t, steps=steps, band=band)
+        want = banded_walk_plain(x, t, steps=steps, band=band)
+        again = banded_walk(x, t, steps=steps, band=band)
+        dense = x
+        for _ in range(steps):
+            dense = dense @ t
+    torch.cuda.synchronize()
+    assert banded_walk.launches == before + 2
+    torch.testing.assert_close(got, want, rtol=BANDED_RTOL, atol=BANDED_ATOL)
+    torch.testing.assert_close(got, dense, rtol=BANDED_RTOL, atol=BANDED_ATOL)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["stencil", "banded"])
+def test_propagate_to_edge_launches_kernel_on_card(cuda, method):
+    gen = torch.Generator().manual_seed(3)
+    cam = torch.rand((2, 4, 23, 31), generator=gen).to(cuda)
+    edge = (0.6 * torch.rand((2, 23, 31), generator=gen)).to(cuda)
+    counter = stencil_walk if method == "stencil" else banded_walk
+    before = counter.launches
+    with torch.inference_mode():
+        got = R.propagate_to_edge(cam, edge, exp_times=4, method=method)
+        plain = R.propagate_to_edge(cam, edge, exp_times=4, method=method, kernel=False)
+        vector = R.propagate_to_edge(cam, edge, exp_times=4, method="vector")
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    torch.testing.assert_close(got, plain, rtol=BANDED_RTOL, atol=BANDED_ATOL)
+    torch.testing.assert_close(got, vector, rtol=BANDED_RTOL, atol=BANDED_ATOL)
