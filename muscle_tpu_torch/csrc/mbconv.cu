@@ -11,44 +11,79 @@
 //   g = sigmoid(swish(mean_window(d) @ w_se_r + b_se_r) @ w_se_e + b_se_e)
 //   y = ((d * g) @ w_proj * s2 + b2) * mask  (+ x when Cin == Cout)
 //
-// with the batch norms folded to per-channel scale and bias by the caller.
+// with the batch norms folded to per-channel scale and bias, every channel
+// count a multiple of 8 (the wrapper zero-pads odd ones, which is exact:
+// TMA wants 16-byte strides), and the two 1x1 weights given K-major and
+// split for 3xTF32 (w_exp_kt = (hi, lo) of w_exp^T, (2, Cmid, Cin);
+// w_proj_kt likewise (2, Cout, Cmid)), as ops/mbconv.py's kernel_operands
+// makes them: wgmma takes tf32 operands from shared memory only K-major.
 //
-// Design.  The TPU kernel keeps one whole image's expanded map in VMEM.
-// An H100 block has 227 KB of shared memory, which does not hold that map
-// at the early stages, and the SE gate needs a reduction over the whole
-// image before the project can start.  So the block is three launches:
+// Bound on the card.  The ideal kernel moves x in and y out and does the
+// 1x1 products (2*px*(Cin*Cmid + Cmid*Cout) FLOPs) on the tensor cores and
+// the depthwise (2*px*k*k*Cmid) on the f32 pipes.  f32 accuracy on the
+// tensor cores takes the 3xTF32 split (hopper.cuh): three tf32 products at
+// 495/3 TFLOP/s.  At the b3 CAM shapes that bound is about half the f32
+// one, and the early blocks (Cmid <= 288) sit on the bytes side.
 //
-//   1. expand_dw: one CTA per (image, TH x TW output tile, TC mid channels).
-//      It computes the expand product for the tile plus its k/2 halo in
-//      shared memory (recomputing the halo rather than exchanging it),
-//      applies BN0 + swish + mask, runs the depthwise k x k + BN1 + swish +
-//      mask from shared memory, writes d, and writes the tile's SE partial
-//      sums.  No atomics: a fixed-order sum, so results repeat run to run.
-//   2. se: one CTA per image reduces the partials and runs both SE FCs.
-//   3. project: a tiled GEMM over (B*H*W) x Cout that scales d by the gate
-//      as it loads it; BN2, the mask and the residual in the epilogue.
+// Design: three launches, because the SE gate needs a reduction over the
+// whole image before the project can start.
 //
-// Bound on the card: the ideal kernel moves x in and y out (d never leaves
-// the chip) and does 2*B*H*W*(Cin*Cmid + k*k*Cmid + Cmid*Cout) FLOPs on the
-// f32 pipes (67 TFLOP/s, 3.35 TB/s).  At the b3 CAM shapes every block sits
-// on the operations side of that line.  This first version writes d to HBM
-// and reads it back (3x the ideal bytes at Cmid = 6 Cin) and runs its
-// products as plain f32 FMAs from shared memory, without tensor cores;
-// keeping d on chip and moving the 1x1 products to wgmma/TMA is later work.
+//   a. expand_dw: one CTA per (image, TH x 16 output tile, 64 mid
+//      channels), TH = 12 at k = 3 and 8 at k = 5, so the halo (252 or 240
+//      pixels, 1.31x and 1.88x the tile) fills four 64-row wgmma tiles.
+//      Per 32-deep chunk of Cin, TMA brings the halo of x (one 128-byte
+//      swizzled row per pixel; out-of-image pixels and channels arrive
+//      zero) and the 64 x 32 tiles of w_exp_kt into a ring of two stages
+//      on mbarriers.  Each warpgroup runs wgmma m64n64k8 tf32 on two of
+//      the row tiles in the 3xTF32 split: A (x) by ldmatrix into registers,
+//      split there, B from shared memory.  BN0 + swish + mask write e over
+//      the ring; a CTA takes ~98 KB, so two share an SM.  Without an
+//      expand, 32 channels of x go by TMA straight into e.  The depthwise
+//      reads e from shared memory with the k*k taps in registers and a
+//      sliding window along each row (k shared reads per output, not k*k),
+//      then BN1 + swish + mask, SE partial sums in a fixed order (no
+//      atomics), and d to HBM in the stream variant.
+//   b. se: one CTA per image reduces the partials and runs both SE FCs.
+//   c. project, one of two variants the wrapper picks per shape:
+//      - stream (project_kernel): per-image 64-pixel x 64-channel tiles;
+//        a producer warp keeps a ring of up to 4 stages of TMA tiles (d and
+//        both halves of w_proj_kt) in flight; a consumer warpgroup runs
+//        wgmma m64n64k8 tf32 with A (d) from registers, where the SE gate
+//        and the hi/lo split are applied (gating A in registers costs
+//        nothing and avoids writing a gated W per image: 57 MB at
+//        _blocks_25), and B from shared memory; BN2, the mask and the
+//        residual in the epilogue, staged through shared memory and stored
+//        as 16-byte writes.
+//      - recompute (project_recompute_kernel): d never goes to HBM.  A CTA
+//        owns an 8 x 16 pixel tile and 64 output channels and walks Cmid in
+//        chunks of 32: it recomputes e over the tile's halo (as in a) and d
+//        into shared memory, gates it, and accumulates y += d * W_proj on
+//        the tensor cores.  Here the product is mma.sync m16n8k8 tf32: its
+//        A operand is written chunk by chunk by the same warps that read it,
+//        M = 128 and N = 64 per CTA, and the shapes this variant is meant
+//        for (Cmid <= 288) are bound by bytes, not by the product; wgmma
+//        would add a warpgroup hand-off per chunk for no gain there.  Its
+//        expand is mma.sync too (an 8 x 16 tile's halo, 180 or 240 rows, is
+//        ragged against wgmma's 64), fed by ldmatrix from the swizzled TMA
+//        tiles.  At the rates this kernel reaches the rebuild costs more
+//        than d's round trip at every b3 shape, so the wrapper streams them
+//        all (ops/mbconv.py pick_variant).
+//
+// Every sum runs in a fixed order: results repeat bit for bit.
 
-#include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int TH = 8;    // output rows per expand_dw tile
-constexpr int TW = 16;   // output columns per expand_dw tile
-constexpr int TC = 32;   // mid channels per expand_dw CTA: one per lane
-constexpr int KC = 8;    // input channels per expand chunk (two float4s)
-constexpr int NT = 256;  // threads per CTA
+using namespace hopper;
+
+constexpr int NT = 256;  // threads of the expand_dw and recompute CTAs
 constexpr int NWARP = NT / 32;
-static_assert(NT == 256 && TC == 32 && KC * TC == NT,
-              "the expand and project thread maps assume 256 threads, 32 channels");
+constexpr int KC = 32;   // input channels per TMA chunk: one 128-byte row
+constexpr int RC_TH = 8;  // output rows per recompute tile
+constexpr int TW = 16;   // output columns per tile
 
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
 __device__ __forceinline__ float swishf_(float v) { return v * sigmoidf_(v); }
@@ -57,169 +92,380 @@ __device__ __forceinline__ bool in_window(const int* w, int y, int x) {
   return y >= w[0] && y < w[0] + w[2] && x >= w[1] && x < w[1] + w[3];
 }
 
-template <int K, bool EXPAND>
-__global__ void __launch_bounds__(NT) expand_dw_kernel(
-    const float* __restrict__ x, const int* __restrict__ win,
-    const float* __restrict__ w_exp, const float* __restrict__ s0,
-    const float* __restrict__ b0, const float* __restrict__ w_dw,
-    const float* __restrict__ s1, const float* __restrict__ b1,
-    float* __restrict__ d, float* __restrict__ part,
-    int H, int W, int Cin, int Cmid, int tiles_w) {
-  constexpr int P = K / 2;
-  constexpr int HH = TH + 2 * P;
-  constexpr int HW = TW + 2 * P;
-  constexpr int HP = HH * HW;                      // halo pixels
-  constexpr int PPT = (HP + 31) / 32;              // halo pixels per thread (expand)
-  constexpr int OPER = TH * TW / NWARP;            // output pixels per warp
+__device__ __forceinline__ char* align1024(char* p) {
+  return reinterpret_cast<char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
 
-  __shared__ __align__(16) float e_s[HP * TC];
-  __shared__ __align__(16) float x_s[HP * KC];
-  __shared__ __align__(16) float w_s[KC * TC];
-  __shared__ float wdw_s[K * K * TC];
-  __shared__ float red_s[NWARP * TC];
-  __shared__ int win_s[4];
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.z;
-  const int c0 = blockIdx.y * TC;
-  const int c = c0 + lane;
-  const bool cok = c < Cmid;
-  const int ty0 = (blockIdx.x / tiles_w) * TH;
-  const int tx0 = (blockIdx.x % tiles_w) * TW;
-  const size_t img = (size_t)b * H * W;
+// Geometry of the TH x TW output tile, TC mid channels, k x k, and of the
+// staging buffer for the mma.sync expand's (x, w_exp) chunks.
+template <int K, int TH, int TC, bool EXPAND>
+struct Tile {
+  static constexpr int P = K / 2;
+  static constexpr int HH = TH + 2 * P, HW = TW + 2 * P, HP = HH * HW;  // halo
+  static constexpr int HPAD = (HP + 15) / 16 * 16;  // rows of the expand product
+  static constexpr int MT = HPAD / 16;
+  static constexpr int WPN = NWARP / (TC / 32);  // warps per 32-channel slice
+  static constexpr int MPW = (MT + WPN - 1) / WPN;  // m16 tiles per warp
+  static constexpr int ESP = EXPAND ? TC + 4 : TC;         // e row pitch (floats)
+  static constexpr int XBYTES = HPAD * 128;                // one x chunk
+  static constexpr int WBYTES = TC * 128;                  // one half of a w_exp chunk
+  static constexpr int STAGE = XBYTES + 2 * WBYTES;        // multiple of 1024
+  static constexpr int E_BYTES = HP * ESP * 4;
+  // e is written over the staging buffer once the last chunk is consumed
+  static constexpr int REGION = EXPAND ? cmax(STAGE, E_BYTES) : E_BYTES;
+  static_assert(TC % 32 == 0 && NT % TC == 0, "channel slice");
+};
 
-  if (threadIdx.x < 4) win_s[threadIdx.x] = win[4 * b + threadIdx.x];
-  for (int i = threadIdx.x; i < K * K * TC; i += NT) {
-    const int cc = c0 + i % TC;
-    wdw_s[i] = cc < Cmid ? w_dw[(size_t)(i / TC) * Cmid + cc] : 0.f;
-  }
-  __syncthreads();
-
-  if constexpr (EXPAND) {
-    // the expand product as a (halo pixels x TC) tile: each thread holds
-    // 4 channels of PPT pixels, so one float4 of x feeds 16 FMAs
-    const int quad = threadIdx.x & 7;  // channels 4*quad .. 4*quad+3 of the tile
-    const int pg = threadIdx.x >> 3;   // pixels pg, pg + 32, ...
-    float acc[PPT][4];
-#pragma unroll
-    for (int j = 0; j < PPT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
-    // staging of the next input chunk in registers while this one is
-    // multiplied: thread t stages input channel k0 + t % KC of halo pixels
-    // t / KC + 32 i, and one expand weight
-    constexpr int XL = (HP + 31) / 32;
-    long long xoff[XL];  // element offset of the staged pixel's row, -1 outside
-#pragma unroll
-    for (int t = 0; t < XL; ++t) {
-      const int pix = pg + 32 * t;
-      const int gy = ty0 - P + pix / HW, gx = tx0 - P + pix % HW;
-      const bool ok = pix < HP && gy >= 0 && gy < H && gx >= 0 && gx < W;
-      xoff[t] = ok ? (long long)(img + (size_t)gy * W + gx) * Cin : -1;
+// Fills e (HP x ESP floats at the start of the staging region `buf`) for
+// the halo of the output tile at (ty0, tx0), mid channels c0 .. c0 + TC - 1,
+// with the expand as mma.sync (the recompute project's chunks of 32
+// channels), or e = x without one.  `seq` counts the loads this CTA has
+// issued into the region, each one use of xbar[0] (parity seq % 2).  The
+// caller has synchronised since the region was last read.  Ends
+// synchronised.
+template <int K, int TH, int TC, bool EXPAND>
+__device__ void expand_tile(const CUtensorMap* xmap, const CUtensorMap* wmap,
+                            const float* __restrict__ s0, const float* __restrict__ b0,
+                            char* buf, uint64_t* xbar, const int* win_s, int b, int ty0,
+                            int tx0, int c0, int H, int W, int Cin, int Cmid, uint32_t& seq) {
+  using T = Tile<K, TH, TC, EXPAND>;
+  const int tid = threadIdx.x;
+  float* e_s = reinterpret_cast<float*>(buf);
+  if constexpr (!EXPAND) {
+    // e = x * mask: one TMA box of TC channels straight into e_s
+    const uint32_t s = seq++;
+    if (tid == 0) {
+      mbar_expect_tx(&xbar[0], T::HP * TC * 4);
+      tma_load_4d(e_s, xmap, &xbar[0], c0, tx0 - T::P, ty0 - T::P, b);
     }
-    const int skk = threadIdx.x % KC;
-    float xr[XL], wr;
-    auto stage = [&](int k0) {
-      const int ci = k0 + skk;
+    mbar_wait(&xbar[0], s & 1);
+    for (int i = tid; i < T::HP * TC; i += NT) {
+      const int pix = i / TC;
+      if (!in_window(win_s, ty0 - T::P + pix / T::HW, tx0 - T::P + pix % T::HW)) e_s[i] = 0.f;
+    }
+    __syncthreads();
+  } else {
+    const int lane = tid & 31, warp = tid >> 5;
+    const int nk = (Cin + KC - 1) / KC;
+
+    // warp w owns channels 32 * (w / WPN) .. + 31 and m16 tiles w % WPN,
+    // w % WPN + WPN, ...: its B fragments serve all of its tiles.  ldmatrix
+    // row addresses of lane (matrix j = lane / 8, row lane % 8): for A (x
+    // rows) +8 rows when j is odd and the next 16-byte chunk when j >= 2;
+    // for B (w rows, one per channel) the next chunk when j is odd and +8
+    // rows when j >= 2.  Every row index is = lane % 8 mod 8, which is what
+    // the 128-byte swizzle XORs into the chunk.
+    const int nh = warp / T::WPN, wm = warp % T::WPN;
+    const int lr = lane & 7, lj = lane >> 3;
+    const int a_row = lr + 8 * (lj & 1), a_ch = lj >> 1;
+    const int b_row = nh * 32 + lr + 8 * (lj >> 1), b_ch = lj & 1;
+    float acc[T::MPW][4][4];
 #pragma unroll
-      for (int t = 0; t < XL; ++t) xr[t] = (xoff[t] >= 0 && ci < Cin) ? x[xoff[t] + ci] : 0.f;
-      const int wi = k0 + threadIdx.x / TC, wc = c0 + threadIdx.x % TC;
-      wr = (wc < Cmid && wi < Cin) ? w_exp[(size_t)wi * Cmid + wc] : 0.f;
-    };
-    stage(0);
-    for (int k0 = 0; k0 < Cin; k0 += KC) {
-      __syncthreads();  // the previous chunk has been consumed
+    for (int i = 0; i < T::MPW; ++i)
 #pragma unroll
-      for (int t = 0; t < XL; ++t)
-        if (pg + 32 * t < HP) x_s[(pg + 32 * t) * KC + skk] = xr[t];
-      w_s[threadIdx.x] = wr;
-      __syncthreads();
-      if (k0 + KC < Cin) stage(k0 + KC);
+      for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-      for (int kq = 0; kq < KC; kq += 4) {
-        float4 wv[4];
+        for (int q = 0; q < 4; ++q) acc[i][nt][q] = 0.f;
+
+    for (int kc = 0; kc < nk; ++kc) {
+      if (tid == 0) {
+        mbar_expect_tx(&xbar[0], T::HP * 128 + 2 * T::WBYTES);
+        tma_load_4d(buf, xmap, &xbar[0], kc * KC, tx0 - T::P, ty0 - T::P, b);
+        tma_load_3d(buf + T::XBYTES, wmap, &xbar[0], kc * KC, c0, 0);
+        tma_load_3d(buf + T::XBYTES + T::WBYTES, wmap, &xbar[0], kc * KC, c0, 1);
+      }
+      mbar_wait(&xbar[0], seq++ & 1);
+      const uint32_t xs = smem_addr(buf);
+      const uint32_t wh = xs + T::XBYTES, wl = wh + T::WBYTES;
 #pragma unroll
-        for (int t = 0; t < 4; ++t)
-          wv[t] = *reinterpret_cast<const float4*>(w_s + (kq + t) * TC + 4 * quad);
+      for (int ks = 0; ks < KC / 8; ++ks) {
+        uint32_t bh[2][4], bl[2][4];  // n8 tiles (2p, 2p + 1): b0, b1, b0, b1
 #pragma unroll
-        for (int j = 0; j < PPT; ++j) {
-          const int pix = pg + 32 * j;
-          if (pix < HP) {
-            const float4 xv = *reinterpret_cast<const float4*>(x_s + pix * KC + kq);
-            const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+        for (int pp = 0; pp < 2; ++pp) {
+          const uint32_t off = (b_row + 16 * pp) * 128 + (((2 * ks + b_ch) ^ lr) << 4);
+          ldsm_x4(wh + off, bh[pp]);
+          ldsm_x4(wl + off, bl[pp]);
+        }
 #pragma unroll
-            for (int t = 0; t < 4; ++t) {
-              acc[j][0] = fmaf(xs[t], wv[t].x, acc[j][0]);
-              acc[j][1] = fmaf(xs[t], wv[t].y, acc[j][1]);
-              acc[j][2] = fmaf(xs[t], wv[t].z, acc[j][2]);
-              acc[j][3] = fmaf(xs[t], wv[t].w, acc[j][3]);
+        for (int i = 0; i < T::MPW; ++i) {
+          const int mt = wm + i * T::WPN;
+          if (mt < T::MT) {
+            uint32_t a[4], ah[4], al[4];
+            ldsm_x4(xs + (mt * 16 + a_row) * 128 + (((2 * ks + a_ch) ^ lr) << 4), a);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) split_tf32(__uint_as_float(a[q]), ah[q], al[q]);
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt) {
+              const int pp = nt >> 1, o = (nt & 1) * 2;
+              mma_3xtf32(acc[i][nt], ah, al, bh[pp][o], bh[pp][o + 1], bl[pp][o], bl[pp][o + 1]);
             }
           }
         }
       }
+      __syncthreads();  // the chunk is consumed before the next TMA or e
     }
-    float sc[4], bi[4];
+
+    // BN0 + swish + mask into e_s (over the consumed staging buffer)
+    const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int cc = c0 + 4 * quad + q;
-      sc[q] = cc < Cmid ? s0[cc] : 0.f;
-      bi[q] = cc < Cmid ? b0[cc] : 0.f;
-    }
+    for (int nt = 0; nt < 4; ++nt) {
+      const int col = nh * 32 + nt * 8 + 2 * t, cc = c0 + col;
+      const float2 sc = cc < Cmid ? *reinterpret_cast<const float2*>(s0 + cc) : float2{0.f, 0.f};
+      const float2 bi = cc < Cmid ? *reinterpret_cast<const float2*>(b0 + cc) : float2{0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < PPT; ++j) {
-      const int pix = pg + 32 * j;
-      if (pix < HP) {
-        const int gy = ty0 - P + pix / HW, gx = tx0 - P + pix % HW;
-        const bool keep = gy >= 0 && gy < H && gx >= 0 && gx < W && in_window(win_s, gy, gx);
-        float4 e;
-        e.x = keep ? swishf_(acc[j][0] * sc[0] + bi[0]) : 0.f;
-        e.y = keep ? swishf_(acc[j][1] * sc[1] + bi[1]) : 0.f;
-        e.z = keep ? swishf_(acc[j][2] * sc[2] + bi[2]) : 0.f;
-        e.w = keep ? swishf_(acc[j][3] * sc[3] + bi[3]) : 0.f;
-        *reinterpret_cast<float4*>(e_s + pix * TC + 4 * quad) = e;
+      for (int i = 0; i < T::MPW; ++i) {
+        const int mt = wm + i * T::WPN;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = mt * 16 + g + 8 * h;
+          if (mt < T::MT && row < T::HP) {
+            const int gy = ty0 - T::P + row / T::HW, gx = tx0 - T::P + row % T::HW;
+            const bool keep = gy >= 0 && gy < H && gx >= 0 && gx < W && in_window(win_s, gy, gx);
+            float2 e;
+            e.x = keep ? swishf_(acc[i][nt][2 * h] * sc.x + bi.x) : 0.f;
+            e.y = keep ? swishf_(acc[i][nt][2 * h + 1] * sc.y + bi.y) : 0.f;
+            *reinterpret_cast<float2*>(e_s + row * T::ESP + col) = e;
+          }
+        }
       }
     }
-  } else {  // no expand: Cmid == Cin, the depthwise runs on x itself
-    for (int i = threadIdx.x; i < HP * TC; i += NT) {
-      const int pix = i / TC, cc = c0 + i % TC;
-      const int gy = ty0 - P + pix / HW, gx = tx0 - P + pix % HW;
-      float v = 0.f;
-      if (cc < Cmid && gy >= 0 && gy < H && gx >= 0 && gx < W && in_window(win_s, gy, gx))
-        v = x[(img + (size_t)gy * W + gx) * Cin + cc];
-      e_s[i] = v;
-    }
+    __syncthreads();
   }
-  __syncthreads();
+}
 
-  const float sc1 = cok ? s1[c] : 0.f;
-  const float bi1 = cok ? b1[c] : 0.f;
-  float psum = 0.f;
-#pragma unroll 4
-  for (int j = 0; j < OPER; ++j) {
-    const int opix = warp + NWARP * j;
-    const int ly = opix / TW, lx = opix % TW;
-    const int gy = ty0 + ly, gx = tx0 + lx;
-    float a = 0.f;
+// The depthwise k x k + BN1 + swish over the TH x TW tile from e_s: thread
+// (c = tid % TC, row group tid / TC) runs along its rows with the k*k taps
+// in registers and a k x k window of e sliding along the row.  Calls
+// out(ly, lx, c, v) for every output pixel of its rows, v before the mask.
+template <int K, int TH, int TC, int ESP, class Out>
+__device__ __forceinline__ void depthwise_tile(const float* e_s, const float* __restrict__ w_dw,
+                                               const float* __restrict__ s1,
+                                               const float* __restrict__ b1, int c0, int Cmid,
+                                               Out out) {
+  constexpr int HW = TW + 2 * (K / 2);
+  constexpr int RG = NT / TC;
+  constexpr int RPG = (TH + RG - 1) / RG;
+  const int c = threadIdx.x % TC, rg = threadIdx.x / TC;
+  const bool cok = c0 + c < Cmid;
+  float wk[K * K];
+#pragma unroll
+  for (int i = 0; i < K * K; ++i) wk[i] = cok ? w_dw[(size_t)i * Cmid + c0 + c] : 0.f;
+  const float sc1 = cok ? s1[c0 + c] : 0.f, bi1 = cok ? b1[c0 + c] : 0.f;
+#pragma unroll 1
+  for (int rr = 0; rr < RPG; ++rr) {
+    const int ly = rg * RPG + rr;
+    if (ly >= TH) break;
+    float wnd[K][K];
 #pragma unroll
     for (int ky = 0; ky < K; ++ky)
 #pragma unroll
-      for (int kx = 0; kx < K; ++kx)
-        a = fmaf(e_s[((ly + ky) * HW + lx + kx) * TC + lane], wdw_s[(ky * K + kx) * TC + lane], a);
-    float v = swishf_(a * sc1 + bi1);
-    if (gy < H && gx < W) {
-      v = in_window(win_s, gy, gx) ? v : 0.f;
-      if (cok) d[(img + (size_t)gy * W + gx) * Cmid + c] = v;
-      psum += v;
+      for (int kx = 0; kx < K - 1; ++kx) wnd[ky][kx + 1] = e_s[((ly + ky) * HW + kx) * ESP + c];
+#pragma unroll
+    for (int lx = 0; lx < TW; ++lx) {
+      float a = 0.f;
+#pragma unroll
+      for (int ky = 0; ky < K; ++ky) {
+#pragma unroll
+        for (int kx = 0; kx < K - 1; ++kx) wnd[ky][kx] = wnd[ky][kx + 1];
+        wnd[ky][K - 1] = e_s[((ly + ky) * HW + lx + K - 1) * ESP + c];
+#pragma unroll
+        for (int kx = 0; kx < K; ++kx) a = fmaf(wnd[ky][kx], wk[ky * K + kx], a);
+      }
+      out(ly, lx, c, swishf_(a * sc1 + bi1));
     }
   }
-  red_s[warp * TC + lane] = psum;
+}
+
+// expand_dw's tiles: TH x 16 output pixels, 64 mid channels with an
+// expand (the halo, 252 or 240 rows, fills four 64-row wgmma tiles), 32
+// channels of x without one.
+template <int K, bool EXPAND>
+__host__ __device__ constexpr int dw_th() { return EXPAND && K == 3 ? 12 : 8; }
+template <bool EXPAND>
+__host__ __device__ constexpr int dw_tc() { return EXPAND ? 64 : 32; }
+
+// Shared memory of expand_dw's wgmma expand: two stages of (x halo chunk,
+// written by TMA | w_exp_kt chunk hi | lo); e is written over them.
+template <int K, int TH>
+struct WgTile {
+  static constexpr int P = K / 2;
+  static constexpr int HW = TW + 2 * P, HP = (TH + 2 * P) * HW;  // halo
+  static constexpr int MT = (HP + 63) / 64;                      // 64-row wgmma tiles
+  static constexpr int XBYTES = MT * 64 * 128, WBYTES = 64 * 128;
+  static constexpr int STAGE = XBYTES + 2 * WBYTES;
+  static constexpr int ESP = 64 + 4;  // e row pitch (floats)
+  static constexpr int REGION = cmax(2 * STAGE, HP * ESP * 4);
+};
+
+// expand_dw's expand on wgmma: e (HP x ESP floats at `buf`) for the halo of
+// the output tile at (ty0, tx0), mid channels c0 .. c0 + 63.  Per 32-deep
+// chunk of Cin, TMA brings the x halo and the w_exp_kt tiles into one of
+// two stages (barrier xbar[kc % 2]), the next chunk's loads flying while
+// this one is multiplied.  Warpgroup w runs the 64-row tiles 2w and 2w + 1
+// against all 64 channels: A (x) by ldmatrix from the swizzled tile into
+// registers, split into tf32 hi and lo there, B (w) from shared memory;
+// each tile's 3xTF32 products of the chunk in a fresh accumulator added in
+// f32.  Ends synchronised.
+template <int K, int TH>
+__device__ void expand_tile_wgmma(const CUtensorMap* xmap, const CUtensorMap* wmap,
+                                  const float* __restrict__ s0, const float* __restrict__ b0,
+                                  char* buf, uint64_t* xbar, const int* win_s, int b, int ty0,
+                                  int tx0, int c0, int H, int W, int Cin, int Cmid) {
+  using T = WgTile<K, TH>;
+  static_assert(T::MT == 4 && NT == 256, "two 64-row tiles per warpgroup, two warpgroups");
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
+  const int lr = lane & 7, lj = lane >> 3;
+  const int nk = (Cin + KC - 1) / KC;
+  auto issue = [&](int kc) {  // chunk kc into stage kc % 2
+    char* st = buf + (kc & 1) * T::STAGE;
+    uint64_t* bar = &xbar[kc & 1];
+    mbar_expect_tx(bar, T::HP * 128 + 2 * T::WBYTES);
+    tma_load_4d(st, xmap, bar, kc * KC, tx0 - T::P, ty0 - T::P, b);
+    tma_load_3d(st + T::XBYTES, wmap, bar, kc * KC, c0, 0);
+    tma_load_3d(st + T::XBYTES + T::WBYTES, wmap, bar, kc * KC, c0, 1);
+  };
+  if (tid == 0)
+    for (int i = 0; i < 2 && i < nk; ++i) issue(i);
+  float acc[2][32];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[m][i] = 0.f;
+
+  for (int kc = 0; kc < nk; ++kc) {
+    char* st = buf + (kc & 1) * T::STAGE;
+    mbar_wait(&xbar[kc & 1], (kc >> 1) & 1);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      // ldmatrix rows of A: this warp's 16 rows of tile 2w + m, +8 for odd
+      // j, the next 16-byte chunk for j >= 2 (row = lane mod 8, the swizzle)
+      const int a_row = (2 * wg + m) * 64 + wl * 16 + lr + 8 * (lj & 1);
+      uint32_t ah[4][4], al[4][4];
+#pragma unroll
+      for (int ks = 0; ks < KC / 8; ++ks) {
+        uint32_t a[4];
+        ldsm_x4(smem_addr(st) + a_row * 128 + (((2 * ks + (lj >> 1)) ^ lr) << 4), a);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) split_tf32(__uint_as_float(a[q]), ah[ks][q], al[ks][q]);
+      }
+      float part[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        part[i] = 0.f;
+        reg_fence(part[i]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KC / 8; ++ks) {
+        const uint64_t bh = desc_sw128(st + T::XBYTES + ks * 32);
+        const uint64_t bl = desc_sw128(st + T::XBYTES + T::WBYTES + ks * 32);
+        wgmma_m64n64k8_rs(part, al[ks], bh, ks > 0);
+        wgmma_m64n64k8_rs(part, ah[ks], bl, 1);
+        wgmma_m64n64k8_rs(part, ah[ks], bh, 1);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        reg_fence(part[i]);
+        acc[m][i] += part[i];
+      }
+    }
+    __syncthreads();  // the stage is consumed
+    if (tid == 0 && kc + 2 < nk) issue(kc + 2);
+  }
+
+  // BN0 + swish + mask into e (over the consumed stages)
+  float* e_s = reinterpret_cast<float*>(buf);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = j * 8 + 2 * t, cc = c0 + col;
+    const float2 sc = cc < Cmid ? *reinterpret_cast<const float2*>(s0 + cc) : float2{0.f, 0.f};
+    const float2 bi = cc < Cmid ? *reinterpret_cast<const float2*>(b0 + cc) : float2{0.f, 0.f};
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = (2 * wg + m) * 64 + wl * 16 + g + 8 * h;
+        if (row < T::HP) {
+          const int gy = ty0 - T::P + row / T::HW, gx = tx0 - T::P + row % T::HW;
+          const bool keep = gy >= 0 && gy < H && gx >= 0 && gx < W && in_window(win_s, gy, gx);
+          float2 e;
+          e.x = keep ? swishf_(acc[m][4 * j + 2 * h] * sc.x + bi.x) : 0.f;
+          e.y = keep ? swishf_(acc[m][4 * j + 2 * h + 1] * sc.y + bi.y) : 0.f;
+          *reinterpret_cast<float2*>(e_s + row * T::ESP + col) = e;
+        }
+      }
+    }
+  }
   __syncthreads();
-  if (warp == 0 && cok) {
+}
+
+template <int K, bool EXPAND>
+constexpr size_t expand_dw_smem() {
+  constexpr int region = EXPAND ? WgTile<K, dw_th<K, EXPAND>()>::REGION
+                                : Tile<K, dw_th<K, EXPAND>(), dw_tc<EXPAND>(), false>::REGION;
+  return 1024 + region + NT * 4 + 16 + 16;
+}
+
+template <int K, bool EXPAND, bool WRITE_D>
+__global__ void __launch_bounds__(NT, 2) expand_dw_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+    const int* __restrict__ win, const float* __restrict__ s0, const float* __restrict__ b0,
+    const float* __restrict__ w_dw, const float* __restrict__ s1, const float* __restrict__ b1,
+    float* __restrict__ d, float* __restrict__ part, int H, int W, int Cin, int Cmid,
+    int tiles_w) {
+  constexpr int TH = dw_th<K, EXPAND>(), TC = dw_tc<EXPAND>();
+  constexpr int REGION = EXPAND ? WgTile<K, TH>::REGION : Tile<K, TH, TC, false>::REGION;
+  constexpr int ESP = EXPAND ? WgTile<K, TH>::ESP : TC;
+  extern __shared__ char smem_raw[];
+  char* base = align1024(smem_raw);
+  float* red_s = reinterpret_cast<float*>(base + REGION);
+  int* win_s = reinterpret_cast<int*>(red_s + NT);
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(win_s + 4);
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.z, c0 = blockIdx.y * TC;
+  const int ty0 = (blockIdx.x / tiles_w) * TH, tx0 = (blockIdx.x % tiles_w) * TW;
+  if (tid < 4) win_s[tid] = win[4 * b + tid];
+  if (tid == 0) {
+    mbar_init(&xbar[0], 1);
+    mbar_init(&xbar[1], 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if constexpr (EXPAND) {
+    expand_tile_wgmma<K, TH>(&xmap, &wmap, s0, b0, base, xbar, win_s, b, ty0, tx0, c0, H, W,
+                             Cin, Cmid);
+  } else {
+    uint32_t seq = 0;
+    expand_tile<K, TH, TC, false>(&xmap, &wmap, s0, b0, base, xbar, win_s, b, ty0, tx0, c0, H,
+                                  W, Cin, Cmid, seq);
+  }
+
+  const size_t img = (size_t)b * H * W;
+  float psum = 0.f;
+  depthwise_tile<K, TH, TC, ESP>(reinterpret_cast<const float*>(base), w_dw, s1, b1, c0, Cmid,
+                                 [&](int ly, int lx, int c, float v) {
+                                   const int gy = ty0 + ly, gx = tx0 + lx;
+                                   if (gy < H && gx < W) {
+                                     v = in_window(win_s, gy, gx) ? v : 0.f;
+                                     if (WRITE_D && c0 + c < Cmid)
+                                       d[(img + (size_t)gy * W + gx) * Cmid + c0 + c] = v;
+                                     psum += v;
+                                   }
+                                 });
+  red_s[tid] = psum;  // row group tid / TC, channel tid % TC
+  __syncthreads();
+  if (tid < TC && c0 + tid < Cmid) {
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < NWARP; ++w) s += red_s[w * TC + lane];
-    part[((size_t)b * gridDim.x + blockIdx.x) * Cmid + c] = s;
+    for (int r = 0; r < NT / TC; ++r) s += red_s[r * TC + tid];
+    part[((size_t)b * gridDim.x + blockIdx.x) * Cmid + c0 + tid] = s;
   }
 }
 
@@ -232,8 +478,8 @@ __global__ void __launch_bounds__(SE_NT) se_kernel(
     const float* __restrict__ w_e, const float* __restrict__ b_e,
     float* __restrict__ gate, int Cmid, int Csq) {
   extern __shared__ float sm[];
-  float* mean = sm;            // Cmid
-  float* sq = sm + Cmid;       // Csq
+  float* mean = sm;       // Cmid
+  float* sq = sm + Cmid;  // Csq
   __shared__ float red[32][33];
   const int b = blockIdx.x;
   const int lane = threadIdx.x & 31, row = threadIdx.x >> 5;  // 32 rows of 32
@@ -271,111 +517,377 @@ __global__ void __launch_bounds__(SE_NT) se_kernel(
   }
 }
 
-constexpr int BM = 128, BN = 64, BK = 8;  // project tile; 8 x 4 outputs per thread
+// ---- c, stream: wgmma project over d from HBM ------------------------------
 
-// y[m, n] = ((d[m, :] * gate[b(m), :]) @ w_p[:, n]) * s2[n] + b2[n], masked
-// by the window, plus x[m, n] when the block has its residual.
-__global__ void __launch_bounds__(NT) project_kernel(
-    const float* __restrict__ dm, const float* __restrict__ gate,
-    const float* __restrict__ w_p, const float* __restrict__ s2,
-    const float* __restrict__ b2, const float* __restrict__ x,
-    const int* __restrict__ win, float* __restrict__ y,
-    long long M, int H, int W, int Cmid, int Cout, int has_skip) {
-  __shared__ __align__(16) float As[BK][BM + 4];  // gated d, k-major
-  __shared__ __align__(16) float Bs[BK][BN];
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;  // 16 x 16 threads
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const long long hw = (long long)H * W;
-  const bool vec = (Cmid & 3) == 0;
-  // A loader: row r of the tile, input channels kq .. kq+3 of the chunk
-  const int ar = threadIdx.x >> 1, akq = (threadIdx.x & 1) * 4;
-  const long long am = m0 + ar;
-  const float* drow = am < M ? dm + am * Cmid : nullptr;
-  const float* grow = am < M ? gate + (am / hw) * Cmid : nullptr;
-  float acc[8][4] = {};
-  // the next chunk is staged in registers while this one is multiplied
-  float av[4], bw[BK * BN / NT];
-  auto stage = [&](int k0) {
-    const int k = k0 + akq;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) av[q] = 0.f;
-    if (drow != nullptr) {
-      if (vec && k + 3 < Cmid) {
-        const float4 dv = *reinterpret_cast<const float4*>(drow + k);
-        const float4 gv = *reinterpret_cast<const float4*>(grow + k);
-        av[0] = dv.x * gv.x;
-        av[1] = dv.y * gv.y;
-        av[2] = dv.z * gv.z;
-        av[3] = dv.w * gv.w;
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (k + q < Cmid) av[q] = drow[k + q] * grow[k + q];
+constexpr int PBM = 64, PBN = 64, PSTAGES = 4;
+constexpr int P_THREADS = 160;  // one consumer warpgroup and a producer warp
+constexpr int PA_BYTES = PBM * 128, PB_BYTES = PBN * 128;
+constexpr int PSTAGE_BYTES = PA_BYTES + 2 * PB_BYTES;
+constexpr int PSTG = PBN + 4;  // epilogue staging pitch (floats)
+constexpr int PSTG_BYTES = PBM * PSTG * 4;
+
+int project_stages(int Cmid) {
+  const int nk = (Cmid + 31) / 32;
+  return nk < PSTAGES ? nk : PSTAGES;
+}
+
+size_t project_smem(int Cmid) {
+  return 1024 + cmax(project_stages(Cmid) * PSTAGE_BYTES, PSTG_BYTES) +
+         (size_t)(Cmid + 31) / 32 * 32 * 4 + 16 + 2 * PSTAGES * 8;
+}
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// y[b, p, n] = ((d[b, p, :] * gate[b, :]) @ W_proj[:, n]) * s2[n] + b2[n],
+// masked, plus x[b, p, n] with the residual; a CTA owns pixels p0 .. p0 +
+// 63 of image b and channels n0 .. n0 + 63.  (A CTA that walks several
+// pixel tiles, with the ring running on across them, measured slower at
+// every b3 shape: it needs a staging buffer beside the ring, which halves
+// the CTAs an SM holds.)
+__global__ void __launch_bounds__(P_THREADS) project_kernel(
+    const __grid_constant__ CUtensorMap dmap, const __grid_constant__ CUtensorMap wmap,
+    const float* __restrict__ gate, const float* __restrict__ s2, const float* __restrict__ b2,
+    const float* __restrict__ x, const int* __restrict__ win, float* __restrict__ y, int H,
+    int W, int Cmid, int Cout, int has_skip, int stages) {
+  extern __shared__ char smem_raw[];
+  char* ring = align1024(smem_raw);
+  const int nk = (Cmid + 31) / 32;
+  float* gate_s = reinterpret_cast<float*>(ring + cmax(stages * PSTAGE_BYTES, PSTG_BYTES));
+  int* win_s = reinterpret_cast<int*>(gate_s + nk * 32);
+  uint64_t* full = reinterpret_cast<uint64_t*>(win_s + 4);
+  uint64_t* empty = full + PSTAGES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.x * PBN, p0 = blockIdx.y * PBM, b = blockIdx.z;
+  for (int i = tid; i < nk * 32; i += P_THREADS)
+    gate_s[i] = i < Cmid ? gate[(size_t)b * Cmid + i] : 0.f;
+  if (tid < 4) win_s[tid] = win[4 * b + tid];
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // producer
+    if (lane == 0) {
+      for (int kc = 0; kc < nk; ++kc) {
+        const int s = kc % stages;
+        if (kc >= stages) mbar_wait(&empty[s], ((kc / stages) - 1) & 1);
+        char* st = ring + s * PSTAGE_BYTES;
+        mbar_expect_tx(&full[s], PSTAGE_BYTES);
+        tma_load_3d(st, &dmap, &full[s], kc * 32, p0, b);
+        tma_load_3d(st + PA_BYTES, &wmap, &full[s], kc * 32, n0, 0);
+        tma_load_3d(st + PA_BYTES + PB_BYTES, &wmap, &full[s], kc * 32, n0, 1);
       }
     }
-#pragma unroll
-    for (int t = 0; t < BK * BN / NT; ++t) {
-      const int i = threadIdx.x + t * NT;
-      const int kr = k0 + i / BN, n = n0 + i % BN;
-      bw[t] = (kr < Cmid && n < Cout) ? w_p[(size_t)kr * Cout + n] : 0.f;
-    }
-  };
-  stage(0);
-  for (int k0 = 0; k0 < Cmid; k0 += BK) {
-    __syncthreads();  // the previous chunk has been consumed
-#pragma unroll
-    for (int q = 0; q < 4; ++q) As[akq + q][ar] = av[q];
-#pragma unroll
-    for (int t = 0; t < BK * BN / NT; ++t) {
-      const int i = threadIdx.x + t * NT;
-      Bs[i / BN][i % BN] = bw[t];
-    }
-    __syncthreads();
-    if (k0 + BK < Cmid) stage(k0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 8]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][ty * 8 + 4]);
-      const float4 bq = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
+    return;
   }
 
+  const int g = lane >> 2, t = lane & 3, lr = lane & 7, lj = lane >> 3;
+  // ldmatrix rows of A (d): warp's 16 rows, +8 for odd j, next chunk for j >= 2
+  const int a_row = warp * 16 + lr + 8 * (lj & 1);
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  for (int kc = 0; kc < nk; ++kc) {
+    const int s = kc % stages;
+    mbar_wait(&full[s], (kc / stages) & 1);
+    const char* st = ring + s * PSTAGE_BYTES;
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const int k0 = ks * 8 + t;
+      const float g0 = gate_s[kc * 32 + k0], g1 = gate_s[kc * 32 + k0 + 4];
+      uint32_t a[4];
+      ldsm_x4(smem_addr(st) + a_row * 128 + (((2 * ks + (lj >> 1)) ^ lr) << 4), a);
+      const float gq[4] = {g0, g0, g1, g1};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) split_tf32(__uint_as_float(a[q]) * gq[q], ah[ks][q], al[ks][q]);
+    }
+    // this stage's 32-deep product in a fresh accumulator (the tensor
+    // cores' accumulation truncates), added to acc in f32
+    float part[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      part[i] = 0.f;
+      reg_fence(part[i]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint64_t dh = desc_sw128(st + PA_BYTES + ks * 32);
+      const uint64_t dl = desc_sw128(st + PA_BYTES + PB_BYTES + ks * 32);
+      wgmma_m64n64k8_rs(part, al[ks], dh, ks > 0);
+      wgmma_m64n64k8_rs(part, ah[ks], dl, 1);
+      wgmma_m64n64k8_rs(part, ah[ks], dh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      reg_fence(part[i]);
+      acc[i] += part[i];
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // epilogue: stage the 64 x 64 tile over the ring, then 16-byte stores
+  named_sync(1, 128);  // every consumer warp is done with the ring
+  float* stg = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = j * 8 + 2 * t, row = warp * 16 + g;
+    *reinterpret_cast<float2*>(stg + row * PSTG + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(stg + (row + 8) * PSTG + col) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  named_sync(1, 128);
+  const int HWn = H * W;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const long long m = m0 + ty * 8 + i;
-    if (m >= M) continue;
-    const long long b = m / hw;
-    const long long rem = m - b * hw;
-    const int gy = (int)(rem / W), gx = (int)(rem % W);
-    const bool keep = in_window(win + 4 * b, gy, gx);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= Cout) continue;
-      float v = keep ? acc[i][j] * s2[n] + b2[n] : 0.f;
-      if (has_skip) v += x[m * Cout + n];
-      y[m * Cout + n] = v;
+    const int idx = i * 128 + tid, row = idx / 16, q = idx % 16;
+    const int p = p0 + row, n = n0 + 4 * q;
+    if (p < HWn && n < Cout) {
+      const bool keep = in_window(win_s, p / W, p % W);
+      float4 v = *reinterpret_cast<const float4*>(stg + row * PSTG + 4 * q);
+      const float4 sc = *reinterpret_cast<const float4*>(s2 + n);
+      const float4 bi = *reinterpret_cast<const float4*>(b2 + n);
+      v.x = keep ? v.x * sc.x + bi.x : 0.f;
+      v.y = keep ? v.y * sc.y + bi.y : 0.f;
+      v.z = keep ? v.z * sc.z + bi.z : 0.f;
+      v.w = keep ? v.w * sc.w + bi.w : 0.f;
+      const size_t o = ((size_t)b * HWn + p) * Cout + n;
+      if (has_skip) {
+        const float4 r = *reinterpret_cast<const float4*>(x + o);
+        v.x += r.x;
+        v.y += r.y;
+        v.z += r.z;
+        v.w += r.w;
+      }
+      *reinterpret_cast<float4*>(y + o) = v;
     }
   }
 }
 
+// ---- c, recompute: e and d rebuilt on chip, mma.sync project ---------------
+
+constexpr int RC_TC = 32, RC_BN = 64;
+constexpr int RC_DSP = RC_TC + 4;       // d chunk pitch (conflict-free A fragments)
+constexpr int RC_PBYTES = RC_BN * 128;  // one half of a w_proj_kt chunk
+
 template <int K, bool EXPAND>
-cudaError_t launch_expand_dw(const float* x, const int* win, const float* w_exp,
-                             const float* s0, const float* b0, const float* w_dw,
-                             const float* s1, const float* b1, float* d, float* part,
-                             int B, int H, int W, int Cin, int Cmid, cudaStream_t st) {
-  const int tiles_w = (W + TW - 1) / TW;
-  const int tiles_h = (H + TH - 1) / TH;
-  dim3 grid(tiles_h * tiles_w, (Cmid + TC - 1) / TC, B);
-  expand_dw_kernel<K, EXPAND><<<grid, NT, 0, st>>>(x, win, w_exp, s0, b0, w_dw, s1, b1, d,
-                                                   part, H, W, Cin, Cmid, tiles_w);
+size_t recompute_smem(int Cmid) {
+  using T = Tile<K, RC_TH, RC_TC, EXPAND>;
+  return 1024 + 2 * RC_PBYTES + T::REGION + RC_TH * TW * RC_DSP * 4 +
+         (size_t)(Cmid + 31) / 32 * 32 * 4 + 16 + 32;
+}
+
+template <int K, bool EXPAND>
+__global__ void __launch_bounds__(NT, 2) project_recompute_kernel(
+    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wemap,
+    const __grid_constant__ CUtensorMap wpmap, const int* __restrict__ win,
+    const float* __restrict__ s0, const float* __restrict__ b0, const float* __restrict__ w_dw,
+    const float* __restrict__ s1, const float* __restrict__ b1, const float* __restrict__ gate,
+    const float* __restrict__ s2, const float* __restrict__ b2, const float* __restrict__ x,
+    float* __restrict__ y, int H, int W, int Cin, int Cmid, int Cout, int tiles_w,
+    int has_skip) {
+  using T = Tile<K, RC_TH, RC_TC, EXPAND>;
+  extern __shared__ char smem_raw[];
+  char* p_s = align1024(smem_raw);  // w_proj_kt chunk: hi, then lo
+  char* region = p_s + 2 * RC_PBYTES;
+  float* d_s = reinterpret_cast<float*>(region + T::REGION);
+  float* gate_s = d_s + RC_TH * TW * RC_DSP;
+  int* win_s = reinterpret_cast<int*>(gate_s + (Cmid + 31) / 32 * 32);
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(win_s + 4);  // xbar[0]; xbar[2] is pbar
+  uint64_t* pbar = xbar + 2;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, n0 = blockIdx.y * RC_BN;
+  const int ty0 = (blockIdx.x / tiles_w) * RC_TH, tx0 = (blockIdx.x % tiles_w) * TW;
+  for (int i = tid; i < Cmid; i += NT) gate_s[i] = gate[(size_t)b * Cmid + i];
+  if (tid < 4) win_s[tid] = win[4 * b + tid];
+  if (tid == 0) {
+    mbar_init(&xbar[0], 1);
+    mbar_init(pbar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  float acc[RC_BN / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < RC_BN / 8; ++nt)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[nt][q] = 0.f;
+
+  uint32_t seq = 0;
+  const int ncc = (Cmid + RC_TC - 1) / RC_TC;
+  for (int cc = 0; cc < ncc; ++cc) {
+    const int c0 = cc * RC_TC;
+    if (tid == 0) {
+      mbar_expect_tx(pbar, 2 * RC_PBYTES);
+      tma_load_3d(p_s, &wpmap, pbar, c0, n0, 0);
+      tma_load_3d(p_s + RC_PBYTES, &wpmap, pbar, c0, n0, 1);
+    }
+    expand_tile<K, RC_TH, RC_TC, EXPAND>(&xmap, &wemap, s0, b0, region, xbar, win_s, b, ty0, tx0,
+                                     c0, H, W, Cin, Cmid, seq);
+    depthwise_tile<K, RC_TH, RC_TC, T::ESP>(
+        reinterpret_cast<const float*>(region), w_dw, s1, b1, c0, Cmid,
+        [&](int ly, int lx, int c, float v) {
+          const int gy = ty0 + ly, gx = tx0 + lx;
+          const bool keep = gy < H && gx < W && in_window(win_s, gy, gx) && c0 + c < Cmid;
+          d_s[(ly * TW + lx) * RC_DSP + c] = keep ? v * gate_s[c0 + c] : 0.f;
+        });
+    __syncthreads();
+    mbar_wait(pbar, cc & 1);
+    {
+      // ldmatrix rows as in expand_tile: A from d_s (144-byte rows, no
+      // swizzle, conflict-free), B from the swizzled w_proj_kt chunk
+      const int lr = lane & 7, lj = lane >> 3;
+      const uint32_t a_addr = smem_addr(d_s) + (warp * 16 + lr + 8 * (lj & 1)) * RC_DSP * 4 +
+                              (lj >> 1) * 16;
+      const uint32_t ph = smem_addr(p_s), pl = ph + RC_PBYTES;
+#pragma unroll
+      for (int ks = 0; ks < RC_TC / 8; ++ks) {
+        uint32_t a[4], ah[4], al[4];
+        ldsm_x4(a_addr + ks * 32, a);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) split_tf32(__uint_as_float(a[q]), ah[q], al[q]);
+#pragma unroll
+        for (int pp = 0; pp < RC_BN / 16; ++pp) {
+          uint32_t bh[4], bl[4];
+          const uint32_t off = (16 * pp + lr + 8 * (lj >> 1)) * 128 +
+                               (((2 * ks + (lj & 1)) ^ lr) << 4);
+          ldsm_x4(ph + off, bh);
+          ldsm_x4(pl + off, bl);
+          mma_3xtf32(acc[2 * pp], ah, al, bh[0], bh[1], bl[0], bl[1]);
+          mma_3xtf32(acc[2 * pp + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+        }
+      }
+    }
+    __syncthreads();  // the region, d_s and the weight chunk are consumed
+  }
+
+  const size_t img = (size_t)b * H * W;
+#pragma unroll
+  for (int nt = 0; nt < RC_BN / 8; ++nt) {
+    const int n = n0 + nt * 8 + 2 * t;
+    if (n >= Cout) continue;
+    const float2 sc = *reinterpret_cast<const float2*>(s2 + n);
+    const float2 bi = *reinterpret_cast<const float2*>(b2 + n);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = warp * 16 + g + 8 * h;
+      const int gy = ty0 + m / TW, gx = tx0 + m % TW;
+      if (gy >= H || gx >= W) continue;
+      const bool keep = in_window(win_s, gy, gx);
+      float2 v = make_float2(keep ? acc[nt][2 * h] * sc.x + bi.x : 0.f,
+                             keep ? acc[nt][2 * h + 1] * sc.y + bi.y : 0.f);
+      const size_t o = (img + (size_t)gy * W + gx) * Cout + n;
+      if (has_skip) {
+        const float2 r = *reinterpret_cast<const float2*>(x + o);
+        v.x += r.x;
+        v.y += r.y;
+      }
+      *reinterpret_cast<float2*>(y + o) = v;
+    }
+  }
+}
+
+// ---- host ---------------------------------------------------------------------
+
+struct Args {
+  const float *x, *w_exp_kt, *s0, *b0, *w_dw, *s1, *b1, *w_se_r, *b_se_r, *w_se_e, *b_se_e,
+      *w_proj_kt, *s2, *b2;
+  const int* win;
+  float *d, *part, *gate, *y;
+  int B, H, W, Cin, Cmid, Csq, Cout, has_skip;
+  cudaStream_t st;
+};
+
+// x (B, H, W, C) as a 4-D tensor map with a box of `cbox` channels over
+// a th x 16 tile's (th + 2p) x (16 + 2p) pixel halo; the 128-byte swizzle for the
+// expand's 32-channel chunks, none where e = x is taken whole into e_s.
+bool x_map(CUtensorMap* map, const Args& a, int cbox, int k, int th, bool swizzle) {
+  const int p = k / 2;
+  const uint64_t dims[4] = {(uint64_t)a.Cin, (uint64_t)a.W, (uint64_t)a.H, (uint64_t)a.B};
+  const uint32_t box[4] = {(uint32_t)cbox, (uint32_t)(TW + 2 * p), (uint32_t)(th + 2 * p), 1};
+  return make_map_f32(map, a.x, 4, dims, box, swizzle);
+}
+
+// A K-major split weight (2, rows, K) as a 3-D map of 32 x `rows_box`
+// tiles in the 128-byte swizzle.
+bool kt_map(CUtensorMap* map, const float* w, int rows, int K, int rows_box) {
+  const uint64_t dims[3] = {(uint64_t)K, (uint64_t)rows, 2};
+  const uint32_t box[3] = {KC, (uint32_t)rows_box, 1};
+  return make_map_f32(map, w, 3, dims, box, true);
+}
+
+template <class F>
+cudaError_t set_smem(F* kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int K, bool EXPAND>
+cudaError_t launch_expand_dw(const Args& a, bool write_d) {
+  constexpr int TC = dw_tc<EXPAND>(), TH = dw_th<K, EXPAND>();
+  CUtensorMap xm, wm;
+  if (!x_map(&xm, a, EXPAND ? KC : TC, K, TH, EXPAND)) return cudaErrorInvalidValue;
+  if (!EXPAND)
+    wm = xm;  // unused
+  else if (!kt_map(&wm, a.w_exp_kt, a.Cmid, a.Cin, TC))
+    return cudaErrorInvalidValue;
+  const int tiles_w = (a.W + TW - 1) / TW, tiles_h = (a.H + TH - 1) / TH;
+  const dim3 grid(tiles_h * tiles_w, (a.Cmid + TC - 1) / TC, a.B);
+  constexpr size_t smem = expand_dw_smem<K, EXPAND>();
+  auto kern = write_d ? expand_dw_kernel<K, EXPAND, true> : expand_dw_kernel<K, EXPAND, false>;
+  cudaError_t err = set_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, NT, smem, a.st>>>(xm, wm, a.win, a.s0, a.b0, a.w_dw, a.s1, a.b1, a.d, a.part, a.H,
+                                 a.W, a.Cin, a.Cmid, tiles_w);
+  return cudaGetLastError();
+}
+
+template <int K, bool EXPAND>
+cudaError_t launch_recompute(const Args& a) {
+  CUtensorMap xm, wem, wpm;
+  if (!x_map(&xm, a, KC, K, RC_TH, EXPAND) || !kt_map(&wpm, a.w_proj_kt, a.Cout, a.Cmid, RC_BN))
+    return cudaErrorInvalidValue;
+  if (!EXPAND)
+    wem = xm;  // unused
+  else if (!kt_map(&wem, a.w_exp_kt, a.Cmid, a.Cin, RC_TC))
+    return cudaErrorInvalidValue;
+  const int tiles_w = (a.W + TW - 1) / TW, tiles_h = (a.H + RC_TH - 1) / RC_TH;
+  const dim3 grid(tiles_h * tiles_w, (a.Cout + RC_BN - 1) / RC_BN, a.B);
+  const size_t smem = recompute_smem<K, EXPAND>(a.Cmid);
+  cudaError_t err = set_smem(project_recompute_kernel<K, EXPAND>, smem);
+  if (err != cudaSuccess) return err;
+  project_recompute_kernel<K, EXPAND><<<grid, NT, smem, a.st>>>(
+      xm, wem, wpm, a.win, a.s0, a.b0, a.w_dw, a.s1, a.b1, a.gate, a.s2, a.b2, a.x, a.y, a.H,
+      a.W, a.Cin, a.Cmid, a.Cout, tiles_w, a.has_skip);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_project(const Args& a) {
+  CUtensorMap dmap, wmap;
+  const uint64_t ddims[3] = {(uint64_t)a.Cmid, (uint64_t)a.H * a.W, (uint64_t)a.B};
+  const uint32_t dbox[3] = {32, PBM, 1};
+  if (!make_map_f32(&dmap, a.d, 3, ddims, dbox, true) ||
+      !kt_map(&wmap, a.w_proj_kt, a.Cout, a.Cmid, PBN))
+    return cudaErrorInvalidValue;
+  const dim3 grid((a.Cout + PBN - 1) / PBN, (a.H * a.W + PBM - 1) / PBM, a.B);
+  const size_t smem = project_smem(a.Cmid);
+  cudaError_t err = set_smem(project_kernel, smem);
+  if (err != cudaSuccess) return err;
+  project_kernel<<<grid, P_THREADS, smem, a.st>>>(dmap, wmap, a.gate, a.s2, a.b2, a.x, a.win,
+                                                  a.y, a.H, a.W, a.Cmid, a.Cout, a.has_skip,
+                                                  project_stages(a.Cmid));
   return cudaGetLastError();
 }
 
@@ -384,48 +896,54 @@ cudaError_t launch_expand_dw(const float* x, const int* win, const float* w_exp,
 extern "C" {
 
 // SE partial sums per image: the number of expand_dw tiles.
-int mbconv_partials_per_image(int H, int W) {
-  return ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+int mbconv_partials_per_image(int H, int W, int k, int has_expand) {
+  const int th = has_expand && k == 3 ? dw_th<3, true>() : dw_th<5, false>();
+  return ((H + th - 1) / th) * ((W + TW - 1) / TW);
 }
 
 const char* mbconv_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Launches the three kernels on `stream`; returns the first launch error
-// (cudaGetLastError after each launch), 0 on success.
-int mbconv_stride1_f32(const float* x, const int* win, const float* w_exp, const float* s0,
+// Launches the three kernels on `stream`; variant 0 streams d (B, H, W,
+// Cmid) through HBM, 1 recomputes it in the project (d unused).  Every
+// channel count is a multiple of 8.  Returns the first launch error
+// (cudaGetLastError after each launch; an invalid value when a tensor map
+// is refused), 0 on success.
+int mbconv_stride1_f32(const float* x, const int* win, const float* w_exp_kt, const float* s0,
                        const float* b0, const float* w_dw, const float* s1, const float* b1,
                        const float* w_se_r, const float* b_se_r, const float* w_se_e,
-                       const float* b_se_e, const float* w_proj, const float* s2,
+                       const float* b_se_e, const float* w_proj_kt, const float* s2,
                        const float* b2, float* d, float* part, float* gate, float* y, int B,
-                       int H, int W, int Cin, int Cmid, int Csq, int Cout, int k,
-                       int has_expand, int has_skip, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (k == 3 && has_expand)
-    err = launch_expand_dw<3, true>(x, win, w_exp, s0, b0, w_dw, s1, b1, d, part, B, H, W, Cin, Cmid, st);
-  else if (k == 3)
-    err = launch_expand_dw<3, false>(x, win, w_exp, s0, b0, w_dw, s1, b1, d, part, B, H, W, Cin, Cmid, st);
-  else if (k == 5 && has_expand)
-    err = launch_expand_dw<5, true>(x, win, w_exp, s0, b0, w_dw, s1, b1, d, part, B, H, W, Cin, Cmid, st);
-  else if (k == 5)
-    err = launch_expand_dw<5, false>(x, win, w_exp, s0, b0, w_dw, s1, b1, d, part, B, H, W, Cin, Cmid, st);
-  else
+                       int H, int W, int Cin, int Cmid, int Csq, int Cout, int k, int has_expand,
+                       int has_skip, int variant, void* stream) {
+  if ((k != 3 && k != 5) || (variant != 0 && variant != 1) || Cin % 8 || Cmid % 8 || Cout % 8)
     return (int)cudaErrorInvalidValue;
+  const Args a{x, w_exp_kt, s0, b0, w_dw, s1, b1, w_se_r, b_se_r, w_se_e, b_se_e, w_proj_kt,
+               s2, b2, win, d, part, gate, y, B, H, W, Cin, Cmid, Csq, Cout, has_skip,
+               (cudaStream_t)stream};
+  const bool stream_d = variant == 0;
+  cudaError_t err;
+  if (k == 3)
+    err = has_expand ? launch_expand_dw<3, true>(a, stream_d)
+                     : launch_expand_dw<3, false>(a, stream_d);
+  else
+    err = has_expand ? launch_expand_dw<5, true>(a, stream_d)
+                     : launch_expand_dw<5, false>(a, stream_d);
   if (err != cudaSuccess) return (int)err;
 
-  const int ntiles = mbconv_partials_per_image(H, W);
-  se_kernel<<<B, SE_NT, (size_t)(Cmid + Csq) * sizeof(float), st>>>(
-      part, ntiles, win, w_se_r, b_se_r, w_se_e, b_se_e, gate, Cmid, Csq);
+  se_kernel<<<B, SE_NT, (size_t)(Cmid + Csq) * sizeof(float), a.st>>>(
+      part, mbconv_partials_per_image(H, W, k, has_expand), win, w_se_r, b_se_r, w_se_e, b_se_e,
+      gate, Cmid, Csq);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const long long M = (long long)B * H * W;
-  dim3 grid((unsigned)((M + BM - 1) / BM), (Cout + BN - 1) / BN);
-  project_kernel<<<grid, NT, 0, st>>>(d, gate, w_proj, s2, b2, x, win, y, M, H, W, Cmid, Cout,
-                                      has_skip);
-  return (int)cudaGetLastError();
+  if (stream_d) return (int)launch_project(a);
+  if (k == 3)
+    err = has_expand ? launch_recompute<3, true>(a) : launch_recompute<3, false>(a);
+  else
+    err = has_expand ? launch_recompute<5, true>(a) : launch_recompute<5, false>(a);
+  return (int)err;
 }
 
 }  // extern "C"

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from muscle_tpu_torch.ops.mbconv import fold_bn, mbconv_stride1, window_mask
+from muscle_tpu_torch.ops.mbconv import fold_bn, kernel_operands, mbconv_stride1, window_mask
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,7 +186,8 @@ class MBConvBlock(nn.Module):
     def fused_weights(self) -> dict:
         """The block's weights as ``ops.mbconv.mbconv_stride1`` takes them:
         1x1 kernels as (in, out) matrices, the depthwise kernel as
-        (k*k, C), the batch norms folded to scale and bias.  Cached until
+        (k*k, C), the batch norms folded to scale and bias, and on a card
+        the kernel's extra operands (``kernel_operands``).  Cached until
         a parameter or statistic changes (their version counters move);
         refolding on every forward costs ~15 small launches per block.
         Modules built under inference mode keep no version counters and
@@ -226,7 +227,10 @@ class MBConvBlock(nn.Module):
         wd["b_se_e"] = self._se_expand.bias
         wd["w_proj"] = t(self._project_conv.weight, cmid, cout)
         wd["s2"], wd["b2"] = bn(self._bn2)
-        return {n: v.detach().contiguous() for n, v in wd.items()}
+        wd = {n: v.detach().contiguous() for n, v in wd.items()}
+        if wd["w_proj"].is_cuda:  # the kernel's K-major split 1x1 weights
+            wd.update(kernel_operands(wd, a.expand_ratio != 1))
+        return wd
 
     def forward(self, x: torch.Tensor, drop_rate: float = 0.0,
                 mask_in: torch.Tensor | None = None, mask_out: torch.Tensor | None = None,

@@ -4,9 +4,12 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface and loaded with ctypes.  Libraries land in
 ``build/kernels/`` at the repository root (listed in ``.gitignore``), named
-by the hash of their source, so an edited source is rebuilt and an
-unchanged one is reused.  Nothing is built when a module is imported: the
-first launch builds, or ``build_all`` builds every source in parallel.
+by the hash of their source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused.  ``cuTensorMapEncodeTiled`` (TMA) is found through the runtime's
+driver entry point, so nothing links against libcuda.  Nothing is built
+when a module is imported: the first launch builds, or ``build_all``
+builds every source in parallel.
 """
 
 from __future__ import annotations
@@ -39,8 +42,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -6,19 +6,23 @@ Replaces the Pallas TPU kernel ``muscle_tpu/ops/pallas/mbconv.py``
 BN1 + swish, squeeze-excite over the valid window, project 1x1 + BN2, the
 window mask after every BN, and the residual iff Cin == Cout.  The kernel
 (``csrc/mbconv.cu``) runs it as three launches: expand + depthwise with SE
-partial sums, the SE gate, and a project GEMM that applies the gate as it
-loads and BN2, the mask and the residual in its epilogue.
+partial sums, the SE gate, and the project with BN2, the mask and the
+residual in its epilogue.  Its 1x1 products run on the tensor cores in the
+3xTF32 split (f32 accuracy).  The project comes in two variants
+(``pick_variant``): ``stream`` writes the depthwise output ``d`` to HBM and
+reads it back through a TMA ring into ``wgmma``; ``recompute`` never
+writes ``d`` and rebuilds it tile by tile in the project.
 
-Bound on an H100 SXM: max(bytes / 3.35 TB/s, FLOPs / 67 TFLOP/s f32),
-with bytes = x in + y out + the weights (the ideal kernel keeps the
-expanded map on chip) and FLOPs = 2*B*H*W*(Cin*Cmid + k*k*Cmid +
-Cmid*Cout) (``block_work``, ``bound_ms``).  At the b3 CAM shapes the blocks are bound by
-operations.  This version writes the depthwise output to HBM and reads it
-back, and runs its products on the f32 pipes without tensor cores; the
-gap to the bound is recorded in PERF.md.
+Bounds on an H100 SXM, bytes = x in + y out + the weights (the ideal
+kernel keeps the expanded map on chip): ``bound_ms`` takes every FLOP on
+the f32 pipes (67 TFLOP/s, ``block_work``); ``bound_tc_ms`` takes the 1x1
+products on the tensor cores at 495/3 TFLOP/s (three tf32 products each)
+and the depthwise on the f32 pipes (``block_flops``).  PERF.md holds the
+kernel's times against both.
 
 Layout: NHWC float32, like the JAX package.  The BNs arrive folded to
-(scale, bias) pairs (``fold_bn``).
+(scale, bias) pairs (``fold_bn``).  Channel counts that are not multiples
+of 8 are zero-padded for the kernel (exact; TMA wants 16-byte strides).
 """
 
 from __future__ import annotations
@@ -40,6 +44,16 @@ WEIGHT_SHAPES = {
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12    # H100 SXM data sheet, f32 outside the tensor cores
+TC_3XTF32_FLOPS_PER_S = 495e12 / 3  # H100 SXM dense TF32, three products per f32 one
+VARIANTS = ("stream", "recompute")
+# what the recompute project's rebuild of e and d runs at on an H100 SXM:
+# its mma.sync expand (f32-equivalent FLOPs over the tile's halo) and its
+# depthwise stage (TMA in, depthwise, BN, swish, mask, per pixel and mid
+# channel), measured as launch (a) at _blocks_25 and _blocks_0/_blocks_1
+# when launch (a) ran the same code (chip_smoke.py --phases
+# build,mbconv_profile; PERF.md)
+EXPAND_FLOPS_PER_S = 45e12
+DEPTHWISE_PX_CH_PER_S = 1.5e11
 
 
 def fold_bn(weight, bias, mean, var, eps: float):
@@ -130,9 +144,9 @@ def _lib():
     lib = build.load("mbconv")
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.mbconv_stride1_f32.argtypes = [ptr] * 19 + [i32] * 10 + [ptr]
+        lib.mbconv_stride1_f32.argtypes = [ptr] * 19 + [i32] * 11 + [ptr]
         lib.mbconv_stride1_f32.restype = i32
-        lib.mbconv_partials_per_image.argtypes = [i32, i32]
+        lib.mbconv_partials_per_image.argtypes = [i32] * 4
         lib.mbconv_partials_per_image.restype = i32
         lib.mbconv_error_string.argtypes = [i32]
         lib.mbconv_error_string.restype = ctypes.c_char_p
@@ -140,13 +154,89 @@ def _lib():
     return lib
 
 
+def pick_variant(cin: int, cmid: int, cout: int, k: int, has_expand: bool) -> str:
+    """The project variant the kernel takes for a block, by a static rule
+    per pixel: ``recompute`` when rebuilding e and d in the project costs
+    less than d's round trip through HBM (8 * Cmid bytes at 3.35 TB/s),
+    else ``stream``.  The project rebuilds them over its 8 x 16 tile's halo
+    once per 64 output channels, at the rates that rebuild reaches on an
+    H100 (``EXPAND_FLOPS_PER_S``, ``DEPTHWISE_PX_CH_PER_S``).
+    At those rates the depthwise stage alone (~6.7 ps per pixel and mid
+    channel) costs more than d's 8 bytes (2.4 ps), so every b3 block
+    streams; recompute would pay once that stage ran ~3x faster."""
+    p = k // 2
+    halo = (8 + 2 * p) * (16 + 2 * p) / 128
+    redo = cmid / DEPTHWISE_PX_CH_PER_S
+    if has_expand:
+        redo += halo * 2 * cin * cmid / EXPAND_FLOPS_PER_S
+    trip = 8 * cmid / HBM_BYTES_PER_S
+    return "recompute" if -(-cout // 64) * redo < trip else "stream"
+
+
+def _pad_dims(t: torch.Tensor, names, dims: dict) -> torch.Tensor:
+    """``t`` (axes ``names``) zero-padded so that each axis named in
+    ``dims`` has a multiple of 8 entries."""
+    shape = tuple(-(-t.shape[i] // 8) * 8 if n in dims else t.shape[i]
+                  for i, n in enumerate(names))
+    if shape == tuple(t.shape):
+        return t
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
+
+
+def _pad8(weights: dict, has_expand: bool) -> dict:
+    """The weights zero-padded to channel counts that are multiples of 8:
+    padded input and mid channels stay 0 through every stage (zero weights,
+    scale and bias; swish(0) = 0), padded output channels are dropped by
+    the caller.  Exact."""
+    dims = {"Cin", "Cmid", "Cout"}
+    return {n: _pad_dims(weights[n], WEIGHT_SHAPES[n], dims) for n in WEIGHT_SHAPES
+            if has_expand or n not in ("w_exp", "s0", "b0")}
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 ``t`` rounded to TF32 (10 mantissa bits): to nearest, ties
+    away from zero, on the low 13 bits of the f32 pattern, with integer
+    ops (the device's ``cvt.rna.tf32.f32``; finite inputs)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with hi = tf32(t), lo = tf32(t - hi): the operands of a
+    3xTF32 product, hi*hi + hi*lo + lo*hi."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t - hi)
+
+
+# the kernel's extra operands: the 1x1 weights K-major, split for 3xTF32,
+# stacked (hi, lo), at channel counts padded to multiples of 8
+KERNEL_OPERANDS = ("w_exp_kt", "w_proj_kt")
+
+
+def kernel_operands(weights: dict, has_expand: bool) -> dict:
+    """``w_exp_kt`` (2, Cmid8, Cin8) and ``w_proj_kt`` (2, Cout8, Cmid8):
+    (hi, lo) of the transposed 1x1 weights, as the kernel's TMA loads
+    them.  ``MBConvBlock.fused_weights`` caches them beside the folded
+    weights; the wrapper makes them when a dict lacks them."""
+    wd = _pad8(weights, has_expand)
+    out = {"w_proj_kt": torch.stack(split_tf32(wd["w_proj"].t().contiguous()))}
+    if has_expand:
+        out["w_exp_kt"] = torch.stack(split_tf32(wd["w_exp"].t().contiguous()))
+    return out
+
+
 def mbconv_stride1(x: torch.Tensor, weights: dict, window: torch.Tensor | None, *,
-                   k: int, has_expand: bool, has_skip: bool) -> torch.Tensor:
+                   k: int, has_expand: bool, has_skip: bool,
+                   variant: str | None = None) -> torch.Tensor:
     """Inference stride-1 MBConv block on NHWC float32 ``x`` (B, H, W, Cin).
 
     weights: the folded tensors named in ``WEIGHT_SHAPES`` (``w_exp``,
     ``s0``, ``b0`` only when ``has_expand``).  window: (B, 4) int32
-    (oy, ox, h, w) valid windows, or None for whole images.
+    (oy, ox, h, w) valid windows, or None for whole images.  variant:
+    the kernel's project variant (``VARIANTS``), None for ``pick_variant``'s
+    choice; for tests and measurements that hold both to the plain version.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (building it on first use) or raises.  ``mbconv_stride1.launches``
@@ -154,6 +244,8 @@ def mbconv_stride1(x: torch.Tensor, weights: dict, window: torch.Tensor | None, 
     if x.requires_grad:
         raise RuntimeError("mbconv_stride1 is inference-only (the kernel has no "
                            "backward); call it under torch.inference_mode()")
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS} or None, got {variant!r}")
     dims = _check(x, weights, window, k, has_expand, has_skip)
     if x.device.type == "cpu":
         return mbconv_stride1_plain(x, weights, window, k=k, has_expand=has_expand,
@@ -161,33 +253,43 @@ def mbconv_stride1(x: torch.Tensor, weights: dict, window: torch.Tensor | None, 
     if x.device.type != "cuda":
         raise ValueError(f"mbconv_stride1 runs on cpu or cuda, not {x.device}")
     lib = _lib()
-    b, h, w, cin = x.shape
-    cmid, csq, cout = dims["Cmid"], dims["Csq"], dims["Cout"]
+    cout = dims["Cout"]
+    if variant is None:
+        variant = pick_variant(dims["Cin"], dims["Cmid"], cout, k, has_expand)
     win = full_window(x) if window is None else window
-    ntiles = lib.mbconv_partials_per_image(h, w)
-    d = torch.empty((b, h, w, cmid), dtype=torch.float32, device=x.device)
-    part = torch.empty((b, ntiles, cmid), dtype=torch.float32, device=x.device)
-    gate = torch.empty((b, cmid), dtype=torch.float32, device=x.device)
-    y = torch.empty((b, h, w, cout), dtype=torch.float32, device=x.device)
-    wd = weights
+    x8, wd = _pad_dims(x, ("B", "H", "W", "Cin"), {"Cin"}), _pad8(weights, has_expand)
+    b, h, w, cin8 = x8.shape
+    cmid8, cout8, csq = wd["w_dw"].shape[1], wd["w_proj"].shape[1], dims["Csq"]
+    want = {"w_proj_kt": (2, cout8, cmid8), "w_exp_kt": (2, cmid8, cin8)}
+    kt = {n: weights.get(n) for n in KERNEL_OPERANDS if has_expand or n != "w_exp_kt"}
+    if any(t is None or tuple(t.shape) != want[n] or t.device != x.device
+           for n, t in kt.items()):
+        kt = kernel_operands(weights, has_expand)
+    ntiles = lib.mbconv_partials_per_image(h, w, k, int(has_expand))
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=x.device)
+
+    d = empty(b, h, w, cmid8) if variant == "stream" else None
+    part, gate, y = empty(b, ntiles, cmid8), empty(b, cmid8), empty(b, h, w, cout8)
     none = ctypes.c_void_p(0)
 
     def p(t):
         return ctypes.c_void_p(t.data_ptr()) if t is not None else none
 
     rc = lib.mbconv_stride1_f32(
-        p(x), p(win), p(wd.get("w_exp") if has_expand else None),
+        p(x8), p(win), p(kt.get("w_exp_kt")),
         p(wd.get("s0") if has_expand else None), p(wd.get("b0") if has_expand else None),
         p(wd["w_dw"]), p(wd["s1"]), p(wd["b1"]), p(wd["w_se_r"]), p(wd["b_se_r"]),
-        p(wd["w_se_e"]), p(wd["b_se_e"]), p(wd["w_proj"]), p(wd["s2"]), p(wd["b2"]),
+        p(wd["w_se_e"]), p(wd["b_se_e"]), p(kt["w_proj_kt"]), p(wd["s2"]), p(wd["b2"]),
         p(d), p(part), p(gate), p(y),
-        b, h, w, cin, cmid, csq, cout, k, int(has_expand), int(has_skip),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+        b, h, w, cin8, cmid8, csq, cout8, k, int(has_expand), int(has_skip),
+        VARIANTS.index(variant), ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
     )
     if rc != 0:
         raise RuntimeError(f"mbconv kernel launch failed: {lib.mbconv_error_string(rc).decode()}")
     mbconv_stride1.launches += 1
-    return y
+    return y if cout8 == cout else y[..., :cout].contiguous()
 
 
 mbconv_stride1.launches = 0
@@ -204,6 +306,24 @@ def block_work(b: int, h: int, w: int, cin: int, cmid: int, csq: int, cout: int,
     nbytes = 4 * (px * (cin + cout) + weights + b * 4)
     flops = 2 * px * ((cin * cmid if has_expand else 0) + k * k * cmid + cmid * cout)
     return nbytes, flops
+
+
+def block_flops(b: int, h: int, w: int, cin: int, cmid: int, cout: int, k: int,
+                has_expand: bool) -> tuple[int, int]:
+    """(FLOPs of the 1x1 products, FLOPs of the depthwise) of one block
+    call; their sum is ``block_work``'s FLOPs."""
+    px = b * h * w
+    return 2 * px * ((cin * cmid if has_expand else 0) + cmid * cout), 2 * px * k * k * cmid
+
+
+def bound_tc_ms(nbytes: float, product_flops: float, depthwise_flops: float
+                ) -> tuple[float, str]:
+    """(least time in ms an H100 SXM could take for a block with the 1x1
+    products on the tensor cores in the 3xTF32 split and the depthwise on
+    the f32 pipes, what bounds it: 'bytes' or 'operations')."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (product_flops / TC_3XTF32_FLOPS_PER_S + depthwise_flops / F32_FLOPS_PER_S) * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:

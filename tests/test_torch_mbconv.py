@@ -137,3 +137,89 @@ def test_mbconv_bound_counts():
     ms, by = M.bound_ms(nbytes, flops)
     assert by == "operations"
     assert ms == pytest.approx(flops / 67e12 * 1e3)
+
+
+def test_mbconv_bound_tc_counts():
+    # b3 _blocks_25 at scale 2 (VOC canvas 768 x 1024 -> stride 16: 48 x 64),
+    # B = 16: the 1x1 products at 495/3 TFLOP/s, the depthwise at 67
+    nbytes, flops = M.block_work(16, 48, 64, 384, 2304, 96, 384, 3, True)
+    products, depthwise = M.block_flops(16, 48, 64, 384, 2304, 384, 3, True)
+    assert products + depthwise == flops
+    ms, by = M.bound_tc_ms(nbytes, products, depthwise)
+    assert by == "operations"
+    assert ms == pytest.approx(1.085, abs=5e-4)
+    # about half the bound on the f32 pipes
+    assert ms < 0.45 * M.bound_ms(nbytes, flops)[0]
+
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    ulp = 2.0 ** -10  # TF32 keeps 10 mantissa bits
+    t = torch.tensor([1 + ulp / 2, 1 + 1.5 * ulp, -(1 + ulp / 2), 1 + ulp / 4, 3.0, 0.0],
+                     dtype=torch.float32)
+    want = [1 + ulp, 1 + 2 * ulp, -(1 + ulp), 1.0, 3.0, 0.0]
+    assert M.tf32_round(t).tolist() == want
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=4096).astype(np.float32))
+    hi, lo = M.split_tf32(x)
+    for part in (hi, lo):  # both exact TF32 values: the low 13 bits are zero
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert (hi + lo - x).abs().max() <= 2.0 ** -22 * x.abs().max()
+
+
+@pytest.mark.parametrize("k", [2304, 384])
+def test_3xtf32_product_keeps_f32_accuracy(k):
+    # b3 _blocks_25 widths: the project's K = 2304 (gated d, >= 0, times
+    # W_proj) and the expand's K = 384, seeded inputs of the block's scale.
+    # The split products are exact in f32 and summed in f32, as the tensor
+    # cores do.  Recorded, not asserted: one TF32 pass (hi * hi) is off by
+    # 1.3e-3 (K = 2304) and 1.5e-3 (K = 384) at these inputs, over the
+    # kernel's 1e-4 limit; 3xTF32 by 2.1e-6 and 4.2e-6, as plain f32 (1.5e-6
+    # and 3.5e-6).
+    rng = np.random.default_rng(k)
+    a = torch.from_numpy(np.abs(rng.normal(size=(256, k))).astype(np.float32))
+    b = torch.from_numpy((rng.normal(size=(k, 384)) / np.sqrt(k)).astype(np.float32))
+    exact = a.double() @ b.double()
+    (ah, al), (bh, bl) = M.split_tf32(a), M.split_tf32(b)
+    three = (al @ bh + ah @ bl + ah @ bh).double()
+    f32 = (a @ b).double()
+    err3, err32 = float((three - exact).abs().max()), float((f32 - exact).abs().max())
+    assert err3 < 1e-4 / 10  # well inside the kernel's limit (KERNEL_TOL)
+    assert err3 < 4 * err32
+
+
+def test_channel_padding_is_exact():
+    # the wrapper pads odd channel counts to multiples of 8 for the kernel
+    # (TMA's 16-byte strides); the padded block computes the same outputs
+    gen = torch.Generator().manual_seed(0)
+    block = TMBConvBlock(TBlockArgs(3, 1, 5, 7, 6, 1)).eval()
+    with torch.no_grad():
+        for t in block.parameters():
+            t.copy_(0.3 * torch.randn(t.shape, generator=gen))
+    wd = block.fused_weights()
+    x = torch.randn((2, 11, 37, 5), generator=gen)
+    win = torch.tensor([[0, 0, 11, 30], [0, 0, 5, 37]], dtype=torch.int32)
+    kw = dict(k=3, has_expand=True, has_skip=False)
+    wd8 = M._pad8(wd, True)
+    assert wd8["w_exp"].shape == (8, 32) and wd8["w_proj"].shape == (32, 8)
+    x8 = M._pad_dims(x, ("B", "H", "W", "Cin"), {"Cin"})
+    want = M.mbconv_stride1_plain(x, wd, win, **kw)
+    got = M.mbconv_stride1_plain(x8, wd8, win, **kw)
+    np.testing.assert_allclose(got[..., :7].numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
+    assert not got[..., 7:].any()
+    ops = M.kernel_operands(wd, True)
+    assert ops["w_exp_kt"].shape == (2, 32, 8) and ops["w_proj_kt"].shape == (2, 8, 32)
+    torch.testing.assert_close(ops["w_proj_kt"].sum(0), wd8["w_proj"].t(), atol=1e-7, rtol=0)
+
+
+def test_pick_variant_rule(monkeypatch):
+    # d's round trip (8 bytes per pixel and mid channel) against rebuilding
+    # e and d at the rates the kernel reaches: every b3 block streams
+    b3 = [(40, 40, 24, 3, False), (24, 24, 24, 3, False), (32, 192, 32, 3, True),
+          (48, 288, 48, 5, True), (96, 576, 96, 3, True), (384, 2304, 384, 3, True)]
+    assert {M.pick_variant(*b) for b in b3} == {"stream"}
+    # the rule picks recompute once rebuilding is cheap enough
+    monkeypatch.setattr(M, "DEPTHWISE_PX_CH_PER_S", 10 * M.DEPTHWISE_PX_CH_PER_S)
+    assert M.pick_variant(24, 24, 24, 3, False) == "recompute"
+    with pytest.raises(ValueError, match="variant"):
+        M.mbconv_stride1(torch.zeros((1, 6, 6, 8)), TMBConvBlock(TBlockArgs(3, 1, 8, 8, 6, 1))
+                         .eval().fused_weights(), None, k=3, has_expand=True, has_skip=True,
+                         variant="other")
