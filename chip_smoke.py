@@ -12,9 +12,8 @@ Phases:
            the build seconds;
   kernels  hold each kernel against its plain PyTorch version and time
            both: the MBConv block at the b3 CAM shapes (VOC 500x375 image,
-           TTA scales 1 and 2, B = 16, with and without windows; both
-           project variants, ``ms`` the one the wrapper picks, bounds on
-           the f32 pipes and with the products on the tensor cores); the
+           TTA scales 1 and 2, B = 16, with and without windows; bounds
+           on the f32 pipes and with the products on the tensor cores); the
            stencil walk at B = 8, C = 20, 64 steps on the 128/96/64 walk
            grids (the 512/384/256 buckets) and a 375x500 image's own
            94x125 grid; the banded walk at C = 20, 64 steps on grid 64
@@ -31,8 +30,6 @@ Phases:
            2-class CAM dicts, with the stencil kernel and with the plain
            walk, counting launches and comparing labels; the scores output
            on one batch; then one batch of 2 with the banded walk;
-  mbconv_profile  (not run by default) device time of each MBConv launch
-           by kernel name, per b3 block and project variant;
   profile  (not run by default) device time by kernel name over --fast 0
            CAM batches, with and without the MBConv kernel, and over IRN
            batches with the stencil kernel, and the device's busy share of
@@ -164,9 +161,7 @@ def _windows(stride: int, scale: float, device):
 
 
 def _check_mbconv() -> dict:
-    """The MBConv kernel at the b3 CAM shapes, each project variant forced
-    and held to the plain version; ``ms`` is the variant the wrapper picks
-    (``variant``), the main path's."""
+    """The MBConv kernel at the b3 CAM shapes, held to its plain version."""
     import torch
 
     from muscle_tpu_torch.inference.cam import _batch_canvas
@@ -182,7 +177,6 @@ def _check_mbconv() -> dict:
         wd = block.fused_weights()
         cmid, csq = cin * expand, wd["w_se_r"].shape[1]
         kw = dict(k=k, has_expand=expand != 1, has_skip=cin == cout)
-        picked = M.pick_variant(cin, cmid, cout, k, expand != 1)
         for scale in (1.0, 2.0):
             ch, cw = _batch_canvas(scale, [VOC_HW] * 8, 500)
             h, w = ch // stride, cw // stride
@@ -190,35 +184,28 @@ def _check_mbconv() -> dict:
             for windowed in (False, True):
                 win = _windows(stride, scale, dev) if windowed else None
                 before = M.mbconv_stride1.launches
-                errs, times = {}, {}
                 with torch.inference_mode():
+                    got = M.mbconv_stride1(x, wd, win, **kw)
                     want = M.mbconv_stride1_plain(x, wd, win, **kw)
-                    for v in M.VARIANTS:
-                        got = M.mbconv_stride1(x, wd, win, variant=v, **kw)
-                        torch.cuda.synchronize()
-                        errs[v] = float((got - want).abs().max())
-                        times[v] = time_ms(lambda: M.mbconv_stride1(x, wd, win, variant=v, **kw),
-                                           KERNEL_REPS)
+                    torch.cuda.synchronize()
+                    err = float((got - want).abs().max())
+                    ms = time_ms(lambda: M.mbconv_stride1(x, wd, win, **kw), KERNEL_REPS)
                     plain_ms = time_ms(lambda: M.mbconv_stride1_plain(x, wd, win, **kw),
                                        KERNEL_REPS)
                 work = M.block_work(TTA_BATCH, h, w, cin, cmid, csq, cout, k, expand != 1)
                 split = M.block_flops(TTA_BATCH, h, w, cin, cmid, cout, k, expand != 1)
                 bound, by = M.bound_ms(*work)
                 bound_tc, by_tc = M.bound_tc_ms(work[0], *split)
-                err, ms = errs[picked], times[picked]
                 rec = {"kernel": "mbconv_stride1", "block": name, "scale": scale,
                        "windowed": windowed, "B": TTA_BATCH, "H": h, "W": w, "Cin": cin,
-                       "Cmid": cmid, "Cout": cout, "k": k, "variant": picked,
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       **{f"{v}_ms": times[v] for v in M.VARIANTS},
-                       **{f"{v}_max_abs_err": errs[v] for v in M.VARIANTS},
-                       "bound_ms": bound, "bound_by": by, "bound_tc_ms": bound_tc,
-                       "bound_tc_by": by_tc, "launches": M.mbconv_stride1.launches - before}
+                       "Cmid": cmid, "Cout": cout, "k": k, "max_abs_err": err, "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                       "bound_tc_ms": bound_tc, "bound_tc_by": by_tc,
+                       "launches": M.mbconv_stride1.launches - before}
                 print(json.dumps(rec), flush=True)
-                for v, e in errs.items():
-                    if not e <= KERNEL_TOL:
-                        raise AssertionError(f"{name} scale {scale} windowed={windowed} {v}: "
-                                             f"max_abs_err {e} > {KERNEL_TOL}")
+                if not err <= KERNEL_TOL:
+                    raise AssertionError(f"{name} scale {scale} windowed={windowed}: "
+                                         f"max_abs_err {err} > {KERNEL_TOL}")
                 if windowed:  # the main path's calls are windowed
                     total["ms"] += ms
                     total["plain_ms"] += plain_ms
@@ -226,7 +213,7 @@ def _check_mbconv() -> dict:
                     total["flops"] += work[1]
                     total["product_flops"] += split[0]
                     total["depthwise_flops"] += split[1]
-                total["max_abs_err"] = max(total["max_abs_err"], *errs.values())
+                total["max_abs_err"] = max(total["max_abs_err"], err)
             del x
     return total
 
@@ -332,9 +319,7 @@ def _check_banded() -> dict:
 def phase_kernels() -> dict:
     """Every kernel against its plain version; returns the summaries the
     {"kernels": ...} line reports, at the main paths' shapes."""
-    from muscle_tpu_torch.ops.mbconv import bound_ms
-
-    from muscle_tpu_torch.ops.mbconv import bound_tc_ms
+    from muscle_tpu_torch.ops.mbconv import bound_ms, bound_tc_ms
 
     mb = _check_mbconv()
     bound, by = bound_ms(mb["bytes"], mb["flops"])
@@ -630,39 +615,6 @@ def _profile_record(tag, n_batches, wall, rows, ours_name, ours_keys) -> None:
     }), flush=True)
 
 
-def phase_mbconv_profile(scale: float = 2.0, reps: int = 3) -> None:
-    """Device time of each MBConv launch (expand_dw, se, project) by kernel
-    name, per b3 block and project variant, windowed, at one TTA scale."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from muscle_tpu_torch.inference.cam import _batch_canvas
-    from muscle_tpu_torch.ops import mbconv as M
-
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(0)
-    for name, (stride, cin, cout, expand, k) in B3_BLOCKS.items():
-        wd = _random_block(cin, cout, expand, k, gen, dev).fused_weights()
-        ch, cw = _batch_canvas(scale, [VOC_HW] * 8, 500)
-        x = torch.randn((TTA_BATCH, ch // stride, cw // stride, cin), device=dev)
-        win = _windows(stride, scale, dev)
-        kw = dict(k=k, has_expand=expand != 1, has_skip=cin == cout)
-        for v in M.VARIANTS:
-            with torch.inference_mode():
-                M.mbconv_stride1(x, wd, win, variant=v, **kw)
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    for _ in range(reps):
-                        M.mbconv_stride1(x, wd, win, variant=v, **kw)
-                    torch.cuda.synchronize()
-            by_kernel = {}
-            for ms, _, key in _device_rows(prof):
-                short = key.split("::")[-1].split("(")[0] if "namespace)::" in key else key[:40]
-                by_kernel[short] = by_kernel.get(short, 0.0) + ms / reps
-            print(json.dumps({"mbconv_profile": name, "scale": scale, "variant": v,
-                              "ms_by_kernel": by_kernel}), flush=True)
-
-
 def phase_profile(n_batches: int) -> None:
     """Where the device time goes: one torch.profiler window over
     ``n_batches`` --fast 0 CAM batches per engine (kernel and plain
@@ -686,8 +638,7 @@ def phase_profile(n_batches: int) -> None:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _, wall = _run(engine, batches)
         _profile_record(f"fast0 fuse_mbconv={fuse}", n_batches, wall, _device_rows(prof),
-                        "mbconv_kernel_ms", ("expand_dw_kernel", "se_kernel", "project_kernel",
-                                             "project_recompute_kernel"))
+                        "mbconv_kernel_ms", ("expand_dw_kernel", "se_kernel", "project_kernel"))
 
     from muscle_tpu_torch.inference import RandomWalkRefiner
 
@@ -732,8 +683,6 @@ def main(argv=None) -> int:
     irn_out = phase_irn() if "irn" in phases else None
     if "profile" in phases:
         phase_profile(4)
-    if "mbconv_profile" in phases:
-        phase_mbconv_profile()
 
     if summaries is not None:
         # null, not 0, where the phase that drives the kernel's path did not run

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tile loads, the 3xTF32 operand split, mma.sync and wgmma in tf32,
+// TMA tile loads, ldmatrix, the 3xTF32 operand split, wgmma in tf32,
 // and the host-side tensor-map encoder.  Inline PTX only; no CUTLASS.
 #pragma once
 
@@ -77,8 +77,8 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
 
 // Four 8 x 4 tf32 (8 x 8 b16) matrices from shared memory, warp-wide:
 // lanes 8j .. 8j + 7 give the 16-byte row addresses of matrix j, and lane
-// (g, t) receives word t of row g of matrix j in r[j], the m16n8k8
-// fragment layout.
+// (g, t) receives word t of row g of matrix j in r[j]: the A fragment
+// layout of wgmma_m64n64k8_rs below.
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -89,7 +89,11 @@ __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
 // a = hi + lo with hi = tf32(a), lo = tf32(a - hi), both rounded to nearest
 // with ties away from zero (cvt.rna).  hi*hi + hi*lo + lo*hi on the tensor
 // cores, accumulated in f32, keeps f32 accuracy; lo*lo (~2^-22 relative)
-// is dropped.
+// is dropped.  The tensor cores' f32 accumulation truncates, so over a long
+// K its error grows with every instruction (~K / 8 * 3 of them, one ulp
+// each, one-signed: 5e-5 of the output at K = 2304).  The callers put each
+// short run of split products into a fresh accumulator and add that to
+// their sum in f32 with round to nearest.
 
 __device__ __forceinline__ uint32_t tf32_rna(float a) {
   uint32_t r;
@@ -100,36 +104,6 @@ __device__ __forceinline__ uint32_t tf32_rna(float a) {
 __device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
   hi = tf32_rna(a);
   lo = tf32_rna(a - __uint_as_float(hi));
-}
-
-// D += A * B, m16n8k8, tf32 inputs, f32 accumulators (warp-wide).
-// A fragment: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
-// B fragment: b0 (k = t, n = g), b1 (k = t + 4, n = g);
-// D: d0 (g, 2t), d1 (g, 2t + 1), d2 (g + 8, 2t), d3 (g + 8, 2t + 1);
-// with g = lane / 4, t = lane % 4.
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7},"
-      " {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The split product: d += a * b with a = (ah, al), b = (bh, bl); the small
-// terms first.  The tensor cores' f32 accumulation truncates, so over a
-// long K its error grows with every instruction (~K / 8 * 3 of them, one
-// ulp each, one-signed: 5e-5 of the output at K = 2304).  The three
-// products go into a fresh accumulator and that is added to d in f32 with
-// round to nearest, so each truncation spans only one k8 step.
-__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* ah, const uint32_t* al,
-                                           uint32_t bh0, uint32_t bh1, uint32_t bl0,
-                                           uint32_t bl1) {
-  float p[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(p, al, bh0, bh1);
-  mma_tf32(p, ah, bl0, bl1);
-  mma_tf32(p, ah, bh0, bh1);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += p[i];
 }
 
 // ---- wgmma ----------------------------------------------------------------
@@ -162,8 +136,11 @@ __device__ __forceinline__ void wgmma_wait0() {
 __device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
 
 // D (64 x 64, f32, 32 registers a thread) = A (64 x 8, tf32, from
-// registers: the m16n8k8 A fragment of rows 16 * warp .. + 15) * B (8 x 64,
-// tf32, K-major in shared memory) + (accumulate ? D : 0).
+// registers: warp w holds rows 16w .. 16w + 15 as a0 (g, t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4), g = lane / 4, t = lane % 4) * B (8 x
+// 64, tf32, K-major in shared memory) + (accumulate ? D : 0).  D's thread
+// holds, for j = 0 .. 7, d[4j .. 4j + 3] at (16w + g, 8j + 2t), (16w + g,
+// 8j + 2t + 1), (16w + g + 8, 8j + 2t), (16w + g + 8, 8j + 2t + 1).
 __device__ __forceinline__ void wgmma_m64n64k8_rs(float* d, const uint32_t* a, uint64_t desc_b,
                                                   int accumulate) {
   asm volatile(

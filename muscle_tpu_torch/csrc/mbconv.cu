@@ -42,32 +42,20 @@
 //      reads e from shared memory with the k*k taps in registers and a
 //      sliding window along each row (k shared reads per output, not k*k),
 //      then BN1 + swish + mask, SE partial sums in a fixed order (no
-//      atomics), and d to HBM in the stream variant.
+//      atomics), and d to HBM.
 //   b. se: one CTA per image reduces the partials and runs both SE FCs.
-//   c. project, one of two variants the wrapper picks per shape:
-//      - stream (project_kernel): per-image 64-pixel x 64-channel tiles;
-//        a producer warp keeps a ring of up to 4 stages of TMA tiles (d and
-//        both halves of w_proj_kt) in flight; a consumer warpgroup runs
-//        wgmma m64n64k8 tf32 with A (d) from registers, where the SE gate
-//        and the hi/lo split are applied (gating A in registers costs
-//        nothing and avoids writing a gated W per image: 57 MB at
-//        _blocks_25), and B from shared memory; BN2, the mask and the
-//        residual in the epilogue, staged through shared memory and stored
-//        as 16-byte writes.
-//      - recompute (project_recompute_kernel): d never goes to HBM.  A CTA
-//        owns an 8 x 16 pixel tile and 64 output channels and walks Cmid in
-//        chunks of 32: it recomputes e over the tile's halo (as in a) and d
-//        into shared memory, gates it, and accumulates y += d * W_proj on
-//        the tensor cores.  Here the product is mma.sync m16n8k8 tf32: its
-//        A operand is written chunk by chunk by the same warps that read it,
-//        M = 128 and N = 64 per CTA, and the shapes this variant is meant
-//        for (Cmid <= 288) are bound by bytes, not by the product; wgmma
-//        would add a warpgroup hand-off per chunk for no gain there.  Its
-//        expand is mma.sync too (an 8 x 16 tile's halo, 180 or 240 rows, is
-//        ragged against wgmma's 64), fed by ldmatrix from the swizzled TMA
-//        tiles.  At the rates this kernel reaches the rebuild costs more
-//        than d's round trip at every b3 shape, so the wrapper streams them
-//        all (ops/mbconv.py pick_variant).
+//   c. project: per-image 64-pixel x 64-channel tiles; a producer warp
+//      keeps a ring of up to 4 stages of TMA tiles (d and both halves of
+//      w_proj_kt) in flight; a consumer warpgroup runs wgmma m64n64k8 tf32
+//      with A (d) from registers, where the SE gate and the hi/lo split are
+//      applied (gating A in registers costs nothing and avoids writing a
+//      gated W per image: 57 MB at _blocks_25), and B from shared memory;
+//      BN2, the mask and the residual in the epilogue, staged through
+//      shared memory and stored as 16-byte writes.
+//
+// d makes one round trip through HBM.  Keeping it on chip instead, by
+// rebuilding e and d per project tile from x, measured ~3x slower than
+// the round trip at every b3 CAM shape on an H100 (PERF.md), so d streams.
 //
 // Every sum runs in a fixed order: results repeat bit for bit.
 
@@ -79,10 +67,8 @@ namespace {
 
 using namespace hopper;
 
-constexpr int NT = 256;  // threads of the expand_dw and recompute CTAs
-constexpr int NWARP = NT / 32;
+constexpr int NT = 256;  // threads of the expand_dw CTAs
 constexpr int KC = 32;   // input channels per TMA chunk: one 128-byte row
-constexpr int RC_TH = 8;  // output rows per recompute tile
 constexpr int TW = 16;   // output columns per tile
 
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
@@ -97,143 +83,6 @@ __device__ __forceinline__ char* align1024(char* p) {
 }
 
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
-
-// Geometry of the TH x TW output tile, TC mid channels, k x k, and of the
-// staging buffer for the mma.sync expand's (x, w_exp) chunks.
-template <int K, int TH, int TC, bool EXPAND>
-struct Tile {
-  static constexpr int P = K / 2;
-  static constexpr int HH = TH + 2 * P, HW = TW + 2 * P, HP = HH * HW;  // halo
-  static constexpr int HPAD = (HP + 15) / 16 * 16;  // rows of the expand product
-  static constexpr int MT = HPAD / 16;
-  static constexpr int WPN = NWARP / (TC / 32);  // warps per 32-channel slice
-  static constexpr int MPW = (MT + WPN - 1) / WPN;  // m16 tiles per warp
-  static constexpr int ESP = EXPAND ? TC + 4 : TC;         // e row pitch (floats)
-  static constexpr int XBYTES = HPAD * 128;                // one x chunk
-  static constexpr int WBYTES = TC * 128;                  // one half of a w_exp chunk
-  static constexpr int STAGE = XBYTES + 2 * WBYTES;        // multiple of 1024
-  static constexpr int E_BYTES = HP * ESP * 4;
-  // e is written over the staging buffer once the last chunk is consumed
-  static constexpr int REGION = EXPAND ? cmax(STAGE, E_BYTES) : E_BYTES;
-  static_assert(TC % 32 == 0 && NT % TC == 0, "channel slice");
-};
-
-// Fills e (HP x ESP floats at the start of the staging region `buf`) for
-// the halo of the output tile at (ty0, tx0), mid channels c0 .. c0 + TC - 1,
-// with the expand as mma.sync (the recompute project's chunks of 32
-// channels), or e = x without one.  `seq` counts the loads this CTA has
-// issued into the region, each one use of xbar[0] (parity seq % 2).  The
-// caller has synchronised since the region was last read.  Ends
-// synchronised.
-template <int K, int TH, int TC, bool EXPAND>
-__device__ void expand_tile(const CUtensorMap* xmap, const CUtensorMap* wmap,
-                            const float* __restrict__ s0, const float* __restrict__ b0,
-                            char* buf, uint64_t* xbar, const int* win_s, int b, int ty0,
-                            int tx0, int c0, int H, int W, int Cin, int Cmid, uint32_t& seq) {
-  using T = Tile<K, TH, TC, EXPAND>;
-  const int tid = threadIdx.x;
-  float* e_s = reinterpret_cast<float*>(buf);
-  if constexpr (!EXPAND) {
-    // e = x * mask: one TMA box of TC channels straight into e_s
-    const uint32_t s = seq++;
-    if (tid == 0) {
-      mbar_expect_tx(&xbar[0], T::HP * TC * 4);
-      tma_load_4d(e_s, xmap, &xbar[0], c0, tx0 - T::P, ty0 - T::P, b);
-    }
-    mbar_wait(&xbar[0], s & 1);
-    for (int i = tid; i < T::HP * TC; i += NT) {
-      const int pix = i / TC;
-      if (!in_window(win_s, ty0 - T::P + pix / T::HW, tx0 - T::P + pix % T::HW)) e_s[i] = 0.f;
-    }
-    __syncthreads();
-  } else {
-    const int lane = tid & 31, warp = tid >> 5;
-    const int nk = (Cin + KC - 1) / KC;
-
-    // warp w owns channels 32 * (w / WPN) .. + 31 and m16 tiles w % WPN,
-    // w % WPN + WPN, ...: its B fragments serve all of its tiles.  ldmatrix
-    // row addresses of lane (matrix j = lane / 8, row lane % 8): for A (x
-    // rows) +8 rows when j is odd and the next 16-byte chunk when j >= 2;
-    // for B (w rows, one per channel) the next chunk when j is odd and +8
-    // rows when j >= 2.  Every row index is = lane % 8 mod 8, which is what
-    // the 128-byte swizzle XORs into the chunk.
-    const int nh = warp / T::WPN, wm = warp % T::WPN;
-    const int lr = lane & 7, lj = lane >> 3;
-    const int a_row = lr + 8 * (lj & 1), a_ch = lj >> 1;
-    const int b_row = nh * 32 + lr + 8 * (lj >> 1), b_ch = lj & 1;
-    float acc[T::MPW][4][4];
-#pragma unroll
-    for (int i = 0; i < T::MPW; ++i)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][nt][q] = 0.f;
-
-    for (int kc = 0; kc < nk; ++kc) {
-      if (tid == 0) {
-        mbar_expect_tx(&xbar[0], T::HP * 128 + 2 * T::WBYTES);
-        tma_load_4d(buf, xmap, &xbar[0], kc * KC, tx0 - T::P, ty0 - T::P, b);
-        tma_load_3d(buf + T::XBYTES, wmap, &xbar[0], kc * KC, c0, 0);
-        tma_load_3d(buf + T::XBYTES + T::WBYTES, wmap, &xbar[0], kc * KC, c0, 1);
-      }
-      mbar_wait(&xbar[0], seq++ & 1);
-      const uint32_t xs = smem_addr(buf);
-      const uint32_t wh = xs + T::XBYTES, wl = wh + T::WBYTES;
-#pragma unroll
-      for (int ks = 0; ks < KC / 8; ++ks) {
-        uint32_t bh[2][4], bl[2][4];  // n8 tiles (2p, 2p + 1): b0, b1, b0, b1
-#pragma unroll
-        for (int pp = 0; pp < 2; ++pp) {
-          const uint32_t off = (b_row + 16 * pp) * 128 + (((2 * ks + b_ch) ^ lr) << 4);
-          ldsm_x4(wh + off, bh[pp]);
-          ldsm_x4(wl + off, bl[pp]);
-        }
-#pragma unroll
-        for (int i = 0; i < T::MPW; ++i) {
-          const int mt = wm + i * T::WPN;
-          if (mt < T::MT) {
-            uint32_t a[4], ah[4], al[4];
-            ldsm_x4(xs + (mt * 16 + a_row) * 128 + (((2 * ks + a_ch) ^ lr) << 4), a);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) split_tf32(__uint_as_float(a[q]), ah[q], al[q]);
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) {
-              const int pp = nt >> 1, o = (nt & 1) * 2;
-              mma_3xtf32(acc[i][nt], ah, al, bh[pp][o], bh[pp][o + 1], bl[pp][o], bl[pp][o + 1]);
-            }
-          }
-        }
-      }
-      __syncthreads();  // the chunk is consumed before the next TMA or e
-    }
-
-    // BN0 + swish + mask into e_s (over the consumed staging buffer)
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = nh * 32 + nt * 8 + 2 * t, cc = c0 + col;
-      const float2 sc = cc < Cmid ? *reinterpret_cast<const float2*>(s0 + cc) : float2{0.f, 0.f};
-      const float2 bi = cc < Cmid ? *reinterpret_cast<const float2*>(b0 + cc) : float2{0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < T::MPW; ++i) {
-        const int mt = wm + i * T::WPN;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = mt * 16 + g + 8 * h;
-          if (mt < T::MT && row < T::HP) {
-            const int gy = ty0 - T::P + row / T::HW, gx = tx0 - T::P + row % T::HW;
-            const bool keep = gy >= 0 && gy < H && gx >= 0 && gx < W && in_window(win_s, gy, gx);
-            float2 e;
-            e.x = keep ? swishf_(acc[i][nt][2 * h] * sc.x + bi.x) : 0.f;
-            e.y = keep ? swishf_(acc[i][nt][2 * h + 1] * sc.y + bi.y) : 0.f;
-            *reinterpret_cast<float2*>(e_s + row * T::ESP + col) = e;
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
 
 // The depthwise k x k + BN1 + swish over the TH x TW tile from e_s: thread
 // (c = tid % TC, row group tid / TC) runs along its rows with the k*k taps
@@ -286,6 +135,33 @@ __host__ __device__ constexpr int dw_th() { return EXPAND && K == 3 ? 12 : 8; }
 template <bool EXPAND>
 __host__ __device__ constexpr int dw_tc() { return EXPAND ? 64 : 32; }
 
+// Bytes of e without an expand: the halo of a TH x TW tile, TC channels.
+template <int K, int TH, int TC>
+__host__ __device__ constexpr int x_tile_bytes() {
+  return (TH + 2 * (K / 2)) * (TW + 2 * (K / 2)) * TC * 4;
+}
+
+// e = x * mask for a block without an expand: one TMA box of TC channels
+// over the halo of the output tile at (ty0, tx0) straight into e_s (pixels
+// outside the image arrive zero), zeroed outside the window.  Ends
+// synchronised.
+template <int K, int TH, int TC>
+__device__ void load_x_tile(const CUtensorMap* xmap, float* e_s, uint64_t* bar,
+                            const int* win_s, int b, int ty0, int tx0, int c0) {
+  constexpr int P = K / 2, HW = TW + 2 * P;
+  constexpr int N = x_tile_bytes<K, TH, TC>() / 4;
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar, N * 4);
+    tma_load_4d(e_s, xmap, bar, c0, tx0 - P, ty0 - P, b);
+  }
+  mbar_wait(bar, 0);
+  for (int i = threadIdx.x; i < N; i += NT) {
+    const int pix = i / TC;
+    if (!in_window(win_s, ty0 - P + pix / HW, tx0 - P + pix % HW)) e_s[i] = 0.f;
+  }
+  __syncthreads();
+}
+
 // Shared memory of expand_dw's wgmma expand: two stages of (x halo chunk,
 // written by TMA | w_exp_kt chunk hi | lo); e is written over them.
 template <int K, int TH>
@@ -309,10 +185,10 @@ struct WgTile {
 // each tile's 3xTF32 products of the chunk in a fresh accumulator added in
 // f32.  Ends synchronised.
 template <int K, int TH>
-__device__ void expand_tile_wgmma(const CUtensorMap* xmap, const CUtensorMap* wmap,
-                                  const float* __restrict__ s0, const float* __restrict__ b0,
-                                  char* buf, uint64_t* xbar, const int* win_s, int b, int ty0,
-                                  int tx0, int c0, int H, int W, int Cin, int Cmid) {
+__device__ void expand_tile(const CUtensorMap* xmap, const CUtensorMap* wmap,
+                            const float* __restrict__ s0, const float* __restrict__ b0, char* buf,
+                            uint64_t* xbar, const int* win_s, int b, int ty0, int tx0, int c0,
+                            int H, int W, int Cin, int Cmid) {
   using T = WgTile<K, TH>;
   static_assert(T::MT == 4 && NT == 256, "two 64-row tiles per warpgroup, two warpgroups");
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -407,11 +283,11 @@ __device__ void expand_tile_wgmma(const CUtensorMap* xmap, const CUtensorMap* wm
 template <int K, bool EXPAND>
 constexpr size_t expand_dw_smem() {
   constexpr int region = EXPAND ? WgTile<K, dw_th<K, EXPAND>()>::REGION
-                                : Tile<K, dw_th<K, EXPAND>(), dw_tc<EXPAND>(), false>::REGION;
+                                : x_tile_bytes<K, dw_th<K, EXPAND>(), dw_tc<EXPAND>()>();
   return 1024 + region + NT * 4 + 16 + 16;
 }
 
-template <int K, bool EXPAND, bool WRITE_D>
+template <int K, bool EXPAND>
 __global__ void __launch_bounds__(NT, 2) expand_dw_kernel(
     const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
     const int* __restrict__ win, const float* __restrict__ s0, const float* __restrict__ b0,
@@ -419,7 +295,7 @@ __global__ void __launch_bounds__(NT, 2) expand_dw_kernel(
     float* __restrict__ d, float* __restrict__ part, int H, int W, int Cin, int Cmid,
     int tiles_w) {
   constexpr int TH = dw_th<K, EXPAND>(), TC = dw_tc<EXPAND>();
-  constexpr int REGION = EXPAND ? WgTile<K, TH>::REGION : Tile<K, TH, TC, false>::REGION;
+  constexpr int REGION = EXPAND ? WgTile<K, TH>::REGION : x_tile_bytes<K, TH, TC>();
   constexpr int ESP = EXPAND ? WgTile<K, TH>::ESP : TC;
   extern __shared__ char smem_raw[];
   char* base = align1024(smem_raw);
@@ -439,12 +315,11 @@ __global__ void __launch_bounds__(NT, 2) expand_dw_kernel(
   __syncthreads();
 
   if constexpr (EXPAND) {
-    expand_tile_wgmma<K, TH>(&xmap, &wmap, s0, b0, base, xbar, win_s, b, ty0, tx0, c0, H, W,
-                             Cin, Cmid);
+    expand_tile<K, TH>(&xmap, &wmap, s0, b0, base, xbar, win_s, b, ty0, tx0, c0, H, W, Cin,
+                       Cmid);
   } else {
-    uint32_t seq = 0;
-    expand_tile<K, TH, TC, false>(&xmap, &wmap, s0, b0, base, xbar, win_s, b, ty0, tx0, c0, H,
-                                  W, Cin, Cmid, seq);
+    load_x_tile<K, TH, TC>(&xmap, reinterpret_cast<float*>(base), &xbar[0], win_s, b, ty0, tx0,
+                           c0);
   }
 
   const size_t img = (size_t)b * H * W;
@@ -454,7 +329,7 @@ __global__ void __launch_bounds__(NT, 2) expand_dw_kernel(
                                    const int gy = ty0 + ly, gx = tx0 + lx;
                                    if (gy < H && gx < W) {
                                      v = in_window(win_s, gy, gx) ? v : 0.f;
-                                     if (WRITE_D && c0 + c < Cmid)
+                                     if (c0 + c < Cmid)
                                        d[(img + (size_t)gy * W + gx) * Cmid + c0 + c] = v;
                                      psum += v;
                                    }
@@ -676,130 +551,6 @@ __global__ void __launch_bounds__(P_THREADS) project_kernel(
   }
 }
 
-// ---- c, recompute: e and d rebuilt on chip, mma.sync project ---------------
-
-constexpr int RC_TC = 32, RC_BN = 64;
-constexpr int RC_DSP = RC_TC + 4;       // d chunk pitch (conflict-free A fragments)
-constexpr int RC_PBYTES = RC_BN * 128;  // one half of a w_proj_kt chunk
-
-template <int K, bool EXPAND>
-size_t recompute_smem(int Cmid) {
-  using T = Tile<K, RC_TH, RC_TC, EXPAND>;
-  return 1024 + 2 * RC_PBYTES + T::REGION + RC_TH * TW * RC_DSP * 4 +
-         (size_t)(Cmid + 31) / 32 * 32 * 4 + 16 + 32;
-}
-
-template <int K, bool EXPAND>
-__global__ void __launch_bounds__(NT, 2) project_recompute_kernel(
-    const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wemap,
-    const __grid_constant__ CUtensorMap wpmap, const int* __restrict__ win,
-    const float* __restrict__ s0, const float* __restrict__ b0, const float* __restrict__ w_dw,
-    const float* __restrict__ s1, const float* __restrict__ b1, const float* __restrict__ gate,
-    const float* __restrict__ s2, const float* __restrict__ b2, const float* __restrict__ x,
-    float* __restrict__ y, int H, int W, int Cin, int Cmid, int Cout, int tiles_w,
-    int has_skip) {
-  using T = Tile<K, RC_TH, RC_TC, EXPAND>;
-  extern __shared__ char smem_raw[];
-  char* p_s = align1024(smem_raw);  // w_proj_kt chunk: hi, then lo
-  char* region = p_s + 2 * RC_PBYTES;
-  float* d_s = reinterpret_cast<float*>(region + T::REGION);
-  float* gate_s = d_s + RC_TH * TW * RC_DSP;
-  int* win_s = reinterpret_cast<int*>(gate_s + (Cmid + 31) / 32 * 32);
-  uint64_t* xbar = reinterpret_cast<uint64_t*>(win_s + 4);  // xbar[0]; xbar[2] is pbar
-  uint64_t* pbar = xbar + 2;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z, n0 = blockIdx.y * RC_BN;
-  const int ty0 = (blockIdx.x / tiles_w) * RC_TH, tx0 = (blockIdx.x % tiles_w) * TW;
-  for (int i = tid; i < Cmid; i += NT) gate_s[i] = gate[(size_t)b * Cmid + i];
-  if (tid < 4) win_s[tid] = win[4 * b + tid];
-  if (tid == 0) {
-    mbar_init(&xbar[0], 1);
-    mbar_init(pbar, 1);
-    fence_mbar_init();
-  }
-  __syncthreads();
-
-  float acc[RC_BN / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < RC_BN / 8; ++nt)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[nt][q] = 0.f;
-
-  uint32_t seq = 0;
-  const int ncc = (Cmid + RC_TC - 1) / RC_TC;
-  for (int cc = 0; cc < ncc; ++cc) {
-    const int c0 = cc * RC_TC;
-    if (tid == 0) {
-      mbar_expect_tx(pbar, 2 * RC_PBYTES);
-      tma_load_3d(p_s, &wpmap, pbar, c0, n0, 0);
-      tma_load_3d(p_s + RC_PBYTES, &wpmap, pbar, c0, n0, 1);
-    }
-    expand_tile<K, RC_TH, RC_TC, EXPAND>(&xmap, &wemap, s0, b0, region, xbar, win_s, b, ty0, tx0,
-                                     c0, H, W, Cin, Cmid, seq);
-    depthwise_tile<K, RC_TH, RC_TC, T::ESP>(
-        reinterpret_cast<const float*>(region), w_dw, s1, b1, c0, Cmid,
-        [&](int ly, int lx, int c, float v) {
-          const int gy = ty0 + ly, gx = tx0 + lx;
-          const bool keep = gy < H && gx < W && in_window(win_s, gy, gx) && c0 + c < Cmid;
-          d_s[(ly * TW + lx) * RC_DSP + c] = keep ? v * gate_s[c0 + c] : 0.f;
-        });
-    __syncthreads();
-    mbar_wait(pbar, cc & 1);
-    {
-      // ldmatrix rows as in expand_tile: A from d_s (144-byte rows, no
-      // swizzle, conflict-free), B from the swizzled w_proj_kt chunk
-      const int lr = lane & 7, lj = lane >> 3;
-      const uint32_t a_addr = smem_addr(d_s) + (warp * 16 + lr + 8 * (lj & 1)) * RC_DSP * 4 +
-                              (lj >> 1) * 16;
-      const uint32_t ph = smem_addr(p_s), pl = ph + RC_PBYTES;
-#pragma unroll
-      for (int ks = 0; ks < RC_TC / 8; ++ks) {
-        uint32_t a[4], ah[4], al[4];
-        ldsm_x4(a_addr + ks * 32, a);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) split_tf32(__uint_as_float(a[q]), ah[q], al[q]);
-#pragma unroll
-        for (int pp = 0; pp < RC_BN / 16; ++pp) {
-          uint32_t bh[4], bl[4];
-          const uint32_t off = (16 * pp + lr + 8 * (lj >> 1)) * 128 +
-                               (((2 * ks + (lj & 1)) ^ lr) << 4);
-          ldsm_x4(ph + off, bh);
-          ldsm_x4(pl + off, bl);
-          mma_3xtf32(acc[2 * pp], ah, al, bh[0], bh[1], bl[0], bl[1]);
-          mma_3xtf32(acc[2 * pp + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
-        }
-      }
-    }
-    __syncthreads();  // the region, d_s and the weight chunk are consumed
-  }
-
-  const size_t img = (size_t)b * H * W;
-#pragma unroll
-  for (int nt = 0; nt < RC_BN / 8; ++nt) {
-    const int n = n0 + nt * 8 + 2 * t;
-    if (n >= Cout) continue;
-    const float2 sc = *reinterpret_cast<const float2*>(s2 + n);
-    const float2 bi = *reinterpret_cast<const float2*>(b2 + n);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = warp * 16 + g + 8 * h;
-      const int gy = ty0 + m / TW, gx = tx0 + m % TW;
-      if (gy >= H || gx >= W) continue;
-      const bool keep = in_window(win_s, gy, gx);
-      float2 v = make_float2(keep ? acc[nt][2 * h] * sc.x + bi.x : 0.f,
-                             keep ? acc[nt][2 * h + 1] * sc.y + bi.y : 0.f);
-      const size_t o = (img + (size_t)gy * W + gx) * Cout + n;
-      if (has_skip) {
-        const float2 r = *reinterpret_cast<const float2*>(x + o);
-        v.x += r.x;
-        v.y += r.y;
-      }
-      *reinterpret_cast<float2*>(y + o) = v;
-    }
-  }
-}
-
 // ---- host ---------------------------------------------------------------------
 
 struct Args {
@@ -835,7 +586,7 @@ cudaError_t set_smem(F* kernel, size_t bytes) {
 }
 
 template <int K, bool EXPAND>
-cudaError_t launch_expand_dw(const Args& a, bool write_d) {
+cudaError_t launch_expand_dw(const Args& a) {
   constexpr int TC = dw_tc<EXPAND>(), TH = dw_th<K, EXPAND>();
   CUtensorMap xm, wm;
   if (!x_map(&xm, a, EXPAND ? KC : TC, K, TH, EXPAND)) return cudaErrorInvalidValue;
@@ -846,31 +597,11 @@ cudaError_t launch_expand_dw(const Args& a, bool write_d) {
   const int tiles_w = (a.W + TW - 1) / TW, tiles_h = (a.H + TH - 1) / TH;
   const dim3 grid(tiles_h * tiles_w, (a.Cmid + TC - 1) / TC, a.B);
   constexpr size_t smem = expand_dw_smem<K, EXPAND>();
-  auto kern = write_d ? expand_dw_kernel<K, EXPAND, true> : expand_dw_kernel<K, EXPAND, false>;
-  cudaError_t err = set_smem(kern, smem);
+  cudaError_t err = set_smem(expand_dw_kernel<K, EXPAND>, smem);
   if (err != cudaSuccess) return err;
-  kern<<<grid, NT, smem, a.st>>>(xm, wm, a.win, a.s0, a.b0, a.w_dw, a.s1, a.b1, a.d, a.part, a.H,
-                                 a.W, a.Cin, a.Cmid, tiles_w);
-  return cudaGetLastError();
-}
-
-template <int K, bool EXPAND>
-cudaError_t launch_recompute(const Args& a) {
-  CUtensorMap xm, wem, wpm;
-  if (!x_map(&xm, a, KC, K, RC_TH, EXPAND) || !kt_map(&wpm, a.w_proj_kt, a.Cout, a.Cmid, RC_BN))
-    return cudaErrorInvalidValue;
-  if (!EXPAND)
-    wem = xm;  // unused
-  else if (!kt_map(&wem, a.w_exp_kt, a.Cmid, a.Cin, RC_TC))
-    return cudaErrorInvalidValue;
-  const int tiles_w = (a.W + TW - 1) / TW, tiles_h = (a.H + RC_TH - 1) / RC_TH;
-  const dim3 grid(tiles_h * tiles_w, (a.Cout + RC_BN - 1) / RC_BN, a.B);
-  const size_t smem = recompute_smem<K, EXPAND>(a.Cmid);
-  cudaError_t err = set_smem(project_recompute_kernel<K, EXPAND>, smem);
-  if (err != cudaSuccess) return err;
-  project_recompute_kernel<K, EXPAND><<<grid, NT, smem, a.st>>>(
-      xm, wem, wpm, a.win, a.s0, a.b0, a.w_dw, a.s1, a.b1, a.gate, a.s2, a.b2, a.x, a.y, a.H,
-      a.W, a.Cin, a.Cmid, a.Cout, tiles_w, a.has_skip);
+  expand_dw_kernel<K, EXPAND><<<grid, NT, smem, a.st>>>(xm, wm, a.win, a.s0, a.b0, a.w_dw, a.s1,
+                                                        a.b1, a.d, a.part, a.H, a.W, a.Cin,
+                                                        a.Cmid, tiles_w);
   return cudaGetLastError();
 }
 
@@ -905,9 +636,9 @@ const char* mbconv_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Launches the three kernels on `stream`; variant 0 streams d (B, H, W,
-// Cmid) through HBM, 1 recomputes it in the project (d unused).  Every
-// channel count is a multiple of 8.  Returns the first launch error
+// Launches the three kernels on `stream`, with d (B, H, W, Cmid) and part
+// (B, mbconv_partials_per_image, Cmid) as scratch.  Every channel count is
+// a multiple of 8.  Returns the first launch error
 // (cudaGetLastError after each launch; an invalid value when a tensor map
 // is refused), 0 on success.
 int mbconv_stride1_f32(const float* x, const int* win, const float* w_exp_kt, const float* s0,
@@ -916,20 +647,17 @@ int mbconv_stride1_f32(const float* x, const int* win, const float* w_exp_kt, co
                        const float* b_se_e, const float* w_proj_kt, const float* s2,
                        const float* b2, float* d, float* part, float* gate, float* y, int B,
                        int H, int W, int Cin, int Cmid, int Csq, int Cout, int k, int has_expand,
-                       int has_skip, int variant, void* stream) {
-  if ((k != 3 && k != 5) || (variant != 0 && variant != 1) || Cin % 8 || Cmid % 8 || Cout % 8)
+                       int has_skip, void* stream) {
+  if ((k != 3 && k != 5) || Cin % 8 || Cmid % 8 || Cout % 8)
     return (int)cudaErrorInvalidValue;
   const Args a{x, w_exp_kt, s0, b0, w_dw, s1, b1, w_se_r, b_se_r, w_se_e, b_se_e, w_proj_kt,
                s2, b2, win, d, part, gate, y, B, H, W, Cin, Cmid, Csq, Cout, has_skip,
                (cudaStream_t)stream};
-  const bool stream_d = variant == 0;
   cudaError_t err;
   if (k == 3)
-    err = has_expand ? launch_expand_dw<3, true>(a, stream_d)
-                     : launch_expand_dw<3, false>(a, stream_d);
+    err = has_expand ? launch_expand_dw<3, true>(a) : launch_expand_dw<3, false>(a);
   else
-    err = has_expand ? launch_expand_dw<5, true>(a, stream_d)
-                     : launch_expand_dw<5, false>(a, stream_d);
+    err = has_expand ? launch_expand_dw<5, true>(a) : launch_expand_dw<5, false>(a);
   if (err != cudaSuccess) return (int)err;
 
   se_kernel<<<B, SE_NT, (size_t)(Cmid + Csq) * sizeof(float), a.st>>>(
@@ -938,12 +666,7 @@ int mbconv_stride1_f32(const float* x, const int* win, const float* w_exp_kt, co
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  if (stream_d) return (int)launch_project(a);
-  if (k == 3)
-    err = has_expand ? launch_recompute<3, true>(a) : launch_recompute<3, false>(a);
-  else
-    err = has_expand ? launch_recompute<5, true>(a) : launch_recompute<5, false>(a);
-  return (int)err;
+  return (int)launch_project(a);
 }
 
 }  // extern "C"

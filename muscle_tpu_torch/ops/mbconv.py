@@ -8,10 +8,8 @@ window mask after every BN, and the residual iff Cin == Cout.  The kernel
 (``csrc/mbconv.cu``) runs it as three launches: expand + depthwise with SE
 partial sums, the SE gate, and the project with BN2, the mask and the
 residual in its epilogue.  Its 1x1 products run on the tensor cores in the
-3xTF32 split (f32 accuracy).  The project comes in two variants
-(``pick_variant``): ``stream`` writes the depthwise output ``d`` to HBM and
-reads it back through a TMA ring into ``wgmma``; ``recompute`` never
-writes ``d`` and rebuilds it tile by tile in the project.
+3xTF32 split (f32 accuracy).  The depthwise output ``d`` goes to HBM once
+and comes back through a TMA ring into the project's ``wgmma``.
 
 Bounds on an H100 SXM, bytes = x in + y out + the weights (the ideal
 kernel keeps the expanded map on chip): ``bound_ms`` takes every FLOP on
@@ -45,15 +43,6 @@ WEIGHT_SHAPES = {
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12    # H100 SXM data sheet, f32 outside the tensor cores
 TC_3XTF32_FLOPS_PER_S = 495e12 / 3  # H100 SXM dense TF32, three products per f32 one
-VARIANTS = ("stream", "recompute")
-# what the recompute project's rebuild of e and d runs at on an H100 SXM:
-# its mma.sync expand (f32-equivalent FLOPs over the tile's halo) and its
-# depthwise stage (TMA in, depthwise, BN, swish, mask, per pixel and mid
-# channel), measured as launch (a) at _blocks_25 and _blocks_0/_blocks_1
-# when launch (a) ran the same code (chip_smoke.py --phases
-# build,mbconv_profile; PERF.md)
-EXPAND_FLOPS_PER_S = 45e12
-DEPTHWISE_PX_CH_PER_S = 1.5e11
 
 
 def fold_bn(weight, bias, mean, var, eps: float):
@@ -144,7 +133,7 @@ def _lib():
     lib = build.load("mbconv")
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.mbconv_stride1_f32.argtypes = [ptr] * 19 + [i32] * 11 + [ptr]
+        lib.mbconv_stride1_f32.argtypes = [ptr] * 19 + [i32] * 10 + [ptr]
         lib.mbconv_stride1_f32.restype = i32
         lib.mbconv_partials_per_image.argtypes = [i32] * 4
         lib.mbconv_partials_per_image.restype = i32
@@ -152,25 +141,6 @@ def _lib():
         lib.mbconv_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
-
-
-def pick_variant(cin: int, cmid: int, cout: int, k: int, has_expand: bool) -> str:
-    """The project variant the kernel takes for a block, by a static rule
-    per pixel: ``recompute`` when rebuilding e and d in the project costs
-    less than d's round trip through HBM (8 * Cmid bytes at 3.35 TB/s),
-    else ``stream``.  The project rebuilds them over its 8 x 16 tile's halo
-    once per 64 output channels, at the rates that rebuild reaches on an
-    H100 (``EXPAND_FLOPS_PER_S``, ``DEPTHWISE_PX_CH_PER_S``).
-    At those rates the depthwise stage alone (~6.7 ps per pixel and mid
-    channel) costs more than d's 8 bytes (2.4 ps), so every b3 block
-    streams; recompute would pay once that stage ran ~3x faster."""
-    p = k // 2
-    halo = (8 + 2 * p) * (16 + 2 * p) / 128
-    redo = cmid / DEPTHWISE_PX_CH_PER_S
-    if has_expand:
-        redo += halo * 2 * cin * cmid / EXPAND_FLOPS_PER_S
-    trip = 8 * cmid / HBM_BYTES_PER_S
-    return "recompute" if -(-cout // 64) * redo < trip else "stream"
 
 
 def _pad_dims(t: torch.Tensor, names, dims: dict) -> torch.Tensor:
@@ -228,15 +198,12 @@ def kernel_operands(weights: dict, has_expand: bool) -> dict:
 
 
 def mbconv_stride1(x: torch.Tensor, weights: dict, window: torch.Tensor | None, *,
-                   k: int, has_expand: bool, has_skip: bool,
-                   variant: str | None = None) -> torch.Tensor:
+                   k: int, has_expand: bool, has_skip: bool) -> torch.Tensor:
     """Inference stride-1 MBConv block on NHWC float32 ``x`` (B, H, W, Cin).
 
     weights: the folded tensors named in ``WEIGHT_SHAPES`` (``w_exp``,
     ``s0``, ``b0`` only when ``has_expand``).  window: (B, 4) int32
-    (oy, ox, h, w) valid windows, or None for whole images.  variant:
-    the kernel's project variant (``VARIANTS``), None for ``pick_variant``'s
-    choice; for tests and measurements that hold both to the plain version.
+    (oy, ox, h, w) valid windows, or None for whole images.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (building it on first use) or raises.  ``mbconv_stride1.launches``
@@ -244,8 +211,6 @@ def mbconv_stride1(x: torch.Tensor, weights: dict, window: torch.Tensor | None, 
     if x.requires_grad:
         raise RuntimeError("mbconv_stride1 is inference-only (the kernel has no "
                            "backward); call it under torch.inference_mode()")
-    if variant is not None and variant not in VARIANTS:
-        raise ValueError(f"variant must be one of {VARIANTS} or None, got {variant!r}")
     dims = _check(x, weights, window, k, has_expand, has_skip)
     if x.device.type == "cpu":
         return mbconv_stride1_plain(x, weights, window, k=k, has_expand=has_expand,
@@ -254,8 +219,6 @@ def mbconv_stride1(x: torch.Tensor, weights: dict, window: torch.Tensor | None, 
         raise ValueError(f"mbconv_stride1 runs on cpu or cuda, not {x.device}")
     lib = _lib()
     cout = dims["Cout"]
-    if variant is None:
-        variant = pick_variant(dims["Cin"], dims["Cmid"], cout, k, has_expand)
     win = full_window(x) if window is None else window
     x8, wd = _pad_dims(x, ("B", "H", "W", "Cin"), {"Cin"}), _pad8(weights, has_expand)
     b, h, w, cin8 = x8.shape
@@ -270,8 +233,8 @@ def mbconv_stride1(x: torch.Tensor, weights: dict, window: torch.Tensor | None, 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=x.device)
 
-    d = empty(b, h, w, cmid8) if variant == "stream" else None
-    part, gate, y = empty(b, ntiles, cmid8), empty(b, cmid8), empty(b, h, w, cout8)
+    d, part = empty(b, h, w, cmid8), empty(b, ntiles, cmid8)
+    gate, y = empty(b, cmid8), empty(b, h, w, cout8)
     none = ctypes.c_void_p(0)
 
     def p(t):
@@ -284,7 +247,7 @@ def mbconv_stride1(x: torch.Tensor, weights: dict, window: torch.Tensor | None, 
         p(wd["w_se_e"]), p(wd["b_se_e"]), p(kt["w_proj_kt"]), p(wd["s2"]), p(wd["b2"]),
         p(d), p(part), p(gate), p(y),
         b, h, w, cin8, cmid8, csq, cout8, k, int(has_expand), int(has_skip),
-        VARIANTS.index(variant), ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
     )
     if rc != 0:
         raise RuntimeError(f"mbconv kernel launch failed: {lib.mbconv_error_string(rc).decode()}")

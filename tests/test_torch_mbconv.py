@@ -210,16 +210,22 @@ def test_channel_padding_is_exact():
     torch.testing.assert_close(ops["w_proj_kt"].sum(0), wd8["w_proj"].t(), atol=1e-7, rtol=0)
 
 
-def test_pick_variant_rule(monkeypatch):
-    # d's round trip (8 bytes per pixel and mid channel) against rebuilding
-    # e and d at the rates the kernel reaches: every b3 block streams
-    b3 = [(40, 40, 24, 3, False), (24, 24, 24, 3, False), (32, 192, 32, 3, True),
-          (48, 288, 48, 5, True), (96, 576, 96, 3, True), (384, 2304, 384, 3, True)]
-    assert {M.pick_variant(*b) for b in b3} == {"stream"}
-    # the rule picks recompute once rebuilding is cheap enough
-    monkeypatch.setattr(M, "DEPTHWISE_PX_CH_PER_S", 10 * M.DEPTHWISE_PX_CH_PER_S)
-    assert M.pick_variant(24, 24, 24, 3, False) == "recompute"
-    with pytest.raises(ValueError, match="variant"):
-        M.mbconv_stride1(torch.zeros((1, 6, 6, 8)), TMBConvBlock(TBlockArgs(3, 1, 8, 8, 6, 1))
-                         .eval().fused_weights(), None, k=3, has_expand=True, has_skip=True,
-                         variant="other")
+@pytest.mark.parametrize("has_expand", [True, False])
+def test_kernel_operands_split_the_transposed_weights(has_expand):
+    # what the kernel's TMA loads: (hi, lo) of each 1x1 weight, K-major,
+    # exact TF32 values that sum back to the weight to f32 rounding
+    cin, expand = (24, 6) if has_expand else (40, 1)
+    block = TMBConvBlock(TBlockArgs(3, 1, cin, cin, expand, 1)).eval()
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for t in block.parameters():
+            t.copy_(0.3 * torch.randn(t.shape, generator=gen))
+    wd = block.fused_weights()
+    ops = M.kernel_operands(wd, has_expand)
+    names = {"w_proj": "w_proj_kt"} | ({"w_exp": "w_exp_kt"} if has_expand else {})
+    assert sorted(ops) == sorted(names.values())
+    for n, kt in names.items():
+        want = wd[n].t()
+        assert ops[kt].shape == (2, *want.shape)
+        assert not (ops[kt].view(torch.int32) & 0x1FFF).any()
+        assert (ops[kt].sum(0) - want).abs().max() <= 2.0 ** -22 * want.abs().max()
