@@ -16,9 +16,13 @@ Phases:
            on the f32 pipes and with the products on the tensor cores); the
            stencil walk at B = 8, C = 20, 64 steps on the 128/96/64 walk
            grids (the 512/384/256 buckets) and a 375x500 image's own
-           94x125 grid; the banded walk at C = 20, 64 steps on grid 64
-           (two images) and grid 128 (one image), beside 64 dense
-           torch.matmul steps (its library yardstick);
+           94x125 grid, beside 64 sparse CSR products (torch.sparse.mm,
+           its library yardstick); the banded walk at C = 20, 64 steps on
+           grid 64 (two images) and grid 128 (one image), beside 64 dense
+           torch.matmul steps (its library yardstick); both walks at the
+           edges of their tilings (ragged grids, one row, one class, more
+           classes than a chunk, band >= V), each repeating itself bit for
+           bit;
   main     run CamTTAEngine over synthetic VOC-shaped images at scales
            0.5/1/1.5/2 with MuSCLe-b3 (fuse_mbconv=384, float32, seeded
            random weights), count the kernel launches, and hold the
@@ -84,6 +88,12 @@ WALK_REPS = 5
 # sums per column block (test_banded_walk.py)
 STENCIL_RTOL, STENCIL_ATOL = 2e-4, 1e-6
 BANDED_RTOL, BANDED_ATOL = 2e-3, 1e-5
+# the tilings' edges (tests/test_torch_kernels_cuda.py): stencil (B, C, H,
+# W, steps) on 32 x 16 tiles, banded (B, C, V, band, steps) on 128 columns
+STENCIL_EDGES = ((2, 5, 37, 45, 8), (1, 4, 20, 9, 8), (2, 3, 1, 40, 8), (8, 20, 128, 128, 4),
+                 (1, 1, 21, 19, 8), (2, 33, 19, 35, 6), (1, 120, 17, 33, 4))
+BANDED_EDGES = ((2, 5, 700, 40, 8), (1, 4, 300, 400, 6), (1, 1, 500, 30, 8), (2, 33, 400, 25, 6),
+                (1, 5, 97, 3, 1))
 # kernel -> (source under muscle_tpu_torch/csrc, the TPU kernel's pallas_call)
 KERNEL_SOURCES = {
     "mbconv_stride1": ("mbconv.cu", "muscle_tpu/ops/pallas/mbconv.py:299"),
@@ -255,11 +265,26 @@ def _check_stencil() -> dict:
             tol = STENCIL_RTOL * float(want.abs().max()) + STENCIL_ATOL
             ms = time_ms(lambda: S.stencil_walk(x, vs, inv, **kw), WALK_REPS)
             plain_ms = time_ms(lambda: S.stencil_walk_plain(x, vs, inv, **kw), 1)
+            # the library yardstick: one step is one sparse product with the
+            # block-diagonal T^T in CSR (built outside the timed window)
+            csr = R.transition_csr(edge)
+            xt = x.reshape(WALK_B, WALK_C, h * w).transpose(1, 2).reshape(-1, WALK_C)
+
+            def library():
+                y = xt
+                for _ in range(WALK_STEPS):
+                    y = torch.sparse.mm(csr, y)
+                return y
+
+            library_ms = time_ms(library, 1)
+            lib_out = library().reshape(WALK_B, h * w, WALK_C).transpose(1, 2)
+            library_err = float((lib_out.reshape(got.shape) - want).abs().max())
+            del csr
         bound, by = bound_ms(*S.walk_work(WALK_B, WALK_C, h, w, len(dirs), WALK_STEPS))
         rec = {"kernel": "stencil_walk", "B": WALK_B, "C": WALK_C, "H": h, "W": w,
                "steps": WALK_STEPS, "max_abs_err": err, "tol": tol, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
-               "launches": launches}
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+               "library_max_abs_err": library_err, "launches": launches}
         print(json.dumps(rec), flush=True)
         if not err <= tol:
             raise AssertionError(f"stencil walk {h}x{w}: max_abs_err {err} > {tol}")
@@ -316,6 +341,56 @@ def _check_banded() -> dict:
     return out
 
 
+def _check_edges() -> None:
+    """Both walk kernels at the edges of their tilings, against their plain
+    versions, each repeating itself bit for bit."""
+    import torch
+
+    from muscle_tpu_torch.ops import banded_walk as BW
+    from muscle_tpu_torch.ops import random_walk as R
+    from muscle_tpu_torch.ops import stencil_walk as S
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for b, c, h, w, steps in STENCIL_EDGES:
+        edge = _smooth_edges(b, h, w, gen, dev)
+        x = torch.rand((b, c, h, w), generator=gen, device=dev)
+        with torch.inference_mode():
+            vs, inv, dirs = R.stencil_operands(edge)
+            got = S.stencil_walk(x, vs, inv, dirs=dirs, steps=steps)
+            again = S.stencil_walk(x, vs, inv, dirs=dirs, steps=steps)
+            want = S.stencil_walk_plain(x, vs, inv, dirs=dirs, steps=steps)
+            torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = STENCIL_RTOL * float(want.abs().max()) + STENCIL_ATOL
+        same = bool(torch.equal(got, again))
+        print(json.dumps({"kernel": "stencil_walk", "edge": [b, c, h, w, steps],
+                          "max_abs_err": err, "tol": tol, "repeats_bitwise": same}), flush=True)
+        if not (err <= tol and same):
+            raise AssertionError(f"stencil walk edge {(b, c, h, w, steps)}: max_abs_err {err} "
+                                 f"(tol {tol}), repeats bit for bit: {same}")
+    for b, c, v, band, steps in BANDED_EDGES:
+        t = torch.rand((b, v, v), generator=gen, device=dev)
+        i = torch.arange(v, device=dev)
+        t = t * ((i[:, None] - i[None, :]).abs() <= band)
+        t = t / t.sum(dim=1, keepdim=True)
+        x = torch.rand((b, c, v), generator=gen, device=dev)
+        with torch.inference_mode():
+            got = BW.banded_walk(x, t, steps=steps, band=band)
+            again = BW.banded_walk(x, t, steps=steps, band=band)
+            want = BW.banded_walk_plain(x, t, steps=steps, band=band)
+            torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        excess = float(((got - want).abs() - BANDED_RTOL * want.abs()).max())
+        same = bool(torch.equal(got, again))
+        print(json.dumps({"kernel": "banded_walk", "edge": [b, c, v, band, steps],
+                          "max_abs_err": err, "repeats_bitwise": same}), flush=True)
+        if not (excess <= BANDED_ATOL and same):
+            raise AssertionError(f"banded walk edge {(b, c, v, band, steps)}: |diff| exceeds "
+                                 f"rtol {BANDED_RTOL} * |plain| by {excess} > atol "
+                                 f"{BANDED_ATOL}, repeats bit for bit: {same}")
+
+
 def phase_kernels() -> dict:
     """Every kernel against its plain version; returns the summaries the
     {"kernels": ...} line reports, at the main paths' shapes."""
@@ -326,6 +401,7 @@ def phase_kernels() -> dict:
     bound_tc, _ = bound_tc_ms(mb["bytes"], mb["product_flops"], mb["depthwise_flops"])
     stencil = _check_stencil()[STENCIL_GRIDS[0]]
     banded = _check_banded()[BANDED_CASES[-1][0]]
+    _check_edges()
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "mbconv_stride1": {"max_abs_err": mb["max_abs_err"], "ms": mb["ms"],

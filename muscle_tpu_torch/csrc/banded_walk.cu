@@ -9,89 +9,212 @@
 // Bound on the card: the band of T read once, ~V*(2*band+1) floats, and the
 // iterate in and out, against 2*C*steps*(band entries) f32 operations; at
 // the IRN walk grid (V = 16384, band 516, C = 20, 64 steps: 43 GFLOP over
-// 68 MB) the operations bound it, ~0.65 ms per image at 67 TFLOP/s.  A
-// walk that cannot keep the 68 MB band on chip reads it once per step
-// (4.3 GB, ~1.3 ms at 3.35 TB/s), and so does this kernel.
+// 68 MB) the operations bound it, ~0.64 ms per image at 67 TFLOP/s.  A
+// walk that cannot keep the 68 MB band on chip (the L2 holds 50 MB) reads
+// it once per step: 4.3 GB, ~1.3 ms at 3.35 TB/s, and so does this kernel.
 //
 // Design.  The TPU kernel carries the iterate in VMEM across a sequential
-// (steps, column blocks) grid.  A GPU grid has no order, so here one launch
-// is one step and the iterate ping-pongs between two global buffers (1.3 MB
-// per image, resident in L2).  A CTA owns 32 columns of one image for all
-// classes: one column per lane, the 8 warps split the CTA's rows
-// [j0 - band, j0 + 32 + band) into contiguous runs, so each row of T is one
-// coalesced 128-byte read and many rows are in flight per SM.  The iterate
-// is laid out (B, V, CP), CP the class count rounded up to 4, so a lane
-// reads one row's classes as CP/4 broadcast float4 loads; the products are
-// plain f32 FMAs into CP registers per lane.  The warps' partial sums are
-// added in a fixed order through shared memory: no atomics, results repeat
-// run to run.
+// (steps, column blocks) grid.  A GPU grid has no order, so one launch is
+// one step and the iterate ping-pongs between two global buffers (resident
+// in L2).  A CTA owns NC = 128 columns of one image and one chunk of up to
+// 20 classes; it streams its band rows [j0 - band, j0 + NC + band) through
+// a ring of STAGES shared-memory stages of RB rows: a producer warp puts
+// each stage's T tile (RB x NC, one TMA box) and the iterate's RB rows
+// for the chunk (one bulk copy: the layout (B, chunks, V, CPC) keeps them
+// contiguous) on the stage's mbarrier, ~110 KB in flight per SM, so the
+// band streams at the memory rate.  Eight consumer warps in 4 row groups
+// take every 4th row of a stage; a thread owns 2 columns, reads each row's
+// 2 T values and CPC iterate values (broadcast float4s) from shared memory
+// and runs 2 * CPC f32 FMAs (tensor cores gain nothing: wgmma's tf32
+// operands are K-major and T would be the M-major one).  The row groups'
+// partial sums are added in a fixed order through shared memory: no
+// atomics, results repeat bit for bit.  Steps after the first are
+// programmatic dependents: the producer puts the first stages' T tiles
+// (constant) in flight before it waits for the previous step's iterate.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int COLS = 32;  // columns per CTA, one per lane
-constexpr int NWARP = 8;
-constexpr int NT = COLS * NWARP;
+using namespace hopper;
 
-template <int CP>
-__global__ void __launch_bounds__(NT)
-banded_step(const float* __restrict__ x, const float* __restrict__ T, float* __restrict__ y,
-            int V, int band) {
-  __shared__ float part[NWARP][CP][COLS];
-  const int b = blockIdx.y;
-  const int lane = threadIdx.x % COLS, warp = threadIdx.x / COLS;
-  const int j0 = blockIdx.x * COLS, j = j0 + lane;
-  const int lo = max(0, j0 - band), hi = min(V, j0 + COLS + band);
-  const int per = (hi - lo + NWARP - 1) / NWARP;
-  const int r0 = lo + warp * per, r1 = min(hi, r0 + per);
+#ifndef BANDED_NC
+#define BANDED_NC 128
+#endif
+constexpr int NC = BANDED_NC;  // columns per CTA
+constexpr int RB = 32;         // band rows per stage
+constexpr int STAGES = NC == 64 ? 8 : 6;
+constexpr int NRG = 512 / NC;  // consumer row groups
+constexpr int CTAS_PER_SM = NC == 64 ? 2 : 1;
+constexpr int CONSUMERS = NRG * NC / 2;  // 256: 2 columns per thread
+constexpr int NT = CONSUMERS + 32;       // + the producer warp
 
-  const float* Tb = T + (size_t)b * V * V;
-  const float* xb = x + (size_t)b * V * CP;
-  const bool col_ok = j < V;
-  float acc[CP];
+template <int CPC>
+struct Layout {
+  static constexpr int T_FLOATS = RB * NC;
+  static constexpr int X_FLOATS = RB * CPC;
+  static constexpr int STAGE_FLOATS = T_FLOATS + X_FLOATS;
+  static constexpr int RED_FLOATS = NRG * NC * (CPC + 1);
+  static constexpr int RING_FLOATS = STAGES * STAGE_FLOATS;
+  static constexpr int FLOATS = RING_FLOATS > RED_FLOATS ? RING_FLOATS : RED_FLOATS;
+  static constexpr size_t BYTES = 128 + 4 * (size_t)FLOATS + 2 * STAGES * 8;
+  static_assert((STAGE_FLOATS * 4) % 128 == 0 && (T_FLOATS * 4) % 128 == 0, "TMA destinations");
+};
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// One step for column block blockIdx.x, class chunk blockIdx.y of image
+// blockIdx.z.  tmap: T as (ld, V, B) with ld >= V, box (NC, RB, 1); x, y:
+// (B, chunks, V, CPC).
+template <int CPC>
+__global__ void __launch_bounds__(NT, CTAS_PER_SM)
+banded_step(const __grid_constant__ CUtensorMap tmap, const float* __restrict__ x,
+            float* __restrict__ y, int V, int band) {
+  using L = Layout<CPC>;
+  extern __shared__ unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + L::FLOATS);
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int j0 = blockIdx.x * NC, chunk = blockIdx.y, b = blockIdx.z;
+  const int lo = max(0, j0 - band), hi = min(V, j0 + NC + band);
+  const int nk = (hi - lo + RB - 1) / RB;
+  const size_t xoff = ((size_t)b * gridDim.y + chunk) * V * CPC;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  const int g = tid / (NC / 2), cl = tid % (NC / 2);  // consumers: row group, column
+  float acc[2][CPC];
+  if (warp == CONSUMERS / 32) {  // producer
+    if (lane == 0) {
+      auto x_bytes = [&](int k) { return (uint32_t)(min(RB, hi - lo - k * RB) * CPC * 4); };
+      const int first = min(nk, STAGES);
+      for (int k = 0; k < first; ++k) {  // T is constant: in flight before the wait
+        mbar_expect_tx(&full[k], L::T_FLOATS * 4 + x_bytes(k));
+        tma_load_3d(ring + k * L::STAGE_FLOATS, &tmap, &full[k], j0, lo + k * RB, b);
+      }
+      griddep_wait();  // the previous step's iterate is complete from here on
+      for (int k = 0; k < first; ++k)
+        bulk_load(ring + k * L::STAGE_FLOATS + L::T_FLOATS, x + xoff + (size_t)(lo + k * RB) * CPC,
+                  x_bytes(k), &full[k]);
+      for (int k = first; k < nk; ++k) {
+        const int s = k % STAGES;
+        mbar_wait(&empty[s], ((k / STAGES) - 1) & 1);
+        float* st = ring + s * L::STAGE_FLOATS;
+        mbar_expect_tx(&full[s], L::T_FLOATS * 4 + x_bytes(k));
+        tma_load_3d(st, &tmap, &full[s], j0, lo + k * RB, b);
+        bulk_load(st + L::T_FLOATS, x + xoff + (size_t)(lo + k * RB) * CPC, x_bytes(k), &full[s]);
+      }
+      // the next step may start its T loads once every CTA has issued its
+      // last ones (earlier, its waiting CTAs would share this CTA's SM)
+      griddep_launch_dependents();
+    }
+    __syncwarp();
+  } else {  // a thread owns columns cl and cl + NC / 2, every NRG-th row
 #pragma unroll
-  for (int c = 0; c < CP; ++c) acc[c] = 0.f;
-#pragma unroll 4
-  for (int i = r0; i < r1; ++i) {
-    const float t = col_ok ? __ldg(Tb + (size_t)i * V + j) : 0.f;
-    const float4* xr = reinterpret_cast<const float4*>(xb + (size_t)i * CP);
+    for (int c = 0; c < CPC; ++c) acc[0][c] = acc[1][c] = 0.f;
+    for (int k = 0; k < nk; ++k) {
+      const int s = k % STAGES;
+      mbar_wait(&full[s], (k / STAGES) & 1);
+      const float* ts = ring + s * L::STAGE_FLOATS;
+      const float* xs = ts + L::T_FLOATS;
+      const int rows = min(RB, hi - lo - k * RB);
+#pragma unroll 2
+      for (int r = g; r < rows; r += NRG) {
+        const float t0 = ts[r * NC + cl], t1 = ts[r * NC + cl + NC / 2];
+        const float4* xr = reinterpret_cast<const float4*>(xs + r * CPC);
 #pragma unroll
-    for (int q = 0; q < CP / 4; ++q) {
-      const float4 v = __ldg(xr + q);
-      acc[4 * q + 0] = fmaf(v.x, t, acc[4 * q + 0]);
-      acc[4 * q + 1] = fmaf(v.y, t, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(v.z, t, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(v.w, t, acc[4 * q + 3]);
+        for (int q = 0; q < CPC / 4; ++q) {
+          const float4 v = xr[q];
+          acc[0][4 * q + 0] = fmaf(v.x, t0, acc[0][4 * q + 0]);
+          acc[0][4 * q + 1] = fmaf(v.y, t0, acc[0][4 * q + 1]);
+          acc[0][4 * q + 2] = fmaf(v.z, t0, acc[0][4 * q + 2]);
+          acc[0][4 * q + 3] = fmaf(v.w, t0, acc[0][4 * q + 3]);
+          acc[1][4 * q + 0] = fmaf(v.x, t1, acc[1][4 * q + 0]);
+          acc[1][4 * q + 1] = fmaf(v.y, t1, acc[1][4 * q + 1]);
+          acc[1][4 * q + 2] = fmaf(v.z, t1, acc[1][4 * q + 2]);
+          acc[1][4 * q + 3] = fmaf(v.w, t1, acc[1][4 * q + 3]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
     }
   }
+  __syncthreads();  // every stage consumed: the ring becomes the reduction buffer
+  float* red = ring;  // (NRG, NC, CPC + 1)
+  if (warp < CONSUMERS / 32) {
 #pragma unroll
-  for (int c = 0; c < CP; ++c) part[warp][c][lane] = acc[c];
+    for (int c = 0; c < CPC; ++c) {
+      red[(g * NC + cl) * (CPC + 1) + c] = acc[0][c];
+      red[(g * NC + cl + NC / 2) * (CPC + 1) + c] = acc[1][c];
+    }
+  }
   __syncthreads();
-  for (int o = threadIdx.x; o < CP * COLS; o += NT) {
-    const int c = o / COLS, l = o % COLS;
-    if (j0 + l >= V) continue;
+  float* yb = y + xoff;
+  for (int o = tid; o < NC * CPC; o += NT) {  // row groups added in a fixed order
+    const int j = o / CPC, c = o % CPC;
+    if (j0 + j >= V) continue;
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < NWARP; ++w) s += part[w][c][l];
-    y[(size_t)b * V * CP + (size_t)(j0 + l) * CP + c] = s;
+    for (int gg = 0; gg < NRG; ++gg) s += red[(gg * NC + j) * (CPC + 1) + c];
+    yb[(size_t)(j0 + j) * CPC + c] = s;
   }
 }
 
-template <int CP>
-cudaError_t run(const float* x0, const float* T, float* tmp, float* y, int B, int V, int band,
-                int steps, cudaStream_t st) {
-  const dim3 grid((V + COLS - 1) / COLS, B);
+template <int CPC>
+int run(const float* x0, const float* T, float* tmp, float* y, int B, int V, int ld, int chunks,
+        int band, int steps, cudaStream_t st) {
+  using L = Layout<CPC>;
+  cudaError_t err = cudaFuncSetAttribute(banded_step<CPC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)L::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tmap;
+  const uint64_t dims[3] = {(uint64_t)ld, (uint64_t)V, (uint64_t)B};
+  const uint32_t box[3] = {NC, RB, 1};
+  if (!make_map_f32(&tmap, T, 3, dims, box, false)) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((V + NC - 1) / NC, chunks, B);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = L::BYTES;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
   const float* src = x0;
   for (int s = 0; s < steps; ++s) {
     float* dst = ((steps - 1 - s) % 2 == 0) ? y : tmp;  // the last step writes y
-    banded_step<CP><<<grid, NT, 0, st>>>(src, T, dst, V, band);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+    cfg.attrs = s > 0 ? attr : nullptr;  // the first step follows the caller's kernels in full
+    cfg.numAttrs = s > 0 ? 1 : 0;
+    err = cudaLaunchKernelEx(&cfg, banded_step<CPC>, tmap, src, dst, V, band);
+    if (err != cudaSuccess) return (int)err;
     src = dst;
   }
-  return cudaSuccess;
+  return 0;
 }
 
 }  // namespace
@@ -102,25 +225,25 @@ const char* banded_walk_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Runs `steps` steps of x0 (B, V, CP) @ T (B, V, V) into y (B, V, CP) on
-// `stream`, with tmp (B, V, CP) as the second ping-pong buffer.  CP is a
-// multiple of 4 up to 32; the padded classes of x0 must be zero.  Returns
-// 0 or the first CUDA error (cudaGetLastError after each launch).
-int banded_walk_f32(const float* x0, const float* T, float* tmp, float* y, int B, int V, int CP,
-                    int band, int steps, void* stream) {
-  if (B < 1 || V < 1 || band < 0 || steps < 0) return (int)cudaErrorInvalidValue;
+// Runs `steps` steps of x0 @ T into y on `stream`, with tmp as the second
+// ping-pong buffer.  x0, tmp, y: (B, chunks, V, CPC), the classes in chunks
+// of CPC (a multiple of 4 up to 20), padded classes zero.  T: (B, V, ld)
+// with ld >= V a multiple of 4 (columns past V zero), 16-byte aligned.
+// Returns 0 or the first CUDA error of a launch.
+int banded_walk_f32(const float* x0, const float* T, float* tmp, float* y, int B, int V, int ld,
+                    int chunks, int CPC, int band, int steps, void* stream) {
+  if (B < 1 || V < 1 || ld < V || ld % 4 != 0 || chunks < 1 || band < 0 || steps < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (steps == 0)
-    return (int)cudaMemcpyAsync(y, x0, sizeof(float) * B * V * CP, cudaMemcpyDeviceToDevice, st);
-  switch (CP) {
-    case 4: return (int)run<4>(x0, T, tmp, y, B, V, band, steps, st);
-    case 8: return (int)run<8>(x0, T, tmp, y, B, V, band, steps, st);
-    case 12: return (int)run<12>(x0, T, tmp, y, B, V, band, steps, st);
-    case 16: return (int)run<16>(x0, T, tmp, y, B, V, band, steps, st);
-    case 20: return (int)run<20>(x0, T, tmp, y, B, V, band, steps, st);
-    case 24: return (int)run<24>(x0, T, tmp, y, B, V, band, steps, st);
-    case 28: return (int)run<28>(x0, T, tmp, y, B, V, band, steps, st);
-    case 32: return (int)run<32>(x0, T, tmp, y, B, V, band, steps, st);
+    return (int)cudaMemcpyAsync(y, x0, sizeof(float) * B * chunks * V * CPC,
+                                cudaMemcpyDeviceToDevice, st);
+  switch (CPC) {
+    case 4: return run<4>(x0, T, tmp, y, B, V, ld, chunks, band, steps, st);
+    case 8: return run<8>(x0, T, tmp, y, B, V, ld, chunks, band, steps, st);
+    case 12: return run<12>(x0, T, tmp, y, B, V, ld, chunks, band, steps, st);
+    case 16: return run<16>(x0, T, tmp, y, B, V, ld, chunks, band, steps, st);
+    case 20: return run<20>(x0, T, tmp, y, B, V, ld, chunks, band, steps, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

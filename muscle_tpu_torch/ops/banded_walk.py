@@ -6,16 +6,18 @@ Replaces the Pallas TPU kernel ``muscle_tpu/ops/pallas/banded_walk.py``
 transition matrix T whose nonzeros lie within ``band`` of the diagonal
 (``walk_band``).  Both versions read T only inside the band windows of
 their column blocks and take it as zero elsewhere.  The kernel
-(``csrc/banded_walk.cu``) runs one launch per step; a CTA owns 32 columns
-of one image for all classes, its warps split the band rows, and the
-iterate ping-pongs through two (B, V, CP) buffers.
+(``csrc/banded_walk.cu``) runs one launch per step; a CTA owns 128 columns
+of one image and one chunk of classes (``class_chunks``), streams its band
+rows of T through a TMA-fed shared-memory ring with the iterate's rows
+beside them, and the iterate ping-pongs through two (B, chunks, V, CPC)
+buffers (``to_chunks``).
 
 Bound on an H100 SXM: max(bytes / 3.35 TB/s, FLOPs / 67 TFLOP/s f32) with
 bytes = the band of T read once + x in + x' out and FLOPs =
 2*C*steps*(band entries) (``walk_work``, ``ops.mbconv.bound_ms``): the
-operations bound it.  This version reads the band from device memory once
-per step (68 MB at grid 128 does not stay in the 50 MB L2), ~2x the
-bound at the full memory rate; its times are in PERF.md.
+operations bound it.  A kernel that cannot keep the band on chip (68 MB
+at grid 128 does not stay in the 50 MB L2) reads it once per step, ~2x
+the bound at the full memory rate; the kernel's times are in PERF.md.
 """
 
 from __future__ import annotations
@@ -65,8 +67,6 @@ def _check(x, trans) -> None:
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device:
             raise ValueError(f"{name}: want a contiguous float32 tensor on {x.device}, got "
                              f"{t.dtype} on {t.device} contiguous={t.is_contiguous()}")
-    if c > 32:
-        raise ValueError(f"banded_walk takes at most 32 classes, got {c}")
 
 
 def _lib():
@@ -75,12 +75,37 @@ def _lib():
     lib = build.load("banded_walk")
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.banded_walk_f32.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+        lib.banded_walk_f32.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
         lib.banded_walk_f32.restype = i32
         lib.banded_walk_error_string.argtypes = [i32]
         lib.banded_walk_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+MAX_CHUNK = 20  # classes per CTA of the kernel (compiled for 4, 8, ..., 20)
+
+
+def class_chunks(c: int) -> tuple[int, int]:
+    """(chunks, CPC): the kernel's class chunks for c classes, as few as
+    hold them, each padded to a multiple of 4 classes."""
+    chunks = -(-c // MAX_CHUNK)
+    return chunks, -(-(-(-c // chunks)) // 4) * 4
+
+
+def to_chunks(x: torch.Tensor, chunks: int, cpc: int) -> torch.Tensor:
+    """x (B, C, V) as the kernel's iterate (B, chunks, V, cpc), zero-padded
+    classes."""
+    b, c, v = x.shape
+    out = x.new_zeros((b, chunks * cpc, v))
+    out[:, :c] = x
+    return out.reshape(b, chunks, cpc, v).transpose(2, 3).contiguous()
+
+
+def from_chunks(y: torch.Tensor, c: int) -> torch.Tensor:
+    """The kernel's (B, chunks, V, cpc) iterate as (B, c, V)."""
+    b, chunks, v, cpc = y.shape
+    return y.transpose(2, 3).reshape(b, chunks * cpc, v)[:, :c].contiguous()
 
 
 def banded_walk(x: torch.Tensor, trans: torch.Tensor, *, steps: int, band: int) -> torch.Tensor:
@@ -99,23 +124,25 @@ def banded_walk(x: torch.Tensor, trans: torch.Tensor, *, steps: int, band: int) 
         raise ValueError(f"banded_walk runs on cpu or cuda, not {x.device}")
     lib = _lib()
     b, c, v = x.shape
-    cp = -(-c // 4) * 4
-    # the kernel's layout: (B, V, CP), classes padded with zeros
-    x0 = torch.zeros((b, v, cp), dtype=torch.float32, device=x.device)
-    x0[..., :c] = x.transpose(1, 2)
+    chunks, cpc = class_chunks(c)
+    x0 = to_chunks(x, chunks, cpc)
     y = torch.empty_like(x0)
     tmp = torch.empty_like(x0) if steps > 1 else y
+    # T's rows are TMA rows: a multiple of 4 floats, 16-byte aligned
+    ld = -(-v // 4) * 4
+    if ld != v or trans.data_ptr() % 16:
+        trans = F.pad(trans, (0, ld - v))
 
     def p(t):
         return ctypes.c_void_p(t.data_ptr())
 
-    rc = lib.banded_walk_f32(p(x0), p(trans), p(tmp), p(y), b, v, cp, band, steps,
+    rc = lib.banded_walk_f32(p(x0), p(trans), p(tmp), p(y), b, v, ld, chunks, cpc, band, steps,
                              ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"banded walk kernel launch failed: "
                            f"{lib.banded_walk_error_string(rc).decode()}")
     banded_walk.launches += 1
-    return y[..., :c].transpose(1, 2).contiguous()
+    return from_chunks(y, c)
 
 
 banded_walk.launches = 0

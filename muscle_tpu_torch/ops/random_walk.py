@@ -127,12 +127,11 @@ def edge_to_affinity(edge_flat: torch.Tensor, path_index: PathIndex) -> torch.Te
     return torch.cat(affs, dim=-2)
 
 
-def transition_matrices(edge: torch.Tensor, radius: int = 5, beta: int = 8) -> torch.Tensor:
-    """(B, V, V) column-stochastic transition matrices of (B, h, w) edges,
-    scattered straight into the cropped grid: the beta power and the column
-    sums run on the sparse pair values, not on the dense matrix."""
+def _pair_weights(edge: torch.Tensor, radius: int, beta: int):
+    """(rows, cols, weights (B, P), colsum (B, V)) of (B, h, w) edges: the
+    off-diagonal entries T[rows, cols] = weights / colsum[cols] of the
+    transition matrices, the diagonal 1 / colsum."""
     b, h, w = edge.shape
-    v = h * w
     dev = edge.device
     pi = _cached_path_index(radius, (h + radius, w + 2 * radius))
     edge_padded = F.pad(edge, (radius, radius, 0, radius), value=1.0).reshape(b, -1)
@@ -142,13 +141,45 @@ def transition_matrices(edge: torch.Tensor, radius: int = 5, beta: int = 8) -> t
     cols = torch.as_tensor(cols_np, device=dev)
     vals = aff[:, torch.as_tensor(sel, device=dev)]
     vals_b = torch.cat([vals, vals], dim=1) ** beta
-    colsum = torch.ones((b, v), dtype=vals_b.dtype, device=dev).index_add_(1, cols, vals_b)
+    colsum = torch.ones((b, h * w), dtype=vals_b.dtype, device=dev).index_add_(1, cols, vals_b)
+    return rows, cols, vals_b, colsum
+
+
+def transition_matrices(edge: torch.Tensor, radius: int = 5, beta: int = 8) -> torch.Tensor:
+    """(B, V, V) column-stochastic transition matrices of (B, h, w) edges,
+    scattered straight into the cropped grid: the beta power and the column
+    sums run on the sparse pair values, not on the dense matrix."""
+    b, h, w = edge.shape
+    v = h * w
+    dev = edge.device
+    rows, cols, vals_b, colsum = _pair_weights(edge, radius, beta)
     trans = torch.zeros((b, v, v), dtype=vals_b.dtype, device=dev)
     bi = torch.arange(b, device=dev)[:, None]
     trans.index_put_((bi, rows[None], cols[None]), vals_b / colsum[:, cols], accumulate=True)
     idx = torch.arange(v, device=dev)
     trans[:, idx, idx] += 1.0 / colsum
     return trans
+
+
+def transition_csr(edge: torch.Tensor, radius: int = 5, beta: int = 8) -> torch.Tensor:
+    """The transposes of the (B, V, V) ``transition_matrices`` of (B, h, w)
+    edges as one block-diagonal sparse CSR matrix (B*V, B*V), ~69 nonzeros
+    per row: one walk step of x (B, C, V) is ``torch.sparse.mm(csr, xt)``
+    with xt = x as (B*V, C).  The stencil kernel's library yardstick in
+    ``chip_smoke.py``; no walk method calls it."""
+    b, h, w = edge.shape
+    v = h * w
+    dev = edge.device
+    rows, cols, vals_b, colsum = _pair_weights(edge, radius, beta)
+    idx = torch.arange(v, device=dev)
+    off = (torch.arange(b, device=dev) * v)[:, None]
+    # T[i, j] at (j, i) of the transpose, image k's block at rows k*V
+    tr = torch.cat([cols[None] + off, idx[None] + off], dim=1).reshape(-1)
+    tc = torch.cat([rows[None] + off, idx[None] + off], dim=1).reshape(-1)
+    tv = torch.cat([vals_b / colsum[:, cols], 1.0 / colsum], dim=1).reshape(-1)
+    coo = torch.sparse_coo_tensor(torch.stack([tr, tc]), tv, (b * v, b * v),
+                                  check_invariants=True).coalesce()
+    return coo.to_sparse_csr()
 
 
 def propagate_to_edge(cam: torch.Tensor, edge: torch.Tensor, radius: int = 5, beta: int = 8,

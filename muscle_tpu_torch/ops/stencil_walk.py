@@ -9,23 +9,26 @@ pixel p,
 
 over the D = 34 radius-5 directions d, neighbours outside the grid
 contributing zero.  The classes walk independently.  The kernel
-(``csrc/stencil_walk.cu``) runs one launch per step; a CTA owns a 16 x 16
-pixel tile of one image for all classes, holds its pixels' 2*D weights in
-registers and the class tiles with their halo in shared memory.
+(``csrc/stencil_walk.cu``) runs one launch per step; a CTA owns a 32 x 16
+pixel tile of one image, staged by TMA with its halo (the vs tile once,
+the iterate by class chunks), and a thread owns 4 pixels of a row for a
+chunk of classes (``stencil_plan``), with one tap row's weights and one
+class window at a time in registers.
 
 Bound on an H100 SXM: max(bytes / 3.35 TB/s, FLOPs / 67 TFLOP/s f32) with
 bytes = x in + x' out + vs + inv, each once, and FLOPs =
 B*C*steps*H*W*(4D + 1) (``walk_work``, ``ops.mbconv.bound_ms``).  At the
-IRN shapes the operations bound it.  One shared-memory read per FMA caps
-this version at ~4.5x that bound; its times are in PERF.md.
+IRN shapes the operations bound it; the kernel's times are in PERF.md.
 
 The TPU kernel pads the grid to (8, 128) tiles and uses circular rolls; the
-CUDA kernel works on the (H, W) grid with zero fill, as the plain loop does.
+CUDA kernel works on the (H, W) grid with zero fill, as the plain loop does,
+its width padded with zeros to a multiple of 4 (``pad_width``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -73,12 +76,62 @@ def _lib():
     lib = build.load("stencil_walk")
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.stencil_walk_f32.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+        lib.stencil_walk_f32.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
         lib.stencil_walk_f32.restype = i32
         lib.stencil_walk_error_string.argtypes = [i32]
         lib.stencil_walk_error_string.restype = ctypes.c_char_p
         lib._typed = True
     return lib
+
+
+# the kernel's tiling (csrc/stencil_walk.cu): TILE_W x TILE_H pixels per CTA,
+# 4 pixels per thread, class groups of 128 threads; the classes per thread
+# it is compiled for; a halo of 4 around the staged iterate, 4 above and at
+# the sides of the staged vs (34 planes)
+TILE_W, TILE_H, GROUP_THREADS = 32, 16, 128
+CLASS_CHUNKS = (1, 2, 3, 4, 5, 6, 8, 10)
+N_DIRS, HALO = 34, 4
+SMEM_LIMIT = 232_448  # bytes of shared memory a CTA may use on an H100
+
+
+class StencilPlan(NamedTuple):
+    cc: int  # classes per thread in a pass
+    ng: int  # class groups of GROUP_THREADS threads
+    passes: int  # class chunks of ng * cc, one after the other
+    buffers: int  # staged iterate chunks (2: the next loads while one computes)
+    width: int  # W padded to a multiple of 4
+    grid: tuple[int, int, int]  # CTAs: column tiles, row tiles, images
+    threads: int
+    smem: int  # dynamic shared bytes per CTA
+
+
+def stencil_plan(b: int, c: int, h: int, w: int) -> StencilPlan:
+    """How the kernel tiles a walk of x (b, c, h, w).  Up to 10 classes: one
+    group, cc the smallest compiled chunk that holds them; up to 20: two
+    groups (8 warps); more: passes of 2 x 5 classes, double-buffered."""
+    if c <= 10:
+        ng, cc = 1, min(k for k in CLASS_CHUNKS if k >= c)
+    elif c <= 20:
+        ng, cc = 2, min(k for k in CLASS_CHUNKS if k >= -(-c // 2))
+    else:
+        ng, cc = 2, 5
+    passes = -(-c // (ng * cc))
+    buffers = 1 if passes == 1 else 2
+    width = -(-w // 4) * 4
+    xplane = (TILE_H + 2 * HALO) * (TILE_W + 2 * HALO)
+    vtile = N_DIRS * (TILE_H + HALO) * (TILE_W + 2 * HALO)
+    smem = 128 + 4 * (vtile + buffers * ng * cc * xplane) + 3 * 8
+    assert smem <= SMEM_LIMIT
+    grid = (-(-width // TILE_W), -(-h // TILE_H), b)
+    return StencilPlan(cc, ng, passes, buffers, width, grid, ng * GROUP_THREADS, smem)
+
+
+def pad_width(t: torch.Tensor, width: int) -> torch.Tensor:
+    """t (..., W) with zero columns up to ``width``, contiguous and 16-byte
+    aligned (the kernel's TMA rows); t itself where it already is."""
+    if t.shape[-1] == width and t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return F.pad(t, (0, width - t.shape[-1])).contiguous()
 
 
 def stencil_walk(x: torch.Tensor, vs: torch.Tensor, inv: torch.Tensor, *,
@@ -99,22 +152,27 @@ def stencil_walk(x: torch.Tensor, vs: torch.Tensor, inv: torch.Tensor, *,
         raise ValueError(f"stencil_walk runs on cpu or cuda, not {x.device}")
     lib = _lib()
     b, c, h, w = x.shape
+    plan = stencil_plan(b, c, h, w)
+    # zero columns up to a multiple of 4: zero weights and zero iterate, so
+    # the walk keeps them zero and the grid's own pixels see no change
+    x0, vs, inv = (pad_width(t, plan.width) for t in (x, vs, inv))
     table = np.ascontiguousarray(dirs, dtype=np.int32).reshape(-1)
-    y = torch.empty_like(x)
-    tmp = torch.empty_like(x) if steps > 1 else y
+    y = torch.empty_like(x0)
+    tmp = torch.empty_like(x0) if steps > 1 else y
 
     def p(t):
         return ctypes.c_void_p(t.data_ptr())
 
     rc = lib.stencil_walk_f32(
-        p(x), p(vs), p(inv), p(tmp), p(y), table.ctypes.data_as(ctypes.c_void_p), len(dirs),
-        b, c, h, w, steps, ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+        p(x0), p(vs), p(inv), p(tmp), p(y), table.ctypes.data_as(ctypes.c_void_p), len(dirs),
+        b, c, h, plan.width, steps, plan.cc, plan.ng,
+        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     if rc != 0:
         raise RuntimeError("stencil walk kernel launch failed: "
                            f"{lib.stencil_walk_error_string(rc).decode()} (the kernel takes "
-                           "the 34 radius-5 directions and at most ~100 classes)")
+                           "the 34 radius-5 directions)")
     stencil_walk.launches += 1
-    return y
+    return y if plan.width == w else y[..., :w].contiguous()
 
 
 stencil_walk.launches = 0

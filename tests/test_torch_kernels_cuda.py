@@ -109,8 +109,13 @@ def _stencil_inputs(b, c, h, w, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 3, 37, 53, 16), (1, 20, 16, 16, 64), (2, 3, 5, 3, 1),
-                                   (1, 2, 9, 7, 0)])
+@pytest.mark.parametrize("shape", [
+    (2, 3, 37, 53, 16), (1, 20, 16, 16, 64), (2, 3, 5, 3, 1), (1, 2, 9, 7, 0),
+    # the tiling's edges (32 x 16 tiles): a grid a multiple of neither side,
+    # W below one tile, H = 1, B x tiles above one wave of CTAs (256 CTAs)
+    (2, 5, 37, 45, 8), (1, 4, 20, 9, 8), (2, 3, 1, 40, 8), (8, 20, 128, 128, 4),
+    # class counts: one, and more than one chunk (double-buffered passes)
+    (1, 1, 21, 19, 8), (2, 33, 19, 35, 6), (1, 120, 17, 33, 4)])
 def test_stencil_walk_kernel_matches_plain(cuda, shape):
     b, c, h, w, steps = shape
     x, vs, inv, dirs = _stencil_inputs(b, c, h, w, seed=h, device=cuda)
@@ -142,8 +147,11 @@ def _banded(b, v, band, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 3, 600, 37, 8), (1, 20, 1000, 64, 16), (1, 5, 97, 3, 1),
-                                   (2, 32, 300, 20, 3)])
+@pytest.mark.parametrize("shape", [
+    (2, 3, 600, 37, 8), (1, 20, 1000, 64, 16), (1, 5, 97, 3, 1), (2, 32, 300, 20, 3),
+    # V not a multiple of the 128-column block, band >= V, one class, and
+    # more classes than one 20-class chunk
+    (2, 5, 700, 40, 8), (1, 4, 300, 400, 6), (1, 1, 500, 30, 8), (2, 33, 400, 25, 6)])
 def test_banded_walk_kernel_matches_plain(cuda, shape):
     b, c, v, band, steps = shape
     t = _banded(b, v, band, seed=v).to(cuda)

@@ -12,6 +12,8 @@ import jax.numpy as jnp
 from muscle_tpu.ops import random_walk as J
 from muscle_tpu.ops.pallas import banded_random_walk
 from muscle_tpu_torch.ops import random_walk as P
+from muscle_tpu_torch.ops import banded_walk as BW
+from muscle_tpu_torch.ops import stencil_walk as S
 from muscle_tpu_torch.ops.banded_walk import banded_walk, walk_band
 from muscle_tpu_torch.ops.stencil_walk import stencil_walk
 
@@ -182,7 +184,97 @@ def test_walk_wrappers_reject_bad_input():
         stencil_walk(x.requires_grad_(), vs, torch.ones((1, 6, 5)), dirs=dirs, steps=1)
     with pytest.raises(ValueError, match="shapes"):
         banded_walk(torch.zeros((1, 2, 30)), torch.zeros((1, 30, 29)), steps=1, band=3)
-    with pytest.raises(ValueError, match="32 classes"):
-        banded_walk(torch.zeros((1, 33, 30)), torch.zeros((1, 30, 30)), steps=1, band=3)
+    # any class count: 33 classes (more than one kernel chunk) walk on the
+    # CPU and match the Pallas kernel in interpret mode
+    rng = np.random.default_rng(33)
+    t = _banded_matrix(rng, 30, 3)
+    x33 = rng.uniform(0, 1, (33, 30)).astype(np.float32)
+    got = banded_walk(_t(x33)[None], _t(t)[None], steps=4, band=3)[0]
+    want = banded_random_walk(jnp.asarray(x33), jnp.asarray(t), steps=4, band=3, block_cols=128,
+                              interpret=True)
+    rtol, atol = TOL["banded"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol, atol=atol)
     with pytest.raises(ValueError, match="unknown method"):
         P.propagate_to_edge(torch.zeros((2, 6, 5)), torch.zeros((6, 5)), method="dense")
+
+
+def test_transition_csr_matches_dense():
+    """The stencil kernel's library yardstick: the CSR builder holds the
+    transposes of the dense ``transition_matrices`` (held to the JAX
+    package above), block-diagonal over the batch, and one sparse product
+    is one walk step."""
+    rng = np.random.default_rng(6)
+    edge = _t(rng.uniform(0, 0.7, size=(3, 9, 11)).astype(np.float32))
+    csr = P.transition_csr(edge)
+    dense = P.transition_matrices(edge)
+    assert csr.layout == torch.sparse_csr and csr.shape == (3 * 99, 3 * 99)
+    assert csr._nnz() <= 3 * 99 * 69
+    torch.testing.assert_close(csr.to_dense(), torch.block_diag(*dense.transpose(1, 2)),
+                               rtol=0, atol=0)
+    x = _t(rng.uniform(0, 1, size=(3, 4, 99)).astype(np.float32))
+    step = torch.sparse.mm(csr, x.transpose(1, 2).reshape(-1, 4)).reshape(3, 99, 4)
+    torch.testing.assert_close(step.transpose(1, 2), x @ dense, rtol=1e-5, atol=1e-7)
+
+
+# (B, C, H, W) -> (cc, ng, passes, buffers, padded width, grid)
+STENCIL_PLANS = {
+    (8, 20, 128, 128): (10, 2, 1, 1, 128, (4, 8, 8)),
+    (8, 20, 96, 96): (10, 2, 1, 1, 96, (3, 6, 8)),
+    (8, 20, 64, 64): (10, 2, 1, 1, 64, (2, 4, 8)),
+    (8, 20, 94, 125): (10, 2, 1, 1, 128, (4, 6, 8)),
+    (8, 5, 128, 128): (5, 1, 1, 1, 128, (4, 8, 8)),
+    (1, 1, 1, 50): (1, 1, 1, 1, 52, (2, 1, 1)),
+    (2, 3, 5, 3): (3, 1, 1, 1, 4, (1, 1, 2)),
+    (1, 13, 40, 40): (8, 2, 1, 1, 40, (2, 3, 1)),
+    (2, 33, 19, 35): (5, 2, 4, 2, 36, (2, 2, 2)),
+    (1, 120, 17, 33): (5, 2, 12, 2, 36, (2, 2, 1)),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(STENCIL_PLANS), ids=str)
+def test_stencil_plan(shape):
+    """The stencil kernel's tiling: 32 x 16 pixel tiles, class chunks that
+    cover every class, and shared memory within a CTA's limit."""
+    plan = S.stencil_plan(*shape)
+    b, c, h, w = shape
+    assert (plan.cc, plan.ng, plan.passes, plan.buffers, plan.width, plan.grid) == \
+        STENCIL_PLANS[shape]
+    assert plan.cc in S.CLASS_CHUNKS and plan.threads == plan.ng * S.GROUP_THREADS
+    assert plan.passes * plan.ng * plan.cc >= c > (plan.passes - 1) * plan.ng * plan.cc
+    assert plan.width % 4 == 0 and plan.width - 4 < w <= plan.width
+    assert plan.grid[0] * S.TILE_W >= plan.width and plan.grid[1] * S.TILE_H >= h
+    vtile = 34 * (S.TILE_H + 4) * (S.TILE_W + 8)  # vs with its top and side halo
+    xtile = plan.buffers * plan.ng * plan.cc * (S.TILE_H + 8) * (S.TILE_W + 8)
+    assert plan.smem == 128 + 4 * (vtile + xtile) + 24 <= S.SMEM_LIMIT
+
+
+def test_stencil_width_padding_is_exact():
+    """The kernel's operands padded to a multiple of 4 columns with zeros
+    walk exactly as the bare grid, and the padding stays zero."""
+    rng = np.random.default_rng(8)
+    cam = _t(rng.uniform(0, 1, size=(2, 3, 9, 7)).astype(np.float32))
+    edge = _t(rng.uniform(0, 0.6, size=(2, 9, 7)).astype(np.float32))
+    vs, inv, dirs = P.stencil_operands(edge)
+    x = cam * (1.0 - edge)[:, None]
+    base = S.stencil_walk_plain(x, vs, inv, dirs=dirs, steps=5)
+    xp, vsp, invp = (S.pad_width(t, 8) for t in (x, vs, inv))
+    assert xp.shape[-1] == vsp.shape[-1] == invp.shape[-1] == 8 and xp.is_contiguous()
+    assert S.pad_width(xp, 8) is xp
+    padded = S.stencil_walk_plain(xp, vsp, invp, dirs=dirs, steps=5)
+    torch.testing.assert_close(padded[..., :7], base, rtol=1e-6, atol=1e-7)
+    assert float(padded[..., 7:].abs().max()) == 0
+
+
+@pytest.mark.parametrize("c", [1, 4, 5, 20, 21, 33, 120])
+def test_banded_class_chunks_round_trip(c):
+    """The banded kernel's iterate layout (B, chunks, V, CPC): as few chunks
+    of at most 20 classes as hold c, each a multiple of 4, zero-padded."""
+    chunks, cpc = BW.class_chunks(c)
+    assert chunks == -(-c // 20) and cpc % 4 == 0 and cpc <= 20
+    assert chunks * cpc >= c > chunks * cpc - 4 * chunks
+    x = _t(np.random.default_rng(c).uniform(0, 1, size=(2, c, 37)).astype(np.float32))
+    packed = BW.to_chunks(x, chunks, cpc)
+    assert packed.shape == (2, chunks, 37, cpc) and packed.is_contiguous()
+    assert torch.equal(packed[0, 0, 5, 0], x[0, 0, 5])
+    assert float(packed.abs().sum()) == pytest.approx(float(x.abs().sum()), rel=1e-6)
+    assert torch.equal(BW.from_chunks(packed, c), x)
