@@ -89,7 +89,7 @@ WALK_REPS = 5
 STENCIL_RTOL, STENCIL_ATOL = 2e-4, 1e-6
 BANDED_RTOL, BANDED_ATOL = 2e-3, 1e-5
 # the tilings' edges (tests/test_torch_kernels_cuda.py): stencil (B, C, H,
-# W, steps) on 32 x 16 tiles, banded (B, C, V, band, steps) on 128 columns
+# W, steps) on 32 x 16 tiles, banded (B, C, V, band, steps) on 64 columns
 STENCIL_EDGES = ((2, 5, 37, 45, 8), (1, 4, 20, 9, 8), (2, 3, 1, 40, 8), (8, 20, 128, 128, 4),
                  (1, 1, 21, 19, 8), (2, 33, 19, 35, 6), (1, 120, 17, 33, 4))
 BANDED_EDGES = ((2, 5, 700, 40, 8), (1, 4, 300, 400, 6), (1, 1, 500, 30, 8), (2, 33, 400, 25, 6),

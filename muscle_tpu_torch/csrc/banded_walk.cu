@@ -16,21 +16,24 @@
 // Design.  The TPU kernel carries the iterate in VMEM across a sequential
 // (steps, column blocks) grid.  A GPU grid has no order, so one launch is
 // one step and the iterate ping-pongs between two global buffers (resident
-// in L2).  A CTA owns NC = 128 columns of one image and one chunk of up to
+// in L2).  A CTA owns NC = 64 columns of one image and one chunk of up to
 // 20 classes; it streams its band rows [j0 - band, j0 + NC + band) through
-// a ring of STAGES shared-memory stages of RB rows: a producer warp puts
-// each stage's T tile (RB x NC, one TMA box) and the iterate's RB rows
-// for the chunk (one bulk copy: the layout (B, chunks, V, CPC) keeps them
-// contiguous) on the stage's mbarrier, ~110 KB in flight per SM, so the
-// band streams at the memory rate.  Eight consumer warps in 4 row groups
-// take every 4th row of a stage; a thread owns 2 columns, reads each row's
-// 2 T values and CPC iterate values (broadcast float4s) from shared memory
-// and runs 2 * CPC f32 FMAs (tensor cores gain nothing: wgmma's tf32
-// operands are K-major and T would be the M-major one).  The row groups'
-// partial sums are added in a fixed order through shared memory: no
-// atomics, results repeat bit for bit.  Steps after the first are
-// programmatic dependents: the producer puts the first stages' T tiles
-// (constant) in flight before it waits for the previous step's iterate.
+// a ring of 8 shared-memory stages of 32 rows: a producer warp puts each
+// stage's T tile (32 x 64, one TMA box) and the iterate's 32 rows for the
+// chunk (one bulk copy: the layout (B, chunks, V, CPC) keeps them
+// contiguous) on the stage's mbarrier.  Two CTAs fit on an SM (84 KB of
+// stages each), ~170 KB in flight per SM, so the band streams near the
+// memory rate; 64 columns keep the rows read beyond the band to 6% (128
+// columns: 12%, and one CTA per SM ran 1.1x slower).  Eight consumer
+// warps in 8 row groups take every 8th row of a stage; a thread owns 2
+// columns, reads each row's 2 T values and CPC iterate values (broadcast
+// float4s) from shared memory and runs 2 * CPC f32 FMAs (tensor cores gain
+// nothing: wgmma's tf32 operands are K-major and T would be the M-major
+// one).  The row groups' partial sums are added in a fixed order through
+// shared memory: no atomics, results repeat bit for bit.  Steps after the
+// first are programmatic dependents: once every CTA has issued its last
+// loads the next step may start, and its producer puts its first stages'
+// T tiles (constant) in flight before it waits for this step's iterate.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -42,14 +45,11 @@ namespace {
 
 using namespace hopper;
 
-#ifndef BANDED_NC
-#define BANDED_NC 128
-#endif
-constexpr int NC = BANDED_NC;  // columns per CTA
-constexpr int RB = 32;         // band rows per stage
-constexpr int STAGES = NC == 64 ? 8 : 6;
-constexpr int NRG = 512 / NC;  // consumer row groups
-constexpr int CTAS_PER_SM = NC == 64 ? 2 : 1;
+constexpr int NC = 64;       // columns per CTA
+constexpr int RB = 32;       // band rows per stage
+constexpr int STAGES = 8;
+constexpr int NRG = 8;       // consumer row groups
+constexpr int CTAS_PER_SM = 2;
 constexpr int CONSUMERS = NRG * NC / 2;  // 256: 2 columns per thread
 constexpr int NT = CONSUMERS + 32;       // + the producer warp
 

@@ -109,16 +109,6 @@ __host__ __device__ constexpr int row_reach(int dy) {
   return r;
 }
 
-// The planes of vs by |dy| (0 .. HALO): the directions with dy = g are
-// planes [group_start(g), group_start(g + 1)).
-__host__ __device__ constexpr int group_start(int g) {
-  int d = 0;
-  while (d < D && direction(d, true) < g) ++d;
-  return d;
-}
-
-constexpr int NGROUPS = HALO + 1;
-constexpr int NBARS = NGROUPS + 2;  // vs groups, two iterate buffers
 constexpr int VT_FLOATS = D * VR * XP;  // staged vs tile
 constexpr int XT_FLOATS = XR * XP;      // one staged class plane
 static_assert((VT_FLOATS * 4) % 128 == 0 && (XT_FLOATS * 4) % 128 == 0, "TMA destinations");
@@ -212,17 +202,7 @@ __device__ __forceinline__ void tap_row(float (&acc)[CC][QP], const float* vt, c
 }
 
 size_t smem_bytes(int k, int nbuf) {
-  return 128 + sizeof(float) * ((size_t)VT_FLOATS + (size_t)nbuf * k * XT_FLOATS) + NBARS * 8;
-}
-
-// Stage the vs planes of |dy| groups [g0, g1), each group on its barrier.
-__device__ __forceinline__ void load_vs_groups(float* vt, const CUtensorMap* vmap, uint64_t* vbar,
-                                               int g0, int g1, int c0, int r0, int b) {
-  for (int g = g0; g < g1; ++g) {
-    mbar_expect_tx(&vbar[g], (group_start(g + 1) - group_start(g)) * VR * XP * 4);
-    for (int d = group_start(g); d < group_start(g + 1); ++d)
-      tma_load_3d(vt + d * VR * XP, vmap, &vbar[g], c0 - HALO, r0 - HALO, b * D + d);
-  }
+  return 128 + sizeof(float) * ((size_t)VT_FLOATS + (size_t)nbuf * k * XT_FLOATS) + 3 * 8;
 }
 
 // One step.  xmap: the iterate (W, H, B*C), box (XP, XR, K); vmap: vs (W,
@@ -238,8 +218,7 @@ stencil_step(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ C
   const int K = ng * CC;
   const int nbuf = passes > 1 ? 2 : 1;
   float* xt = vt + VT_FLOATS;
-  uint64_t* vbar = reinterpret_cast<uint64_t*>(xt + (size_t)nbuf * K * XT_FLOATS);
-  uint64_t* xbar = vbar + NGROUPS;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(xt + (size_t)nbuf * K * XT_FLOATS);  // vs, x[2]
 
   const int tid = threadIdx.x;
   const int grp = tid / GT, lt = tid % GT;
@@ -247,9 +226,10 @@ stencil_step(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ C
   const int b = blockIdx.z, r0 = blockIdx.y * TH, c0 = blockIdx.x * TW;
   griddep_launch_dependents();
   if (tid == 0) {
-    for (int i = 0; i < NBARS; ++i) mbar_init(&vbar[i], 1);
+    for (int i = 0; i < 3; ++i) mbar_init(&bar[i], 1);
     fence_mbar_init();
-    load_vs_groups(vt, &vmap, vbar, 0, 2, c0, r0, b);  // constant: before the wait
+    mbar_expect_tx(&bar[0], VT_FLOATS * 4);  // vs is constant: staged before the wait
+    tma_load_3d(vt, &vmap, &bar[0], c0 - HALO, r0 - HALO, b * D);
   }
   const int r = r0 + ry, c = c0 + QP * qx;
   const bool live = r < H && c < W;
@@ -258,35 +238,28 @@ stencil_step(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ C
   griddep_wait();  // the previous step's iterate is complete from here on
   if (tid == 0) {
     for (int k = 0; k < nbuf; ++k) {
-      mbar_expect_tx(&xbar[k], K * XT_FLOATS * 4);
-      tma_load_3d(xt + (size_t)k * K * XT_FLOATS, &xmap, &xbar[k], c0 - HALO, r0 - HALO,
+      mbar_expect_tx(&bar[1 + k], K * XT_FLOATS * 4);
+      tma_load_3d(xt + (size_t)k * K * XT_FLOATS, &xmap, &bar[1 + k], c0 - HALO, r0 - HALO,
                   b * C + k * K);
     }
-    load_vs_groups(vt, &vmap, vbar, 2, NGROUPS, c0, r0, b);
   }
   __syncthreads();  // the barriers' initialisation is visible
+  mbar_wait(&bar[0], 0);
 
   const size_t hw = (size_t)H * W;
   for (int k = 0; k < passes; ++k) {
     const int buf = k & (nbuf - 1);
-    mbar_wait(&xbar[buf], (k >> 1) & 1);
+    mbar_wait(&bar[1 + buf], (k >> 1) & 1);
     const float* xs = xt + ((size_t)buf * K + grp * CC) * XT_FLOATS;
     float acc[CC][QP];
-    // tap rows by |dy|, each group of vs planes waited for as it is needed
-    // (the first pass overlaps the later groups' loads)
-    mbar_wait(&vbar[0], 0);
     tap_row<0, CC>(acc, vt, xs, ry, qx);
-    mbar_wait(&vbar[1], 0);
+    tap_row<-4, CC>(acc, vt, xs, ry, qx);
+    tap_row<-3, CC>(acc, vt, xs, ry, qx);
+    tap_row<-2, CC>(acc, vt, xs, ry, qx);
     tap_row<-1, CC>(acc, vt, xs, ry, qx);
     tap_row<1, CC>(acc, vt, xs, ry, qx);
-    mbar_wait(&vbar[2], 0);
-    tap_row<-2, CC>(acc, vt, xs, ry, qx);
     tap_row<2, CC>(acc, vt, xs, ry, qx);
-    mbar_wait(&vbar[3], 0);
-    tap_row<-3, CC>(acc, vt, xs, ry, qx);
     tap_row<3, CC>(acc, vt, xs, ry, qx);
-    mbar_wait(&vbar[4], 0);
-    tap_row<-4, CC>(acc, vt, xs, ry, qx);
     tap_row<4, CC>(acc, vt, xs, ry, qx);
     const int cls0 = k * K + grp * CC;
     if (live) {
@@ -301,8 +274,8 @@ stencil_step(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ C
     if (k + 2 < passes) {  // refill this buffer with chunk k + 2
       __syncthreads();
       if (tid == 0) {
-        mbar_expect_tx(&xbar[buf], K * XT_FLOATS * 4);
-        tma_load_3d(xt + (size_t)buf * K * XT_FLOATS, &xmap, &xbar[buf], c0 - HALO, r0 - HALO,
+        mbar_expect_tx(&bar[1 + buf], K * XT_FLOATS * 4);
+        tma_load_3d(xt + (size_t)buf * K * XT_FLOATS, &xmap, &bar[1 + buf], c0 - HALO, r0 - HALO,
                     b * C + (k + 2) * K);
       }
     }
@@ -325,7 +298,7 @@ int run(const float* x0, const float* vs, const float* inv, float* tmp, float* y
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap vmap, map_x0, map_tmp, map_y;
-  if (!make_map(&vmap, vs, W, H, B * D, VR, 1) || !make_map(&map_x0, x0, W, H, B * C, XR, K) ||
+  if (!make_map(&vmap, vs, W, H, B * D, VR, D) || !make_map(&map_x0, x0, W, H, B * C, XR, K) ||
       !make_map(&map_tmp, tmp, W, H, B * C, XR, K) || !make_map(&map_y, y, W, H, B * C, XR, K))
     return (int)cudaErrorInvalidValue;
 

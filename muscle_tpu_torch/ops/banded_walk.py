@@ -6,7 +6,7 @@ Replaces the Pallas TPU kernel ``muscle_tpu/ops/pallas/banded_walk.py``
 transition matrix T whose nonzeros lie within ``band`` of the diagonal
 (``walk_band``).  Both versions read T only inside the band windows of
 their column blocks and take it as zero elsewhere.  The kernel
-(``csrc/banded_walk.cu``) runs one launch per step; a CTA owns 128 columns
+(``csrc/banded_walk.cu``) runs one launch per step; a CTA owns 64 columns
 of one image and one chunk of classes (``class_chunks``), streams its band
 rows of T through a TMA-fed shared-memory ring with the iterate's rows
 beside them, and the iterate ping-pongs through two (B, chunks, V, CPC)
@@ -90,7 +90,8 @@ def class_chunks(c: int) -> tuple[int, int]:
     """(chunks, CPC): the kernel's class chunks for c classes, as few as
     hold them, each padded to a multiple of 4 classes."""
     chunks = -(-c // MAX_CHUNK)
-    return chunks, -(-(-(-c // chunks)) // 4) * 4
+    per_chunk = -(-c // chunks)
+    return chunks, -(-per_chunk // 4) * 4
 
 
 def to_chunks(x: torch.Tensor, chunks: int, cpc: int) -> torch.Tensor:

@@ -149,7 +149,7 @@ def _banded(b, v, band, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [
     (2, 3, 600, 37, 8), (1, 20, 1000, 64, 16), (1, 5, 97, 3, 1), (2, 32, 300, 20, 3),
-    # V not a multiple of the 128-column block, band >= V, one class, and
+    # V not a multiple of the 64-column block, band >= V, one class, and
     # more classes than one 20-class chunk
     (2, 5, 700, 40, 8), (1, 4, 300, 400, 6), (1, 1, 500, 30, 8), (2, 33, 400, 25, 6)])
 def test_banded_walk_kernel_matches_plain(cuda, shape):
