@@ -61,12 +61,7 @@ using namespace hopper;
 
 constexpr int RADIUS = 5;
 constexpr int HALO = RADIUS - 1;  // max |dy|, |dx| of a direction
-#ifndef STENCIL_TH
-#define STENCIL_TH 16
-#endif
-constexpr int TW = 32, TH = STENCIL_TH;  // tile: columns, rows
-constexpr int MIN_CTAS = TH == 8 ? 2 : 1;  // CTAs per SM the launch bounds ask for
-constexpr bool DOUBLE_BUFFER = TH == 16;
+constexpr int TW = 32, TH = 16;   // tile: columns, rows
 constexpr int QP = 4;             // pixels per thread, along a row
 constexpr int GT = (TW / QP) * TH;  // threads of a class group: 128
 constexpr int XP = TW + 2 * HALO;   // staged row pitch (floats): 40
@@ -214,14 +209,14 @@ size_t smem_bytes(int k, int nbuf) {
 // H, B*D), box (XP, VR, D).  W is a multiple of 4.  Block: ng groups of GT
 // threads; grid (W / TW, H / TH, B) rounded up.
 template <int CC>
-__global__ void __launch_bounds__(2 * GT, MIN_CTAS)
+__global__ void __launch_bounds__(2 * GT, 1)
 stencil_step(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap vmap,
              const float* __restrict__ inv, float* __restrict__ y, int C, int H, int W, int ng,
              int passes) {
   extern __shared__ unsigned char smem_raw[];
   float* vt = reinterpret_cast<float*>((reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
   const int K = ng * CC;
-  const int nbuf = passes > 1 && DOUBLE_BUFFER ? 2 : 1;
+  const int nbuf = passes > 1 ? 2 : 1;
   float* xt = vt + VT_FLOATS;
   uint64_t* bar = reinterpret_cast<uint64_t*>(xt + (size_t)nbuf * K * XT_FLOATS);  // vs, x[2]
 
@@ -253,8 +248,8 @@ stencil_step(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ C
 
   const size_t hw = (size_t)H * W;
   for (int k = 0; k < passes; ++k) {
-    const int buf = k % nbuf;
-    mbar_wait(&bar[1 + buf], (k / nbuf) & 1);
+    const int buf = k & (nbuf - 1);
+    mbar_wait(&bar[1 + buf], (k >> 1) & 1);
     const float* xs = xt + ((size_t)buf * K + grp * CC) * XT_FLOATS;
     float acc[CC][QP];
     tap_row<0, CC>(acc, vt, xs, ry, qx);
@@ -276,12 +271,12 @@ stencil_step(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ C
               make_float4(acc[cls][0] * iv.x, acc[cls][1] * iv.y, acc[cls][2] * iv.z,
                           acc[cls][3] * iv.w);
     }
-    if (k + nbuf < passes) {  // refill this buffer with chunk k + nbuf
+    if (k + 2 < passes) {  // refill this buffer with chunk k + 2
       __syncthreads();
       if (tid == 0) {
         mbar_expect_tx(&bar[1 + buf], K * XT_FLOATS * 4);
         tma_load_3d(xt + (size_t)buf * K * XT_FLOATS, &xmap, &bar[1 + buf], c0 - HALO, r0 - HALO,
-                    b * C + (k + nbuf) * K);
+                    b * C + (k + 2) * K);
       }
     }
   }
@@ -297,7 +292,7 @@ bool make_map(CUtensorMap* map, const float* base, int W, int H, int planes, int
 template <int CC>
 int run(const float* x0, const float* vs, const float* inv, float* tmp, float* y, int B, int C,
         int H, int W, int steps, int ng, cudaStream_t st) {
-  const int K = ng * CC, passes = (C + K - 1) / K, nbuf = passes > 1 && DOUBLE_BUFFER ? 2 : 1;
+  const int K = ng * CC, passes = (C + K - 1) / K, nbuf = passes > 1 ? 2 : 1;
   const size_t smem = smem_bytes(K, nbuf);
   cudaError_t err = cudaFuncSetAttribute(stencil_step<CC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
