@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CAM-generation and IRN-refinement paths on
-one CUDA card.
+"""Drive the PyTorch port's CAM-generation, IRN-refinement and
+segmentation-inference paths on one CUDA card.
 
     python3 chip_smoke.py            # every phase, the full check
     python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py --phases build,kernels,seg
     python3 chip_smoke.py --phases build,profile   # where the device time goes
 
 Phases:
@@ -13,7 +14,9 @@ Phases:
   kernels  hold each kernel against its plain PyTorch version and time
            both: the MBConv block at the b3 CAM shapes (VOC 500x375 image,
            TTA scales 1 and 2, B = 16, with and without windows; bounds
-           on the f32 pipes and with the products on the tensor cores); the
+           on the f32 pipes and with the products on the tensor cores) and
+           at the 9 b7 seg shapes (square seg canvases of scales 1 and
+           1.75, B = 8, with and without windows); the
            stencil walk at B = 8, C = 20, 64 steps on the 128/96/64 walk
            grids (the 512/384/256 buckets) and a 375x500 image's own
            94x125 grid, beside 64 sparse CSR products (torch.sparse.mm,
@@ -34,13 +37,23 @@ Phases:
            2-class CAM dicts, with the stencil kernel and with the plain
            walk, counting launches and comparing labels; the scores output
            on one batch; then one batch of 2 with the banded walk;
+  seg      run SegTTAEngine with MuSCLe-b7 dec (BiFPN 3 x 256,
+           fuse_mbconv=384, float32, seeded random weights, the head
+           calibrated so labels vary) over batches of 4 synthetic
+           VOC-shaped images at the six scales x flip, --fast 0 (f32
+           probabilities, RGB upload) and --fast 1 (stride-4 grid, f16,
+           4:2:0 tight upload, labels output), each with the kernel and
+           with the plain blocks; counts the launches, compares, and times
+           the mean-field CRF (t = 4) on the card and checks the native
+           CRF against it on one image;
   profile  (not run by default) device time by kernel name over --fast 0
-           CAM batches, with and without the MBConv kernel, and over IRN
-           batches with the stencil kernel, and the device's busy share of
-           the wall time.
+           CAM batches, with and without the MBConv kernel, over IRN
+           batches with the stencil kernel, and over one seg batch, and
+           the device's busy share of the wall time.
 
-Prints the card's name and power limit, one JSON line per kernel shape,
-a {"kernels": [...]} summary line, and last the result line
+Prints the card's name and power limit (first, and again before the
+summary), one JSON line per kernel shape, a {"kernels": [...]} summary
+line, and last the result line
 {"ok": true, "device": {...}}.  Exits non-zero, with no result line,
 when there is no CUDA card, when the port is not beside this script, or
 when any phase fails.
@@ -69,8 +82,21 @@ B3_BLOCKS = {
     "_blocks_24": (16, 232, 384, 6, 3),
     "_blocks_25": (16, 384, 384, 6, 3),
 }
+# b7 stride-1 blocks of the seg path (last_pooling=True), one per shape
+B7_BLOCKS = {
+    "_blocks_0": (2, 64, 32, 1, 3),
+    "_blocks_1": (2, 32, 32, 1, 3),
+    "_blocks_5": (4, 48, 48, 6, 3),
+    "_blocks_12": (8, 80, 80, 6, 5),
+    "_blocks_19": (16, 160, 160, 6, 3),
+    "_blocks_28": (16, 160, 224, 6, 5),
+    "_blocks_29": (16, 224, 224, 6, 5),
+    "_blocks_39": (32, 384, 384, 6, 5),
+    "_blocks_51": (32, 384, 640, 6, 3),
+}
 VOC_HW = (375, 500)
 TTA_BATCH = 16  # 8 images x (orig, flip)
+SEG_BATCH = 8  # 4 images x (orig, flip)
 KERNEL_TOL = 1e-4  # f32 kernel vs f32 plain: summation order only
 SCORE_TOL, SGC_TOL = 1e-4, 5e-3  # the JAX package's engine bounds
 KERNEL_REPS = 10  # timed launches per kernel shape, after one warm-up
@@ -101,6 +127,13 @@ KERNEL_SOURCES = {
     "banded_walk": ("banded_walk.cu", "muscle_tpu/ops/pallas/banded_walk.py:109"),
 }
 IRN_BATCHES = 4  # timed refinement batches of 8 images per walk
+SEG_SCALES = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)
+SEG_BATCHES = 4  # timed seg TTA batches of 4 images per engine
+SEG_PER_BATCH = 4
+SEG_LAUNCHES = 48 * len(SEG_SCALES)  # fused b7 blocks per forward x forwards per batch
+SEG_PROBS_TOL = 1e-3  # f32 probabilities, kernel vs plain blocks through 55 blocks + BiFPN
+SEG_LABEL_AGREE = 0.999  # labels: kernel and plain blocks, near-ties of random weights
+CRF_AGREE = 0.9  # native vs mean-field CRF labels, two-region image: the JAX package's bound
 LABEL_AGREE = 0.999  # labels: kernel and plain walk, argmax ties only
 IRN_SCORE_TOL = 1e-3  # f16 scores, kernel and plain walk
 
@@ -157,24 +190,26 @@ def _random_block(cin, cout, expand, k, gen, device):
     return block.eval().to(device)
 
 
-def _windows(stride: int, scale: float, device):
-    """(B, 4) windows of the TTA batch at a block's grid: images of
-    500x375 and 400x300, scaled, through the floor chain."""
+def _windows(stride: int, scale: float, device, batch: int = TTA_BATCH):
+    """(B, 4) windows of a TTA batch of ``batch`` versions at a block's
+    grid: images of 500x375 and 400x300, scaled, through the floor chain."""
     import torch
 
     rows = []
-    for i in range(TTA_BATCH // 2):
+    for i in range(batch // 2):
         h, w = VOC_HW if i % 2 == 0 else (300, 400)
         h, w = round(h * scale), round(w * scale)
         rows += [[0, 0, h // stride, w // stride]] * 2
     return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
-def _check_mbconv() -> dict:
-    """The MBConv kernel at the b3 CAM shapes, held to its plain version."""
+def _check_mbconv(blocks: dict, batch: int, scales, canvas) -> dict:
+    """The MBConv kernel at ``blocks``' shapes on ``batch`` versions at each
+    scale's ``canvas(scale)`` (h, w), held to its plain version; returns
+    the sums over the windowed calls (the main paths' calls are
+    windowed)."""
     import torch
 
-    from muscle_tpu_torch.inference.cam import _batch_canvas
     from muscle_tpu_torch.ops import mbconv as M
 
     dev = torch.device("cuda")
@@ -182,32 +217,33 @@ def _check_mbconv() -> dict:
     xgen = torch.Generator(device=dev).manual_seed(0)
     total = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0, "product_flops": 0,
              "depthwise_flops": 0, "max_abs_err": 0.0}
-    for name, (stride, cin, cout, expand, k) in B3_BLOCKS.items():
+    for name, (stride, cin, cout, expand, k) in blocks.items():
         block = _random_block(cin, cout, expand, k, gen, dev)
         wd = block.fused_weights()
         cmid, csq = cin * expand, wd["w_se_r"].shape[1]
         kw = dict(k=k, has_expand=expand != 1, has_skip=cin == cout)
-        for scale in (1.0, 2.0):
-            ch, cw = _batch_canvas(scale, [VOC_HW] * 8, 500)
+        for scale in scales:
+            ch, cw = canvas(scale)
             h, w = ch // stride, cw // stride
-            x = torch.randn((TTA_BATCH, h, w, cin), generator=xgen, device=dev)
+            x = torch.randn((batch, h, w, cin), generator=xgen, device=dev)
             for windowed in (False, True):
-                win = _windows(stride, scale, dev) if windowed else None
+                win = _windows(stride, scale, dev, batch) if windowed else None
                 before = M.mbconv_stride1.launches
                 with torch.inference_mode():
                     got = M.mbconv_stride1(x, wd, win, **kw)
                     want = M.mbconv_stride1_plain(x, wd, win, **kw)
                     torch.cuda.synchronize()
                     err = float((got - want).abs().max())
+                    del got, want
                     ms = time_ms(lambda: M.mbconv_stride1(x, wd, win, **kw), KERNEL_REPS)
                     plain_ms = time_ms(lambda: M.mbconv_stride1_plain(x, wd, win, **kw),
                                        KERNEL_REPS)
-                work = M.block_work(TTA_BATCH, h, w, cin, cmid, csq, cout, k, expand != 1)
-                split = M.block_flops(TTA_BATCH, h, w, cin, cmid, cout, k, expand != 1)
+                work = M.block_work(batch, h, w, cin, cmid, csq, cout, k, expand != 1)
+                split = M.block_flops(batch, h, w, cin, cmid, cout, k, expand != 1)
                 bound, by = M.bound_ms(*work)
                 bound_tc, by_tc = M.bound_tc_ms(work[0], *split)
                 rec = {"kernel": "mbconv_stride1", "block": name, "scale": scale,
-                       "windowed": windowed, "B": TTA_BATCH, "H": h, "W": w, "Cin": cin,
+                       "windowed": windowed, "B": batch, "H": h, "W": w, "Cin": cin,
                        "Cmid": cmid, "Cout": cout, "k": k, "max_abs_err": err, "ms": ms,
                        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                        "bound_tc_ms": bound_tc, "bound_tc_by": by_tc,
@@ -216,7 +252,7 @@ def _check_mbconv() -> dict:
                 if not err <= KERNEL_TOL:
                     raise AssertionError(f"{name} scale {scale} windowed={windowed}: "
                                          f"max_abs_err {err} > {KERNEL_TOL}")
-                if windowed:  # the main path's calls are windowed
+                if windowed:
                     total["ms"] += ms
                     total["plain_ms"] += plain_ms
                     total["bytes"] += work[0]
@@ -225,6 +261,8 @@ def _check_mbconv() -> dict:
                     total["depthwise_flops"] += split[1]
                 total["max_abs_err"] = max(total["max_abs_err"], err)
             del x
+        del block, wd
+        torch.cuda.empty_cache()
     return total
 
 
@@ -394,19 +432,29 @@ def _check_edges() -> None:
 def phase_kernels() -> dict:
     """Every kernel against its plain version; returns the summaries the
     {"kernels": ...} line reports, at the main paths' shapes."""
+    from muscle_tpu_torch.data.tta import bucket_side
+    from muscle_tpu_torch.inference.cam import _batch_canvas
     from muscle_tpu_torch.ops.mbconv import bound_ms, bound_tc_ms
 
-    mb = _check_mbconv()
-    bound, by = bound_ms(mb["bytes"], mb["flops"])
-    bound_tc, _ = bound_tc_ms(mb["bytes"], mb["product_flops"], mb["depthwise_flops"])
+    def summary(mb: dict) -> dict:
+        bound, by = bound_ms(mb["bytes"], mb["flops"])
+        bound_tc, _ = bound_tc_ms(mb["bytes"], mb["product_flops"], mb["depthwise_flops"])
+        return {"max_abs_err": mb["max_abs_err"], "ms": mb["ms"], "plain_ms": mb["plain_ms"],
+                "bound_ms": bound, "bound_by": by, "bound_tc_ms": bound_tc}
+
+    b3 = summary(_check_mbconv(B3_BLOCKS, TTA_BATCH, (1.0, 2.0),
+                               lambda s: _batch_canvas(s, [VOC_HW] * 8, 500)))
+    b7 = summary(_check_mbconv(B7_BLOCKS, SEG_BATCH, (1.0, 1.75),
+                               lambda s: (bucket_side(s), bucket_side(s))))
+    print(json.dumps({"mbconv_b3_cam_windowed_total": b3, "mbconv_b7_seg_windowed_total": b7}),
+          flush=True)
     stencil = _check_stencil()[STENCIL_GRIDS[0]]
     banded = _check_banded()[BANDED_CASES[-1][0]]
     _check_edges()
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
-        "mbconv_stride1": {"max_abs_err": mb["max_abs_err"], "ms": mb["ms"],
-                           "plain_ms": mb["plain_ms"], "bound_ms": bound, "bound_by": by,
-                           "bound_tc_ms": bound_tc, "library_ms": None},
+        "mbconv_stride1": {**b3, "max_abs_err": max(b3["max_abs_err"], b7["max_abs_err"]),
+                           "library_ms": None, "b7_seg": b7},
         "stencil_walk": {k: stencil[k] for k in keys},
         "banded_walk": {k: banded[k] for k in keys},
     }
@@ -667,6 +715,171 @@ def phase_irn(n_batches: int = IRN_BATCHES) -> dict:
     return rec
 
 
+def _two_region_problem(h: int, w: int, n_labels: int = 21):
+    """The JAX package's CRF check (test_ops.py): two colour regions with
+    noise, one class favoured in each, 10% of the pixels' unaries flipped."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    img = np.zeros((h, w, 3), np.uint8)
+    img[:, : w // 2] = [200, 40, 40]
+    img[:, w // 2:] = [40, 40, 200]
+    img = np.clip(img.astype(int) + rng.integers(-15, 15, img.shape), 0, 255).astype(np.uint8)
+    probs = np.full((h, w, n_labels), 1e-3, np.float32)
+    probs[:, : w // 2, 1] = 0.5
+    probs[:, w // 2:, 2] = 0.5
+    probs[..., 0] = 0.3
+    flip = rng.random((h, w)) < 0.1
+    probs[flip] = probs[flip][:, ::-1]
+    probs /= probs.sum(-1, keepdims=True)
+    return img, probs
+
+
+def _seg_model(fuse: int):
+    """MuSCLe-b7 dec (BiFPN 3 x 256) with seeded random weights (batch
+    norms, the BiFPN's too, near the identity with random statistics) and
+    the head calibrated on two synthetic images so the labels vary over
+    each image (``calibrate_seg_head``)."""
+    import numpy as np
+    import torch
+
+    from muscle_tpu_torch.data.transforms import color_norm
+    from muscle_tpu_torch.models import MuSCLe, calibrate_seg_head, init_weights
+
+    model = MuSCLe(backbone_name="efficientnet-b7", mode="dec", bifpn_layers=3,
+                   bifpn_channels=256, last_pooling=True, fuse_mbconv=fuse)
+    init_weights(model, torch.Generator().manual_seed(0))
+    imgs, _, _ = _images(1, seed=7)[0]
+    cal = torch.from_numpy(np.stack([color_norm(im[:256, :256]) for im in imgs[:2]]))
+    model = model.to("cuda").eval()
+    with torch.inference_mode():
+        calibrate_seg_head(model, cal.to("cuda"))
+    return model
+
+
+def _seg_batches(n_batches: int, seed: int):
+    """Orientation-homogeneous batches of SEG_PER_BATCH synthetic
+    VOC-shaped images (the CAM phase's images), with their names."""
+    return [(imgs[:SEG_PER_BATCH], names[:SEG_PER_BATCH])
+            for imgs, names, _ in _images(n_batches, seed)]
+
+
+def _seg_run(engine, batches):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = [r for rs in engine.run_stream(iter(batches)) for r in rs]
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0
+
+
+def phase_seg(n_batches: int = SEG_BATCHES) -> dict:
+    """SegTTAEngine at the infer_seg default (b7, BiFPN 3 x 256, six scales
+    x flip), --fast 0 and --fast 1, each with the MBConv kernel and with
+    the plain blocks; the CRF's time on the card."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from muscle_tpu_torch.inference import SegTTAEngine
+    from muscle_tpu_torch.ops import mbconv as M
+    from muscle_tpu_torch.ops.crf import mean_field_crf
+    from muscle_tpu_torch.ops.exact_crf import dense_crf
+
+    fused_model = _seg_model(384)
+    plain_model = _seg_model(0)
+    plain_model.load_state_dict(fused_model.state_dict())
+    warm = _seg_batches(1, seed=1)
+    batches = _seg_batches(n_batches, seed=2)
+    configs = {
+        "fast0": dict(upload_mode="rgb", tight_upload=False),
+        "fast1": dict(accum_stride=4, download_dtype="float16", tight_upload=True,
+                      upload_mode="ycbcr420", output="labels"),
+    }
+    n_img = SEG_PER_BATCH * n_batches
+    out = {}
+    probs0 = None
+    for cname, extra in configs.items():
+        engines = {f: SegTTAEngine(m, scales=SEG_SCALES, device="cuda", **extra)
+                   for f, m in ((384, fused_model), (0, plain_model))}
+        for e in engines.values():
+            _seg_run(e, warm)  # cuDNN autotune, allocator warm-up
+        _zero_counts()
+        got, fused_s = _seg_run(engines[384], batches)
+        launches = M.mbconv_stride1.launches
+        if launches != SEG_LAUNCHES * n_batches:
+            raise AssertionError(f"seg {cname}: {launches} kernel launches, want "
+                                 f"{SEG_LAUNCHES * n_batches} (48 per forward, 6 per batch)")
+        want, plain_s = _seg_run(engines[0], batches)
+        # the busy share of the kernel run, from a second run under the
+        # profiler (device activity only, which barely slows the dispatch)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, prof_s = _seg_run(engines[384], batches)
+        device_ms = sum(r[0] for r in _device_rows(prof))
+        flat = [img for imgs, _ in batches for img in imgs]
+        assert [r["name"] for r in got] == [r["name"] for r in want]
+        rec = {"seg": cname, "images": n_img, "launches": launches,
+               "launches_per_batch": launches / n_batches,
+               "kernel_images_per_s": n_img / fused_s, "plain_images_per_s": n_img / plain_s,
+               "device_busy_share": device_ms / (prof_s * 1e3)}
+        if extra.get("output") == "labels":
+            agree, classes = 1.0, set()
+            for g, w, img in zip(got, want, flat):
+                assert g["label"].shape == img.shape[:2] and g["label"].dtype == np.uint8
+                agree = min(agree, float((g["label"] == w["label"]).mean()))
+                classes |= set(np.unique(g["label"]).tolist())
+            rec.update(labels_agreement_min=agree, classes_seen=len(classes))
+            ok = agree >= SEG_LABEL_AGREE and len(classes) > 1
+        else:
+            err = 0.0
+            for g, w, img in zip(got, want, flat):
+                p = g["probs"]
+                assert p.shape == (*img.shape[:2], 21) and np.isfinite(p).all()
+                assert np.abs(p.sum(-1) - 1.0).max() < 1e-3
+                err = max(err, float(np.abs(p - w["probs"]).max()))
+            rec.update(probs_max_abs_err=err)
+            ok = err <= SEG_PROBS_TOL
+            probs0 = (got, flat)
+        print(json.dumps(rec), flush=True)
+        if not ok:
+            raise AssertionError(f"seg {cname}: kernel vs plain blocks out of bounds: {rec}")
+        out[cname] = rec
+
+    # the mean-field CRF (the --crf_backend xla default, t = 4) on the card
+    # over the --fast 0 probabilities, and the native CRF on one image
+    recs, imgs = probs0
+    dev = torch.device("cuda")
+    pairs = [(torch.from_numpy(r["probs"]).to(dev), torch.from_numpy(im).to(dev))
+             for r, im in zip(recs, imgs)]
+    mean_field_crf(*pairs[0], t=4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refined = [mean_field_crf(p, im, t=4) for p, im in pairs]
+    torch.cuda.synchronize()
+    crf_ms = (time.perf_counter() - t0) * 1e3 / len(pairs)
+    q = refined[0].cpu().numpy()
+    assert np.isfinite(q).all() and np.abs(q.sum(-1) - 1.0).max() < 1e-3
+    # recorded: the random net's near-tied classes, where the two bilateral
+    # approximations part most
+    native = dense_crf(imgs[0], recs[0]["probs"].transpose(2, 0, 1), t=4)
+    seg_agree = float((native.argmax(0) == q.argmax(-1)).mean())
+    # held to the JAX package's bound: a two-region VOC-sized image
+    img, probs = _two_region_problem(*VOC_HW)
+    mf = mean_field_crf(torch.from_numpy(probs).to(dev), torch.from_numpy(img).to(dev), t=4)
+    native = dense_crf(img, probs.transpose(2, 0, 1), t=4)
+    crf_agree = float((native.argmax(0) == mf.argmax(-1).cpu().numpy()).mean())
+    crf = {"crf": "mean_field_crf t=4", "images": len(pairs), "ms_per_image": crf_ms,
+           "native_vs_mean_field_agreement_two_region": crf_agree,
+           "native_vs_mean_field_agreement_seg_image": seg_agree}
+    print(json.dumps(crf), flush=True)
+    if not crf_agree >= CRF_AGREE:
+        raise AssertionError(f"native vs mean-field CRF labels agree on {crf_agree} < "
+                             f"{CRF_AGREE}")
+    out["crf"] = crf
+    return out
+
+
 def _device_rows(prof):
     """(ms, calls, name) of the device-side events of a profile (kernels,
     copies; no double count with host ops), largest first."""
@@ -681,21 +894,23 @@ def _device_rows(prof):
     return rows
 
 
-def _profile_record(tag, n_batches, wall, rows, ours_name, ours_keys) -> None:
+def _profile_record(tag, n_batches, wall, rows, ours_name, ours_keys, top: int = 15) -> None:
     device_ms = sum(r[0] for r in rows)
     ours = sum(r[0] for r in rows if any(f"namespace)::{k}" in r[2] for k in ours_keys))
+    launches = sum(r[1] for r in rows if not r[2].startswith("Mem"))
     print(json.dumps({
         "profile": tag, "batches": n_batches, "wall_ms": wall * 1e3, "device_ms": device_ms,
-        "device_busy_share": device_ms / (wall * 1e3), ours_name: ours,
-        "top": [[name[:90], calls, ms] for ms, calls, name in rows[:15]],
+        "device_busy_share": device_ms / (wall * 1e3), "device_launches": launches, ours_name: ours,
+        "top": [[name[:90], calls, ms] for ms, calls, name in rows[:top]],
     }), flush=True)
 
 
 def phase_profile(n_batches: int) -> None:
     """Where the device time goes: one torch.profiler window over
     ``n_batches`` --fast 0 CAM batches per engine (kernel and plain
-    blocks), and one over ``n_batches`` IRN batches of 8 (stencil kernel);
-    device time summed by kernel name."""
+    blocks), one over ``n_batches`` IRN batches of 8 (stencil kernel), and
+    one over a --fast 0 seg batch of 4 (MBConv kernel); device time summed
+    by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -727,10 +942,61 @@ def phase_profile(n_batches: int) -> None:
     _profile_record("irn fast labels, stencil kernel", n_batches, wall, _device_rows(prof),
                     "stencil_kernel_ms", ("stencil_step",))
 
+    from muscle_tpu_torch.inference import SegTTAEngine
+
+    engine = SegTTAEngine(_seg_model(384), scales=SEG_SCALES, upload_mode="rgb",
+                          tight_upload=False, device="cuda")
+    _seg_run(engine, _seg_batches(1, seed=1))
+    batch = _seg_batches(1, seed=3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = _seg_run(engine, batch)
+    _profile_record("seg fast0 b7, MBConv kernel", 1, wall, _device_rows(prof),
+                    "mbconv_kernel_ms", ("expand_dw_kernel", "se_kernel", "project_kernel"),
+                    top=30)
+    _seg_breakdown(engine, batch[0])
+
+
+def _seg_breakdown(engine, batch) -> None:
+    """Device ms of one seg batch by stage, each stage profiled on its own:
+    the whole device pipeline, the backbone alone and the model (backbone,
+    BiFPN and head) at each scale's (orig, flip) canvas; the rest of the
+    pipeline is the upload unpack, the bicubic scaling, the logits'
+    upsample, softmax and accumulation."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from muscle_tpu_torch.inference.cam import _batch_canvas, scaled_pairs
+    from muscle_tpu_torch.inference.seg import N_STRIDED_DEC
+
+    def device_ms(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(r[0] for r in _device_rows(prof))
+
+    prep = engine._host_prep(*batch)
+    sizes_np = prep["orig_sizes"]
+    with torch.inference_mode():
+        total = device_ms(lambda: engine._device_pipeline(prep["upload"], sizes_np))
+        images = engine._put(prep["upload"][1])
+        sizes = engine._put(sizes_np)
+        backbone = model = 0.0
+        for s in SEG_SCALES:
+            canvas = _batch_canvas(s, sizes_np, engine.max_side, n_strided=N_STRIDED_DEC)
+            scaled, off, pairs = scaled_pairs(images, sizes, s, canvas, engine._mean,
+                                              engine._std, N_STRIDED_DEC)
+            win = torch.cat([off, scaled], -1).repeat_interleave(2, dim=0)
+            backbone += device_ms(lambda: engine.model.backbone(pairs, valid_window=win))
+            model += device_ms(lambda: engine.model(pairs, mode="seg_lowres", valid_window=win))
+    print(json.dumps({"seg_breakdown": "fast0, one batch of 4, device ms",
+                      "pipeline": total, "backbone": backbone, "bifpn_and_head": model - backbone,
+                      "engine_rest": total - model}), flush=True)
+
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="build,kernels,main,irn")
+    p.add_argument("--phases", default="build,kernels,main,irn,seg")
     args = p.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -749,7 +1015,8 @@ def main(argv=None) -> int:
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     if "build" in phases:
@@ -757,9 +1024,11 @@ def main(argv=None) -> int:
     summaries = phase_kernels() if "kernels" in phases else None
     main_out = phase_main() if "main" in phases else None
     irn_out = phase_irn() if "irn" in phases else None
+    seg_out = phase_seg() if "seg" in phases else None
     if "profile" in phases:
         phase_profile(4)
 
+    print(card, flush=True)  # again beside the results, for readers of the output's tail
     if summaries is not None:
         # null, not 0, where the phase that drives the kernel's path did not run
         launches = {
@@ -771,6 +1040,8 @@ def main(argv=None) -> int:
                     "source": f"muscle_tpu_torch/csrc/{KERNEL_SOURCES[name][0]}",
                     "replaces": KERNEL_SOURCES[name][1], "launches": launches[name],
                     **summaries[name]} for name in KERNEL_SOURCES]
+        # the MBConv kernel also runs on the seg path: its launches there
+        entries[0]["launches_seg"] = seg_out["fast0"]["launches"] if seg_out else None
         print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """muscle_tpu_torch: the PyTorch + CUDA port of muscle_tpu for NVIDIA Hopper.
 
-A second package beside the JAX one, which stays the reference.  Two
+A second package beside the JAX one, which stays the reference.  Three
 stages run end to end so far:
 
 * CAM generation: EfficientNet backbone, MuSCLe's CAM + PCM heads, batched
@@ -12,6 +12,11 @@ stages run end to end so far:
   wrapper ``ops/stencil_walk.py``) and the banded walk
   (``csrc/banded_walk.cu``, wrapper ``ops/banded_walk.py``) are
   hand-written CUDA kernels; ``ops/random_walk.py`` builds their operands.
+* Segmentation inference: MuSCLe in dec mode (the BiFPN decoder),
+  ``SegTTAEngine`` (6-scale x flip TTA, mean fusion), the mean-field dense
+  CRF in PyTorch and the native permutohedral CRF (``native/`` built with
+  g++ into ``build/native/``); b7's stride-1 blocks run through the MBConv
+  kernel.
 
 The package imports torch, numpy and the standard library, never JAX or
 ``muscle_tpu``; PIL is imported only inside the functions that resize,
@@ -20,13 +25,15 @@ decode or write images.
 Subpackages
 -----------
 core        resize weights and bilinear resizes, the VOC palette
-models      EfficientNet, MuSCLe (encoder mode), ResNet-50, IRN EdgeDisplacement
+models      EfficientNet, MuSCLe (enc and dec modes), the BiFPN, ResNet-50,
+            IRN EdgeDisplacement
 ops         CUDA kernel wrappers with their plain versions, the random walk;
-            the nvcc build
+            the nvcc build; the CRFs and the native library's loader
 data        VOC12 lists, transforms, batched TTA producers
-inference   CamTTAEngine, RandomWalkRefiner, the device-side upload unpackers
+inference   CamTTAEngine, RandomWalkRefiner, SegTTAEngine, the transfers and
+            device-side upload unpackers
 evaluation  vectorised mIoU with threshold sweep
-cli         infer_mcl, evaluate, infer_irn
+cli         infer_mcl, evaluate, infer_irn, infer_seg, cam_to_label
 convert     state dicts from the JAX package's variables or reference .pth
 """
 

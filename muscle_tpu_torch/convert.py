@@ -5,7 +5,7 @@ The port's modules use the reference's state-dict key names, so a
 reference ``.pth`` loads straight into them (``load_reference_state_dict``)
 and a JAX package variable tree maps onto them key by key
 (``state_dict_from_jax``, the port's own copy of the JAX package's inverse
-converter, restricted to the backbone, ``fuse``, ``fc`` and ``fuse_dec``).
+converter: the backbone, ``fuse``, ``fc``, ``fuse_dec`` and the BiFPN).
 
 Layouts: conv (kh, kw, I, O) -> (O, I, kh, kw) (the depthwise (k, k, 1, C)
 included); dense (in, out) -> (out, in); BatchNorm scale/bias and
@@ -74,16 +74,18 @@ def _tensors(sd: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
 
 
 def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """The port's state dict for a JAX ``MuSCLe`` (enc mode) variable tree
-    ``{'params': ..., 'batch_stats': ...}`` of numpy arrays."""
+    """The port's state dict for a JAX ``MuSCLe`` variable tree (enc or dec
+    mode) ``{'params': ..., 'batch_stats': ...}`` of numpy arrays, or for
+    any of its parts (a tree holding only ``BIFPN``, say)."""
     params = variables["params"]
     sd: dict[str, np.ndarray] = {}
     conv, bn = _writers(variables, sd)
 
     bb = ("backbone",)
-    conv(bb + ("_conv_stem",), "backbone._conv_stem")
-    bn(bb + ("_bn0",), "backbone._bn0")
-    blocks = sorted(int(k.split("_blocks_")[1]) for k in params["backbone"]
+    if _has(params, bb):
+        conv(bb + ("_conv_stem",), "backbone._conv_stem")
+        bn(bb + ("_bn0",), "backbone._bn0")
+    blocks = sorted(int(k.split("_blocks_")[1]) for k in params.get("backbone", {})
                     if k.startswith("_blocks_"))
     for i in blocks:
         src = bb + (f"_blocks_{i}",)
@@ -104,6 +106,19 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]
         sd["fc.weight"] = _get(params, ("fc", "kernel")).T
     if _has(params, ("fuse_dec",)):
         conv(("fuse_dec",), "fuse_dec", bias=True)
+    if _has(params, ("BIFPN",)):
+        for k in ("inp3", "inp4", "inp5", "inp6", "inp7"):
+            conv(("BIFPN", k, "conv"), f"BIFPN.{k}.0", bias=True)
+            bn(("BIFPN", k, "bn"), f"BIFPN.{k}.1")
+        layers = sorted(int(k.split("layer_")[1]) for k in params["BIFPN"]
+                        if k.startswith("layer_"))
+        for i in layers:
+            src, dst = ("BIFPN", f"layer_{i}"), f"BIFPN.BIFPN_Layers.{i}."
+            for k in ("convp67", "convp56", "convp45", "convp34"):
+                conv(src + (k, "conv"), dst + k + ".0", bias=True)
+            for k in ("out4", "out5", "out6", "out7"):
+                conv(src + (k, "conv"), dst + k + ".0", bias=True)
+                bn(src + (k, "bn"), dst + k + ".1")
     return _tensors(sd)
 
 

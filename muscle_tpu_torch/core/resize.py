@@ -264,3 +264,53 @@ def batched_window_resize_ac(src: torch.Tensor, src_win: torch.Tensor,
     )
     a = torch.einsum("nIy,nyxc->nIxc", wh, src)
     return torch.einsum("nJx,nIxc->nIJc", ww, a)
+
+
+def dynamic_avgpool3s2_weights(src_len, src_cap: int, dst_cap: int, src_off=0,
+                               device=None) -> torch.Tensor:
+    """(..., dst_cap, src_cap) weights of one axis of torch's
+    ``F.avg_pool2d(kernel_size=3, stride=2, padding=1)`` (count_include_pad)
+    applied to the window [src_off, src_off + src_len), one matrix per
+    leading index of the length tensor.  Output row j (written at the
+    canvas origin) averages source rows 2j-1 .. 2j+1 with weight 1/3 each;
+    taps outside the window add zero while the divisor stays 3, which is
+    torch's zero-pad counting.  Rows from ceil(src_len / 2) on are zero.
+    The 2-D pool is separable: two contractions with these weights."""
+    if device is None and isinstance(src_len, torch.Tensor):
+        device = src_len.device
+    src = torch.as_tensor(src_len, device=device).to(torch.int64)[..., None, None]
+    off = src_off
+    if isinstance(off, torch.Tensor):
+        off = off.to(device=device, dtype=torch.int64)[..., None, None]
+    dst = (src + 1) // 2
+    i = torch.arange(dst_cap, device=device)[:, None]
+    y = torch.arange(src_cap, device=device)[None, :] - off
+    w = (y >= 2 * i - 1) & (y <= 2 * i + 1) & (y >= 0) & (y < src) & (i < dst)
+    return w.to(torch.float32) / 3.0
+
+
+def batched_window_avgpool_s2(src: torch.Tensor, src_win: torch.Tensor,
+                              dst_hw: tuple[int, int]):
+    """Per-image avg_pool(3, 2, pad=1, count_include_pad) of the windows
+    ``src_win`` ((N, 4) int (oy, ox, h, w)) of ``src`` (N, hs, ws, C) onto
+    an (dst_h, dst_w) canvas at the origin.  Returns (pooled, pooled_win),
+    pooled_win = (0, 0, ceil(h / 2), ceil(w / 2))."""
+    hs, ws = src.shape[1:3]
+    hd, wd = dst_hw
+    wh = dynamic_avgpool3s2_weights(src_win[:, 2], hs, hd, src_off=src_win[:, 0])
+    ww = dynamic_avgpool3s2_weights(src_win[:, 3], ws, wd, src_off=src_win[:, 1])
+    a = torch.einsum("nIy,nyxc->nIxc", wh, src)
+    pooled = torch.einsum("nJx,nIxc->nIJc", ww, a)
+    zero = torch.zeros_like(src_win[:, 0])
+    pooled_win = torch.stack(
+        [zero, zero, (src_win[:, 2] + 1) // 2, (src_win[:, 3] + 1) // 2], dim=-1)
+    return pooled, pooled_win
+
+
+def avg_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """3x3 / stride-2 / pad-1 average pool of NHWC ``x`` counting the
+    padded zeros (torch's default ``count_include_pad``): the BiFPN's
+    downsample.  Output sides are floor((n - 1) / 2) + 1."""
+    y = torch.nn.functional.avg_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1,
+                                       count_include_pad=True)
+    return y.permute(0, 2, 3, 1)

@@ -35,6 +35,7 @@ from muscle_tpu_torch.core.resize import (
 )
 from muscle_tpu_torch.data import transforms as T
 from muscle_tpu_torch.data.tta import group_by_shape, msf_batch, scaled_size
+from muscle_tpu_torch.inference.upload import start_download, to_device
 from muscle_tpu_torch.models.efficientnet import placement_offset
 
 # stride-2 convs between the input and the CAM-mode stride-16 maps (stem +
@@ -77,6 +78,30 @@ def _minmax_norm(m: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     mn = torch.amin(small, dim=(1, 2), keepdim=True)
     fg = torch.where(fg < mn + 1e-6, torch.zeros_like(fg), fg)
     return (fg - mn - 1e-6) / (mx - mn + 1e-6) * valid
+
+
+def scaled_pairs(images: torch.Tensor, orig_sizes: torch.Tensor, scale: float,
+                 canvas_hw: tuple[int, int], mean: torch.Tensor, std: torch.Tensor,
+                 n_strided: int):
+    """One TTA scale of a device batch: uint8 (or [0, 255] float) originals
+    (B, S, S, 3) with sizes (B, 2) -> normalised bicubic-scaled (orig, flip)
+    images interleaved in a (2B, ch, cw, 3) canvas at their placement
+    offsets.  Returns (scaled sizes, offsets, images)."""
+    ch, cw = canvas_hw
+    in_side = images.shape[1]
+    scaled = torch.round(orig_sizes.to(torch.float32) * scale).to(torch.int32)
+    off = placement_offset(scaled, n_strided)
+    x = (images.to(torch.float32) / 255.0 - mean) / std
+    wh = dynamic_cubic_resize_weights(orig_sizes[:, 0], scaled[:, 0], in_side, ch,
+                                      dst_off=off[:, 0])
+    ww = dynamic_cubic_resize_weights(orig_sizes[:, 1], scaled[:, 1], in_side, cw,
+                                      dst_off=off[:, 1])
+    wwf = dynamic_cubic_resize_weights(orig_sizes[:, 1], scaled[:, 1], in_side, cw,
+                                       flip=True, dst_off=off[:, 1])
+    a = torch.einsum("bIy,byxc->bIxc", wh, x)
+    pairs = torch.stack([torch.einsum("bJx,bIxc->bIJc", ww, a),
+                         torch.einsum("bJx,bIxc->bIJc", wwf, a)], dim=1)
+    return scaled, off, pairs.reshape(-1, ch, cw, 3)
 
 
 def _resize_pairs(wh, ww, wwf, pairs):
@@ -151,30 +176,7 @@ class CamTTAEngine:
         self._std = torch.tensor(T.IMAGENET_STD[0, 0], dtype=torch.float32, device=self.device)
 
     def _put(self, a) -> torch.Tensor:
-        """Host array -> tensor on the engine's device.  To a card it goes
-        through pinned memory without blocking the host: a pageable copy
-        would wait for the device to drain the previous batch first."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
-    @staticmethod
-    def _download(t: torch.Tensor):
-        """Start copying ``t`` to the host; returns a function that waits
-        for the copy and returns it as a numpy array."""
-        if t.device.type != "cuda":
-            return t.numpy
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-
-        def wait() -> np.ndarray:
-            done.synchronize()
-            return host.numpy()
-
-        return wait
+        return to_device(a, self.device)
 
     def _forward(self, images: torch.Tensor, win: torch.Tensor):
         """Model maps of one scale's (orig, flip) batch: window-exact
@@ -318,22 +320,10 @@ class CamTTAEngine:
         bicubic-scaled normalised (orig, flip) pairs -> model -> gather of
         the labelled classes -> resize onto the accumulation grid -> sum
         into ``accs`` in place."""
-        ch, cw = canvas_hw
-        in_side = self.out_side
-        scaled = torch.round(orig_sizes.to(torch.float32) * scale).to(torch.int32)
-        off = placement_offset(scaled, N_STRIDED_ENC)
-        x = (images.to(torch.float32) / 255.0 - self._mean) / self._std
-        wh = dynamic_cubic_resize_weights(orig_sizes[:, 0], scaled[:, 0], in_side, ch,
-                                          dst_off=off[:, 0])
-        ww = dynamic_cubic_resize_weights(orig_sizes[:, 1], scaled[:, 1], in_side, cw,
-                                          dst_off=off[:, 1])
-        wwf = dynamic_cubic_resize_weights(orig_sizes[:, 1], scaled[:, 1], in_side, cw,
-                                           flip=True, dst_off=off[:, 1])
-        a = torch.einsum("bIy,byxc->bIxc", wh, x)
-        pair = torch.stack([torch.einsum("bJx,bIxc->bIJc", ww, a),
-                            torch.einsum("bJx,bIxc->bIJc", wwf, a)], dim=1)
+        scaled, off, pairs = scaled_pairs(images, orig_sizes, scale, canvas_hw,
+                                          self._mean, self._std, N_STRIDED_ENC)
         win = torch.cat([off, scaled], dim=-1)
-        cams, sgcs, _, logits = self._forward(pair.reshape(-1, ch, cw, 3), win)
+        cams, sgcs, _, logits = self._forward(pairs, win)
 
         b = scaled.shape[0]
         stride = self.accum_stride
@@ -461,7 +451,7 @@ class CamTTAEngine:
     def _dispatch_prepped(self, prep: dict):
         with torch.inference_mode():
             fused = self._device_pipeline(prep["upload"], prep["orig_sizes"], prep["class_idx"])
-        return self._make_finalize(self._download(fused), prep["names"], prep["orig_sizes"],
+        return self._make_finalize(start_download(fused), prep["names"], prep["orig_sizes"],
                                    prep["class_idx"], prep["counts"], self.max_classes)
 
     def _make_finalize(self, fetch, names, orig_sizes, class_idx, counts, k):

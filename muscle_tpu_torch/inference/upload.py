@@ -1,7 +1,7 @@
-"""Device-side unpacking of the host upload canvases (port of
-``muscle_tpu/inference/upload.py``; host side: data/tta.py ``pack_canvas``
-and ``pack_canvas_ycbcr``).  Every layout unpacks to the same
-(B, side, side, 3) working canvas:
+"""Host-device transfers of the TTA engines, and the device-side unpacking
+of the host upload canvases (port of ``muscle_tpu/inference/upload.py``;
+host side: data/tta.py ``pack_canvas`` and ``pack_canvas_ycbcr``).  Every
+layout unpacks to the same (B, side, side, 3) working canvas:
 
 * square uint8 RGB (parity layout);
 * tight uint8 RGB with portrait images stored transposed (bitwise equal);
@@ -12,10 +12,38 @@ and ``pack_canvas_ycbcr``).  Every layout unpacks to the same
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from muscle_tpu_torch.core.resize import resize_bilinear
+
+
+def to_device(a, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on ``device``.  To a card it goes through
+    pinned memory without blocking the host: a pageable copy would wait
+    for the device to drain the previous batch first."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def start_download(t: torch.Tensor):
+    """Start copying ``t`` to the host; returns a function that waits for
+    the copy and returns it as a numpy array."""
+    if t.device.type != "cuda":
+        return t.numpy
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait() -> np.ndarray:
+        done.synchronize()
+        return host.numpy()
+
+    return wait
 
 
 def square_unpack_fn(side: int):

@@ -1,16 +1,21 @@
-"""MuSCLe core network in encoder mode (port of
-``muscle_tpu/models/muscle.py``): the EfficientNet pyramid, CAMs from the
-classifier weights, and the Pixel Correlation Module (PCM) that refines
-them into spatially-guided CAMs (SGC).  Tensors are NHWC.
+"""MuSCLe core network (port of ``muscle_tpu/models/muscle.py``): the
+EfficientNet pyramid, and on it either (mode='enc') CAMs from the
+classifier weights and the Pixel Correlation Module (PCM) that refines
+them into spatially-guided CAMs (SGC), or (mode='dec') the BiFPN decoder
+and the segmentation head.  Tensors are NHWC.
 
-Forward modes:
+Forward modes of an 'enc' model:
 
   'logits'     -> (emb, logits)
   'cam'        -> (cams, sgc, emb, logits)   maps upsampled to input H x W
   'cam_lowres' -> (cams, sgc, emb, logits)   maps at the stride-16 grid
   'pix'        -> (cams, sgc)
 
-Decoder mode (BiFPN) and the 'seg*'/'vis' modes are not ported yet.
+and of a 'dec' model:
+
+  'seg'        -> (seg_map, dense_ft)        both at input H x W
+  'seg_lowres' -> (logits, p3_dec)           at the stride-8 p3 grid
+  'vis'        -> (seg_map, p7)
 """
 
 from __future__ import annotations
@@ -20,9 +25,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from muscle_tpu_torch.core.resize import batched_window_resize_ac, resize_bilinear, resize_to
+from muscle_tpu_torch.models.bifpn import BiFPN
 from muscle_tpu_torch.models.efficientnet import EfficientNet, advance_window, window_mask
 
 # Per-variant pyramid: (channels p1..p7, block indices p1..p7)
+ENC_MODES = ("logits", "cam", "pix", "cam_lowres")
+DEC_MODES = ("seg", "seg_lowres", "vis")
+
 PYRAMID_TABLE = {
     "efficientnet-b1": ((16, 24, 40, 80, 112, 192, 320), (1, 4, 7, 11, 15, 20, 22)),
     "efficientnet-b3": ((24, 32, 48, 96, 136, 232, 384), (1, 4, 7, 12, 17, 23, 25)),
@@ -39,21 +48,27 @@ class MuSCLe(nn.Module):
     def __init__(self, num_classes: int = 21, backbone_name: str = "efficientnet-b3",
                  bifpn_layers: int = 3, bifpn_channels: int = 256,
                  last_pooling: bool = True, mode: str = "enc", fuse_mbconv: int = 0):
-        """fuse_mbconv: stride-1 MBConv blocks with at most this many input
-        channels run through the MBConv kernel in inference (0 = none)."""
+        """mode: 'enc' (classifier, CAM and PCM heads) or 'dec' (the BiFPN
+        decoder with ``bifpn_layers`` layers of ``bifpn_channels``, and the
+        segmentation head).  fuse_mbconv: stride-1 MBConv blocks with at
+        most this many input channels run through the MBConv kernel in
+        inference (0 = none)."""
         super().__init__()
         if backbone_name not in PYRAMID_TABLE:
             raise ValueError(f"no pyramid table for {backbone_name}")
-        if mode != "enc":
-            raise NotImplementedError(f"MuSCLe mode {mode!r} (BiFPN decoder) is not ported yet")
+        if mode not in ("enc", "dec"):
+            raise ValueError(f"unknown MuSCLe mode {mode!r}: 'enc' or 'dec'")
         self.mode = mode
         self.backbone = EfficientNet(backbone_name, last_pooling=last_pooling,
                                      fuse_max_in_filters=fuse_mbconv)
         channels, self.p_seq = PYRAMID_TABLE[backbone_name]
         p1_ch, _, p3_ch, _, p5_ch, _, p7_ch = channels
-        # PCM embedding projection + bias-free classifier
-        self.fuse = nn.Conv2d(p1_ch + p3_ch + p5_ch, 128, 1)
-        self.fc = nn.Linear(p7_ch, num_classes, bias=False)
+        if mode == "enc":
+            # PCM embedding projection + bias-free classifier
+            self.fuse = nn.Conv2d(p1_ch + p3_ch + p5_ch, 128, 1)
+            self.fc = nn.Linear(p7_ch, num_classes, bias=False)
+        else:
+            self.BIFPN = BiFPN(channels[2:], bifpn_channels, bifpn_layers, last_pooling)
         # defined in both modes by the reference, so checkpoints trained in
         # one mode load in the other
         self.fuse_dec = nn.Conv2d(bifpn_channels, num_classes, 1)
@@ -93,16 +108,20 @@ class MuSCLe(nn.Module):
     def forward(self, x: torch.Tensor, mode: str = "cam",
                 valid_hw: torch.Tensor | None = None,
                 valid_window: torch.Tensor | None = None):
-        """x: (N, H, W, 3) normalised images.  valid_hw: optional (N, 2)
-        valid (h, w) inside a padded canvas, masking the GAP and the PCM
-        normalisation.  valid_window: optional (N, 4) (oy, ox, h, w) for the
+        """x: (N, H, W, 3) normalised images.  valid_hw (enc modes): optional
+        (N, 2) valid (h, w) inside a padded canvas, masking the GAP and the
+        PCM normalisation.  valid_window: optional (N, 4) (oy, ox, h, w) for the
         window-exact canvas mode; supersedes valid_hw."""
-        if mode in ("seg", "vis", "seg_lowres"):
-            raise NotImplementedError(f"mode {mode!r} (BiFPN decoder) is not ported yet")
-        if mode not in ("logits", "cam", "pix", "cam_lowres"):
+        own = ENC_MODES if self.mode == "enc" else DEC_MODES
+        if mode not in own:
+            if mode in ENC_MODES + DEC_MODES:
+                raise ValueError(f"mode {mode!r} needs a model built with mode="
+                                 f"{'dec' if self.mode == 'enc' else 'enc'!r}")
             raise ValueError(f"unknown mode {mode!r}")
         _, hh, ww, _ = x.shape
         feats = self.backbone(x, valid_window=valid_window)
+        if self.mode == "dec":
+            return self._decode([feats[i] for i in self.p_seq[2:]], mode, hh, ww, valid_window)
         p1, _, p3, _, p5, _, p7 = (feats[i] for i in self.p_seq)
 
         if mode == "logits":
@@ -140,6 +159,38 @@ class MuSCLe(nn.Module):
             return cams, sgc
         return cams, sgc, emb, self.fc(emb)
 
+    def _decode(self, feats5, mode: str, hh: int, ww: int, valid_window):
+        """BiFPN + segmentation head over p3..p7.  With ``valid_window``
+        the BiFPN runs window-exact with per-level windows by stride
+        (p3 @ 8, p4/p5 @ 16, p6/p7 @ 32 under last_pooling)."""
+        windows = None
+        if valid_window is not None:
+            windows = []
+            w, k_done = valid_window, 0
+            for p in feats5:
+                k = (hh // p.shape[1]).bit_length() - 1
+                while k_done < k:
+                    w = advance_window(w)
+                    k_done += 1
+                windows.append(w)
+        p3_dec = self.BIFPN(feats5, windows=windows)[0]
+        if mode == "seg_lowres":
+            # a 1x1 conv commutes with the bilinear upsample (a linear map
+            # and row-stochastic weights), so stride-8 logits resized later
+            # equal the reference's resize-then-conv
+            return _conv_nhwc(self.fuse_dec, p3_dec), p3_dec
+        if valid_window is not None:
+            # the p3 window onto the window-size region at the canvas origin
+            dst_win = torch.cat([torch.zeros_like(valid_window[:, :2]), valid_window[:, 2:]],
+                                dim=-1)
+            dense_ft = batched_window_resize_ac(p3_dec, windows[0], dst_win, (hh, ww))
+        else:
+            dense_ft = resize_bilinear(p3_dec, (hh, ww), align_corners=True)
+        seg_map = _conv_nhwc(self.fuse_dec, dense_ft)
+        if mode == "vis":
+            return seg_map, feats5[-1]
+        return seg_map, dense_ft
+
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -165,4 +216,22 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             m.bias.copy_(uniform(n, -0.1, 0.1))
             m.running_mean.copy_(uniform(n, -0.2, 0.2))
             m.running_var.copy_(uniform(n, 0.5, 1.0))
+    return model
+
+
+@torch.no_grad()
+def calibrate_seg_head(model: MuSCLe, images: torch.Tensor, gain: float = 3.0) -> MuSCLe:
+    """For a dec model with random weights: rescale the segmentation head
+    so that its logits vary over the image.  A random BiFPN's output is
+    nearly constant over the pixels (a spread ~0.15x its mean), so the raw
+    head gives every pixel one class and a comparison of labels means
+    nothing.  Each input channel of ``fuse_dec`` is scaled by ``gain`` over
+    its spread on ``images`` (NHWC, normalised) and the bias cancels its
+    mean: the logits become centred, with a spread ~``gain``."""
+    _, f = model(images, mode="seg_lowres")
+    f = f.reshape(-1, f.shape[-1])
+    mean, std = f.mean(dim=0), f.std(dim=0)
+    w = model.fuse_dec.weight[:, :, 0, 0] * (gain / (std + 1e-6))
+    model.fuse_dec.weight.copy_(w[:, :, None, None])
+    model.fuse_dec.bias.copy_(-(w @ mean))
     return model

@@ -47,7 +47,9 @@ def test_importing_every_module_loads_no_jax(block_pil):
     neither jax nor muscle_tpu is loaded (and, with Pillow made
     unimportable, the imports still succeed)."""
     mods = _modules()
-    for m in ("inference.cam", "cli.infer_mcl", "inference.irn", "cli.infer_irn"):
+    for m in ("inference.cam", "cli.infer_mcl", "inference.irn", "cli.infer_irn",
+              "inference.seg", "cli.infer_seg", "cli.cam_to_label", "ops.crf",
+              "ops.exact_crf", "models.bifpn"):
         assert "muscle_tpu_torch." + m in mods
     code = "\n".join([
         "import sys, importlib",

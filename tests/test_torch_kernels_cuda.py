@@ -45,6 +45,15 @@ CASES = {
     "wide_ragged": (BlockArgs(3, 1, 384, 384, 6, 1), 13, 21, [(13, 20), (9, 21)]),
     # a grid smaller than one tile
     "tiny_grid": (BlockArgs(5, 1, 24, 24, 6, 1), 3, 5, None),
+    # b7 seg shapes (MuSCLe-b7 dec, fuse_mbconv=384): k 5 at Cin 384 /
+    # Cmid 2304 (_blocks_39-50, stride 32 of the 896 canvas: 28 x 28)
+    "b7_k5_wide": (BlockArgs(5, 1, 384, 384, 6, 1), 28, 28, [(28, 21), (22, 28)]),
+    # Cout 640: ten project N-tiles (_blocks_51)
+    "b7_cout640": (BlockArgs(3, 1, 384, 640, 6, 1), 28, 22, [(28, 22), (21, 16)]),
+    # 64 -> 32, no expand and no residual (_blocks_0), windowed
+    "b7_no_expand_no_skip": (BlockArgs(3, 1, 64, 32, 1, 1), 64, 96, [(64, 90), (47, 96)]),
+    # a 448 x 448 grid (stride 2 of the 896 canvas: _blocks_1-3)
+    "b7_grid448": (BlockArgs(3, 1, 32, 32, 1, 1), 448, 448, [(448, 336), (336, 448)]),
 }
 
 

@@ -157,15 +157,23 @@ def test_converter_keys_match_jax_inverse(weights):
 
 
 def test_muscle_rejects_unported_modes():
-    with pytest.raises(NotImplementedError):
-        MuSCLe(backbone_name=BACKBONE, mode="dec")
-    model = MuSCLe(backbone_name=BACKBONE, last_pooling=False).eval()
+    """An enc model refuses the dec (segmentation) modes and a dec model the
+    enc ones; an unknown forward or model mode raises ValueError."""
+    with pytest.raises(ValueError, match="unknown MuSCLe mode"):
+        MuSCLe(backbone_name=BACKBONE, mode="decoder")
+    enc = MuSCLe(backbone_name=BACKBONE, last_pooling=False).eval()
+    dec = MuSCLe(backbone_name=BACKBONE, mode="dec", bifpn_layers=1).eval()
     x = torch.zeros((1, 32, 32, 3))
     with torch.inference_mode():
-        with pytest.raises(NotImplementedError):
-            model(x, mode="seg")
-        with pytest.raises(ValueError):
-            model(x, mode="nope")
+        for mode in ("seg", "seg_lowres", "vis"):
+            with pytest.raises(ValueError, match="mode='dec'"):
+                enc(x, mode=mode)
+        for mode in ("cam", "logits"):
+            with pytest.raises(ValueError, match="mode='enc'"):
+                dec(x, mode=mode)
+        for model in (enc, dec):
+            with pytest.raises(ValueError, match="unknown mode"):
+                model(x, mode="nope")
 
 
 def test_init_weights_is_seeded():
@@ -186,3 +194,19 @@ def test_fused_blocks_match_b1_eligibility():
         fusable = [b.fusable() and a.input_filters <= 384
                    for a, b in zip(blocks, model.backbone._blocks)]
         assert sum(fusable) == n_stride1
+
+
+def test_fused_blocks_match_b7_dec_eligibility():
+    """The seg model, MuSCLe-b7 dec (last_pooling=True), at fuse_mbconv=384
+    runs 48 of its 55 blocks through the MBConv kernel: every stride-1
+    block (the widest takes 384 channels in)."""
+    from muscle_tpu_torch.models.efficientnet import efficientnet_config
+
+    blocks, _ = efficientnet_config("efficientnet-b7", last_pooling=True)
+    model = MuSCLe(backbone_name="efficientnet-b7", mode="dec", last_pooling=True,
+                   fuse_mbconv=384).eval()
+    fusable = [b.fusable() and a.input_filters <= model.backbone.fuse_max_in_filters
+               for a, b in zip(blocks, model.backbone._blocks)]
+    assert len(blocks) == 55 and sum(fusable) == 48
+    assert max(a.input_filters for a, f in zip(blocks, fusable) if f) == 384
+    assert sum(a.stride == 2 for a in blocks) == 4  # stages 2-4 and 6 lead with stride 2
