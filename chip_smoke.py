@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's CAM-generation, IRN-refinement and
-segmentation-inference paths on one CUDA card.
+"""Drive the PyTorch port's CAM-generation, IRN-refinement,
+segmentation-inference and MCL-training paths on one CUDA card.
 
     python3 chip_smoke.py            # every phase, the full check
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,kernels,seg
+    python3 chip_smoke.py --phases train_mcl
     python3 chip_smoke.py --phases build,profile   # where the device time goes
 
 Phases:
@@ -46,6 +47,22 @@ Phases:
            with the plain blocks; counts the launches, compares, and times
            the mean-field CRF (t = 4) on the card and checks the native
            CRF against it on one image;
+  train_mcl
+           train MuSCLe-b3 enc (float32, TF32 off, seeded random weights,
+           plain blocks) at the train_mcl default, batch 16, crop 448,
+           views 224, on numpy-made 4:2:0 batches: 2 warm-up and 5 timed
+           iterations of the epoch-0 configuration (step A) and of the
+           epoch-12 one (step A with IMC, step B with PixPro and EMD);
+           step A and step B ms per iteration, images/s, peak memory, the
+           device time by kernel name over two epoch-12 iterations, every
+           kernel's launches during training (0: the MBConv kernel has no
+           backward), every loss term's gradient norm (train-mode
+           views: at least 1e-6 of the largest term's), and one step A and
+           one step B at b1 held to the same steps on the CPU: loss
+           terms, gradients and BN statistics (and the same check with
+           TF32 on, which must fail it); step A's device ms, wall ms and
+           launches with the backbone's Flax-style BatchNorm2d and with
+           plain torch.nn.BatchNorm2d;
   profile  (not run by default) device time by kernel name over --fast 0
            CAM batches, with and without the MBConv kernel, over IRN
            batches with the stencil kernel, and over one seg batch, and
@@ -136,6 +153,23 @@ SEG_LABEL_AGREE = 0.999  # labels: kernel and plain blocks, near-ties of random 
 CRF_AGREE = 0.9  # native vs mean-field CRF labels, two-region image: the JAX package's bound
 LABEL_AGREE = 0.999  # labels: kernel and plain walk, argmax ties only
 IRN_SCORE_TOL = 1e-3  # f16 scores, kernel and plain walk
+# MCL training (train_mcl phase): the JAX CLI's defaults
+TRAIN_BACKBONE, TRAIN_BATCH, TRAIN_CROP, TRAIN_VIEW = "efficientnet-b3", 16, 448, 224
+TRAIN_WARMUP, TRAIN_ITERS = 2, 5
+TRAIN_LR, TRAIN_WD = 1e-4, 5e-5
+# card vs CPU: b1, crop 64, views 32, batch 4; loss terms within 1e-4
+# relative (plus 1e-7 absolute: EMD is ~1e-6 here, 1 - cos with cos one f32
+# ulp from 1), BN statistics within 1e-4; each parameter's gradient within
+# (tolerance) x its largest CPU entry or (zero share) x the model's largest
+# gradient, whichever is larger: tests/test_torch_mcl.py's limits, step B's
+# looser (its maxnorm amplifies the forward's rounding ~40x); the floor
+# holds gradients that are zero in exact arithmetic to rounding noise, with
+# no cliff for a real gradient near it (step B's last SE bias: 9.5e-4 of
+# the largest)
+CHECK_BACKBONE, CHECK_BATCH, CHECK_CROP, CHECK_VIEW = "efficientnet-b1", 4, 64, 32
+TRAIN_RTOL, TRAIN_ATOL, TRAIN_STAT_TOL = 1e-4, 1e-7, 1e-4
+GRAD_TOLS = {"step_a": (1e-4, 1e-5), "step_b": (1e-3, 1e-3)}  # (tolerance, zero share)
+LIVE_FLOOR = 1e-6  # a live term's gradient norm, relative to the largest term's
 
 
 def log(msg: str) -> None:
@@ -994,9 +1028,312 @@ def _seg_breakdown(engine, batch) -> None:
                       "engine_rest": total - model}), flush=True)
 
 
+def _train_batch(n: int, crop: int, view: int, seed: int) -> dict:
+    """A batch in the MCL dataset's default output (uint8 4:2:0 planes
+    img/view1/view2, int32 overlaps coord1/coord2 of two view-sized crops
+    of a crop-sized image, float32 labels), made with numpy: smooth random
+    images, each class on a pair of consecutive images (IMC has positives
+    and negatives)."""
+    import numpy as np
+
+    from muscle_tpu_torch.data.transforms import _intersection
+
+    rng = np.random.default_rng(seed)
+
+    def planes(side):
+        lo = rng.uniform(0, 255, (n, side // 16, side // 16, 3))
+        rgb = np.kron(lo, np.ones((1, 16, 16, 1))) + rng.normal(0, 12, (n, side, side, 3))
+        rgb = np.clip(rgb, 0, 255)
+        # BT.601 full range, the dataset's 4:2:0 pack (BOX chroma subsample)
+        y = 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+        cb = 128 - 0.168736 * rgb[..., 0] - 0.331264 * rgb[..., 1] + 0.5 * rgb[..., 2]
+        cr = 128 + 0.5 * rgb[..., 0] - 0.418688 * rgb[..., 1] - 0.081312 * rgb[..., 2]
+        c = np.stack([cb, cr], -1).reshape(n, side // 2, 2, side // 2, 2, 2).mean((2, 4))
+        return np.round(y).astype(np.uint8), np.round(c).astype(np.uint8)
+
+    b = {}
+    for key, side in (("img", crop), ("view1", view), ("view2", view)):
+        b[key + "_y"], b[key + "_c"] = planes(side)
+    coords = []
+    while len(coords) < n:
+        i1, j1, i2, j2 = (int(v) for v in rng.integers(0, 2 * view - view + 1, 4))
+        rel1, rel2, _ = _intersection((i1, j1, view, view), (i2, j2, view, view))
+        if rel1 is not None:
+            coords.append((rel1, rel2))
+    b["coord1"] = np.asarray([c[0] for c in coords], np.int32)
+    b["coord2"] = np.asarray([c[1] for c in coords], np.int32)
+    b["label"] = np.zeros((n, 20), np.float32)
+    return b
+
+
+def _live_labels(model, batch: dict) -> dict:
+    """Label the batch with the classes whose random view-1 CAMs vary most,
+    two classes per image, the same two for each pair of consecutive
+    images (IMC then has positives and negatives).  A random classifier's
+    rectified CAM is all zero for about half the classes (the background's
+    too, here), and PixPro's per-pixel cosine over a single live channel
+    is 1 whatever the map: it needs two."""
+    import torch
+
+    from muscle_tpu_torch.training import decode_image
+
+    with torch.no_grad():
+        was = model.training
+        cams, _ = model.eval()(decode_image(batch, "view1"), mode="pix")
+        model.train(was)
+    spread = (cams.amax(dim=(1, 2)) - cams.amin(dim=(1, 2)))[:, 1:].mean(dim=0)
+    live = spread.argsort(descending=True).tolist()
+    label = torch.zeros_like(batch["label"])
+    for i in range(label.shape[0]):
+        pair = (i // 2) % 4
+        label[i, live[2 * pair]] = label[i, live[2 * pair + 1]] = 1.0
+    return dict(batch, label=label)
+
+
+def _train_model(backbone: str, seed: int):
+    import torch
+
+    from muscle_tpu_torch.models import MuSCLe, init_weights
+
+    model = MuSCLe(backbone_name=backbone, mode="enc", last_pooling=False, fuse_mbconv=0)
+    return init_weights(model, torch.Generator().manual_seed(seed))
+
+
+def _grads(model) -> dict:
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {names[id(p)]: p.grad.detach().cpu().clone() for p in model.trained_parameters()}
+
+
+def _grad_err(card: dict, cpu: dict, tol: float, zero_share: float) -> tuple[float, str]:
+    """The worst gradient difference over its limit (GRAD_TOLS), and its
+    parameter."""
+    noise = zero_share * max(float(g.abs().max()) for g in cpu.values())
+    worst, name = 0.0, ""
+    for k, g in cpu.items():
+        err = float((card[k] - g).abs().max()) / max(tol * float(g.abs().max()), noise)
+        if err >= worst:
+            worst, name = err, k
+    return worst, name
+
+
+def _card_vs_cpu_readings(card: tuple, cpu: tuple) -> dict:
+    """Loss, BN-statistic and gradient errors of one card run against the
+    CPU's, with ``passed``."""
+    (mc, sc, gc), (mh, sh, gh) = card, cpu
+    worst = max(abs(mc[k] - mh[k]) / (TRAIN_RTOL * abs(mh[k]) + TRAIN_ATOL) for k in mh)
+    stat_err = max(float((sc[k] - sh[k]).abs().max()) for k in sh)
+    grad_err = {step: _grad_err(gc[step], gh[step], *GRAD_TOLS[step]) for step in GRAD_TOLS}
+    finite = all(v == v and abs(v) < float("inf") for v in mc.values())
+    return {"card": mc, "loss_err_over_tol": worst, "bn_stat_max_abs_err": stat_err,
+            "grad_err_over_tol": {step: {"worst": e, "param": k}
+                                  for step, (e, k) in grad_err.items()},
+            "finite": finite,
+            "passed": (worst <= 1.0 and stat_err <= TRAIN_STAT_TOL and finite
+                       and all(e <= 1.0 for e, _ in grad_err.values()))}
+
+
+def _check_train_card_vs_cpu() -> dict:
+    """One step A (IMC on) and one step B (PixPro + EMD) at b1 on the card
+    and on the CPU, from the same weights, batch and EMD crop fractions,
+    drop-connect off: loss terms, every parameter's gradient of each step,
+    and BN statistics.  The card runs twice: f32 (TF32 off), which must
+    pass, and the control with TF32 on, which must fail (the check can
+    tell a lower-precision card path)."""
+    import copy
+
+    import torch
+
+    from muscle_tpu_torch.losses import draw_crop_fractions
+    from muscle_tpu_torch.training import MCLConfig, make_adam, mcl_train_step, mcl_views_step
+
+    cfg = MCLConfig(True, True, True)
+    base = _train_model(CHECK_BACKBONE, seed=1)
+    base.backbone.drop_connect_rate = 0.0
+    host = {k: torch.from_numpy(v) for k, v in
+            _train_batch(CHECK_BATCH, CHECK_CROP, CHECK_VIEW, seed=1).items()}
+    host = {k: v.cpu() for k, v in _live_labels(base, host).items()}
+    frac = draw_crop_fractions(CHECK_BATCH, torch.Generator().manual_seed(1))
+    runs = {}
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        for name, dev, tf32 in (("f32", "cuda", False), ("tf32", "cuda", True),
+                                ("cpu", "cpu", False)):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+            model = copy.deepcopy(base).to(dev)
+            opt = make_adam(model.trained_parameters(), TRAIN_LR, TRAIN_WD)
+            batch = {k: v.to(dev) for k, v in host.items()}
+            m = {k: float(v) for k, v in mcl_train_step(model, opt, batch, cfg).items()}
+            grads = {"step_a": _grads(model)}
+            stats = {k: v.detach().cpu() for k, v in model.state_dict().items()
+                     if k.endswith("running_mean") or k.endswith("running_var")}
+            m.update({k: float(v) for k, v in
+                      mcl_views_step(model, opt, batch, cfg, crop_frac=frac.to(dev)).items()})
+            grads["step_b"] = _grads(model)
+            runs[name] = (m, stats, grads)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    f32 = _card_vs_cpu_readings(runs["f32"], runs["cpu"])
+    control = _card_vs_cpu_readings(runs["tf32"], runs["cpu"])
+    rec = {"train_mcl_card_vs_cpu": CHECK_BACKBONE, "batch": CHECK_BATCH, "crop": CHECK_CROP,
+           "cpu": runs["cpu"][0], "f32": f32, "tf32_control": control}
+    print(json.dumps(rec), flush=True)
+    if not f32["passed"]:
+        raise AssertionError(f"train_mcl card vs CPU failed: {f32}")
+    if control["passed"]:
+        raise AssertionError("train_mcl card vs CPU passed with TF32 on: the check is blind")
+    return rec
+
+
+def _bn_cost(model, opt, batch: dict, gen) -> dict:
+    """What the Flax-style BN update costs step A: the epoch-0 step with
+    the backbone's ``BatchNorm2d`` and with plain ``torch.nn.BatchNorm2d``
+    (unbiased variance update) in its place, alternating (port, plain,
+    port, plain), each 1 warm-up and TRAIN_ITERS timed iterations: step A
+    device ms (CUDA events), wall ms an iteration, device launches of one
+    step (kernels; copies not counted)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from muscle_tpu_torch.models.efficientnet import BatchNorm2d
+    from muscle_tpu_torch.training import MCLConfig, mcl_train_step
+
+    forwards = {"port": BatchNorm2d.forward, "plain": torch.nn.BatchNorm2d.forward}
+    runs = {"port": [], "plain": []}
+    try:
+        for variant in ("port", "plain", "port", "plain"):
+            BatchNorm2d.forward = forwards[variant]
+            mcl_train_step(model, opt, batch, MCLConfig(), gen)
+            torch.cuda.synchronize()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            for _ in range(TRAIN_ITERS):
+                mcl_train_step(model, opt, batch, MCLConfig(), gen)
+            ev[1].record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / TRAIN_ITERS
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                mcl_train_step(model, opt, batch, MCLConfig(), gen)
+                torch.cuda.synchronize()
+            launches = sum(r[1] for r in _device_rows(prof) if not r[2].startswith("Mem"))
+            runs[variant].append({"step_a_device_ms": ev[0].elapsed_time(ev[1]) / TRAIN_ITERS,
+                                  "iter_wall_ms": wall * 1e3, "device_launches": launches})
+    finally:
+        BatchNorm2d.forward = forwards["port"]
+    return runs
+
+
+def phase_train_mcl(card: str) -> dict:
+    """MCL training at the train_mcl default: MuSCLe-b3 enc (float32, TF32
+    off, seeded random weights), batch 16, crop 448, views 224, 4:2:0
+    upload; the epoch-0 configuration (step A) and the epoch-12 one (step A
+    with IMC, then step B with PixPro and EMD), 2 warm-up and 5 timed
+    iterations each, every iteration uploading its batch.  Counts the
+    kernels' launches during training (the MBConv kernel has no backward:
+    training runs the plain blocks), probes every loss term's gradient
+    norm, times step A with plain BNs beside the port's, and holds the
+    card's steps to the CPU's at b1."""
+    import torch
+
+    from muscle_tpu_torch.inference.upload import to_device
+    from muscle_tpu_torch.ops import banded_walk, mbconv, stencil_walk
+    from muscle_tpu_torch.training import (
+        MCLConfig,
+        make_adam,
+        mcl_term_grad_norms,
+        mcl_train_step,
+        mcl_views_step,
+    )
+
+    dev = torch.device("cuda")
+    model = _train_model(TRAIN_BACKBONE, seed=0).to(dev)
+    opt = make_adam(model.trained_parameters(), TRAIN_LR, TRAIN_WD)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hosts = []
+    for seed in range(2):
+        b = {k: torch.from_numpy(v) for k, v in
+             _train_batch(TRAIN_BATCH, TRAIN_CROP, TRAIN_VIEW, seed).items()}
+        hosts.append({k: v.cpu().numpy() for k, v in
+                      _live_labels(model, {k: v.to(dev) for k, v in b.items()}).items()})
+    out = {"train_mcl": TRAIN_BACKBONE, "batch": TRAIN_BATCH, "crop": TRAIN_CROP,
+           "view": TRAIN_VIEW, "card": card}
+    _zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name, cfg in (("epoch0", MCLConfig()), ("epoch12", MCLConfig(True, True, True))):
+        marks = []  # (before A, after A, after B) events of each timed iteration
+        for it in range(TRAIN_WARMUP + TRAIN_ITERS):
+            if it == TRAIN_WARMUP:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            batch = {k: to_device(v, dev) for k, v in hosts[it % 2].items()}
+            ev[0].record()
+            metrics = mcl_train_step(model, opt, batch, cfg, gen)
+            ev[1].record()
+            if cfg.use_pixpro:
+                metrics.update(mcl_views_step(model, opt, batch, cfg, gen))
+            ev[2].record()
+            if it >= TRAIN_WARMUP:
+                marks.append(ev)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / TRAIN_ITERS
+        a_ms = sum(e[0].elapsed_time(e[1]) for e in marks)
+        b_ms = sum(e[1].elapsed_time(e[2]) for e in marks)
+        vals = {k: float(v) for k, v in metrics.items()}
+        if not all(v == v and abs(v) < float("inf") for v in vals.values()):
+            raise AssertionError(f"train_mcl {name}: losses not finite: {vals}")
+        out[name] = {"step_a_ms": a_ms / TRAIN_ITERS,
+                     "step_b_ms": b_ms / TRAIN_ITERS if cfg.use_pixpro else None,
+                     "iter_wall_ms": wall * 1e3, "images_per_s": TRAIN_BATCH / wall,
+                     "losses": vals}
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    # where the device time goes: two epoch-12 iterations, device activity only
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for it in range(2):
+            batch = {k: to_device(v, dev) for k, v in hosts[it].items()}
+            mcl_train_step(model, opt, batch, cfg, gen)
+            mcl_views_step(model, opt, batch, cfg, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _profile_record("train_mcl epoch12 (step A + step B)", 2, wall, _device_rows(prof),
+                    "mbconv_kernel_ms", ("expand_dw_kernel", "se_kernel", "project_kernel"),
+                    top=25)
+    out["launches"] = {"mbconv_stride1": mbconv.mbconv_stride1.launches,
+                       "stencil_walk": stencil_walk.stencil_walk.launches,
+                       "banded_walk": banded_walk.banded_walk.launches}
+    if any(out["launches"].values()):
+        raise AssertionError(f"train_mcl launched kernels of the inference paths: "
+                             f"{out['launches']}")
+    batch = {k: to_device(v, dev) for k, v in hosts[0].items()}
+    t0 = time.perf_counter()
+    # liveness with train-mode views, the JAX package's probe for random
+    # weights: every term's norm at least LIVE_FLOOR of the largest; step B's
+    # terms as step B runs them (eval-mode views) for information: there a
+    # random net's flat maps leave EMD's gradient at ~1e-8
+    norms = mcl_term_grad_norms(model, batch, gen, views_train_mode=True)
+    out["term_grad_norms_views_train"] = norms
+    floor = LIVE_FLOOR * max(norms.values())
+    if sorted(norms) != ["emd", "er", "focal", "imc", "pair", "pixpro", "softmargin"] or \
+            not all(n >= floor for n in norms.values()):
+        raise AssertionError(f"train_mcl: a loss term's gradient norm is below {floor:.3g}: "
+                             f"{norms}")
+    out["term_grad_norms_eval_views"] = mcl_term_grad_norms(model, batch, gen)
+    out["liveness_s"] = time.perf_counter() - t0
+    out["bn_cost"] = _bn_cost(model, opt, batch, gen)
+    print(json.dumps(out), flush=True)
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = _check_train_card_vs_cpu()
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="build,kernels,main,irn,seg")
+    p.add_argument("--phases", default="build,kernels,main,irn,seg,train_mcl")
     args = p.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -1025,6 +1362,7 @@ def main(argv=None) -> int:
     main_out = phase_main() if "main" in phases else None
     irn_out = phase_irn() if "irn" in phases else None
     seg_out = phase_seg() if "seg" in phases else None
+    train_out = phase_train_mcl(card) if "train_mcl" in phases else None
     if "profile" in phases:
         phase_profile(4)
 
@@ -1042,6 +1380,8 @@ def main(argv=None) -> int:
                     **summaries[name]} for name in KERNEL_SOURCES]
         # the MBConv kernel also runs on the seg path: its launches there
         entries[0]["launches_seg"] = seg_out["fast0"]["launches"] if seg_out else None
+        for e in entries:  # none runs on the training path
+            e["launches_train_mcl"] = train_out["launches"][e["name"]] if train_out else None
         print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

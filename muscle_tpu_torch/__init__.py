@@ -1,6 +1,6 @@
 """muscle_tpu_torch: the PyTorch + CUDA port of muscle_tpu for NVIDIA Hopper.
 
-A second package beside the JAX one, which stays the reference.  Three
+A second package beside the JAX one, which stays the reference.  Four
 stages run end to end so far:
 
 * CAM generation: EfficientNet backbone, MuSCLe's CAM + PCM heads, batched
@@ -17,6 +17,9 @@ stages run end to end so far:
   CRF in PyTorch and the native permutohedral CRF (``native/`` built with
   g++ into ``build/native/``); b7's stride-1 blocks run through the MBConv
   kernel.
+* MCL classifier training: the seeded host data path, the losses, steps A
+  and B, Adam, checkpoints and ``train_mcl``.  Training runs the plain
+  blocks under autograd (the MBConv kernel has no backward).
 
 The package imports torch, numpy and the standard library, never JAX or
 ``muscle_tpu``; PIL is imported only inside the functions that resize,
@@ -24,16 +27,22 @@ decode or write images.
 
 Subpackages
 -----------
-core        resize weights and bilinear resizes, the VOC palette
+core        resize weights and bilinear resizes, the VOC palette, CAM
+            normalisers, the 4:2:0 pack and decode
 models      EfficientNet, MuSCLe (enc and dec modes), the BiFPN, ResNet-50,
             IRN EdgeDisplacement
 ops         CUDA kernel wrappers with their plain versions, the random walk;
-            the nvcc build; the CRFs and the native library's loader
-data        VOC12 lists, transforms, batched TTA producers
+            the nvcc build; the CRFs, the exact EMD and the native
+            library's loader
+data        VOC12 lists and the MCL training set, transforms, the prefetch
+            loader, batched TTA producers
+losses      classification, contrastive (IMC, PixPro) and EMD losses
+training    MCL steps A and B, Adam and checkpoints, schedules, liveness
+utils       timers, metric and tensorboard logs, training overlays
 inference   CamTTAEngine, RandomWalkRefiner, SegTTAEngine, the transfers and
             device-side upload unpackers
 evaluation  vectorised mIoU with threshold sweep
-cli         infer_mcl, evaluate, infer_irn, infer_seg, cam_to_label
+cli         infer_mcl, evaluate, infer_irn, infer_seg, cam_to_label, train_mcl
 convert     state dicts from the JAX package's variables or reference .pth
 """
 

@@ -75,8 +75,11 @@ def _tensors(sd: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
 
 def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """The port's state dict for a JAX ``MuSCLe`` variable tree (enc or dec
-    mode) ``{'params': ..., 'batch_stats': ...}`` of numpy arrays, or for
-    any of its parts (a tree holding only ``BIFPN``, say)."""
+    mode) ``{'params': ..., 'batch_stats': ...}`` of numpy arrays (a JAX
+    ``TrainState``'s ``params`` and ``batch_stats``), or for any of its
+    parts (a tree holding only ``BIFPN``, say).  A tree shaped like
+    ``params`` (gradients, Adam moments) given as ``{'params': tree}``
+    maps onto the parameters' names the same way."""
     params = variables["params"]
     sd: dict[str, np.ndarray] = {}
     conv, bn = _writers(variables, sd)

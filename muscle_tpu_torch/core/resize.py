@@ -48,8 +48,12 @@ def _interp_matrix(in_size: int, out_size: int, align_corners: bool) -> np.ndarr
 @functools.lru_cache(maxsize=256)
 def _interp_tensor(in_size: int, out_size: int, align_corners: bool,
                    device: torch.device) -> torch.Tensor:
-    """``_interp_matrix`` on ``device``, copied there once."""
-    return torch.from_numpy(_interp_matrix(in_size, out_size, align_corners)).to(device)
+    """``_interp_matrix`` on ``device``, copied there once.  Made outside
+    inference mode even when first asked for inside it: an inference tensor
+    in the cache could not take part in a later autograd graph (the
+    training step after an epoch-end eval)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_interp_matrix(in_size, out_size, align_corners)).to(device)
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],

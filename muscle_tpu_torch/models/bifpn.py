@@ -13,9 +13,11 @@ The fusion topology is the reference's, quirks included:
   p7_out = out7(p7 + p6_out)
 
 Mid convs are 1x1 + swish with no batch norm; lateral (``inp*``) and out
-convs are 1x1 + BN + swish.  These BNs keep torch's defaults (eps 1e-5),
-unlike the backbone's (1e-3).  ``up`` is an align_corners=True bilinear
-resize to the target level's size.
+convs are 1x1 + BN + swish.  These BNs keep torch's defaults (eps 1e-5,
+momentum 0.1 = Flax's 0.9), unlike the backbone's (1e-3), and update
+their running variance with the biased batch variance, as the backbone's
+do.  ``up`` is an align_corners=True bilinear resize to the target
+level's size.
 
 Window-exact mode (``windows``): every conv is 1x1, so a padded canvas can
 only leak into the valid windows through the upsamples and the pools.
@@ -41,17 +43,18 @@ from muscle_tpu_torch.core.resize import (
     batched_window_resize_ac,
     resize_to,
 )
+from muscle_tpu_torch.models.efficientnet import BatchNorm2d
 from muscle_tpu_torch.ops.mbconv import window_mask
 
 
 class ConvBNSwish(nn.Sequential):
-    """1x1 conv (with bias), optional BatchNorm (torch defaults), swish;
+    """1x1 conv (with bias), optional BatchNorm (eps 1e-5), swish;
     NHWC in and out."""
 
     def __init__(self, cin: int, cout: int, use_bn: bool = True):
         layers = [nn.Conv2d(cin, cout, 1)]
         if use_bn:
-            layers.append(nn.BatchNorm2d(cout))
+            layers.append(BatchNorm2d(cout))
         super().__init__(*layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

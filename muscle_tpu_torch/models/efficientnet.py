@@ -11,13 +11,17 @@ is the layout cuDNN and the MBConv kernel both want.
 * stride-2 convs use the reference's static pads, total k - 2 split
   ((k-2)//2, rest), then convolve unpadded: odd inputs give the floor size
   chain (25 -> 12 -> 6), which ``padding='same'`` would not;
-* BatchNorm eps 1e-3, torch momentum 0.01 (Flax momentum 0.99);
+* BatchNorm eps 1e-3, torch momentum 0.01 (Flax momentum 0.99), whose
+  train-mode running variance takes the biased batch variance, as Flax's
+  does (``BatchNorm2d``);
+* in training, drop-connect (stochastic depth per sample) on the residual
+  of the stride-1 Cin == Cout blocks, at rate 0.2 * block / blocks;
 * ``forward`` returns every block output (the reference's 26-deep pyramid
   for b3) and, given ``valid_window``, re-zeroes features outside each
   image's window after every BN so a padded canvas computes what the
   reference computes on the unpadded image;
 * ``fuse_max_in_filters`` runs eligible stride-1 blocks in inference
-  through the MBConv kernel (ops/mbconv.py).
+  (eval mode, no autograd) through the MBConv kernel (ops/mbconv.py).
 """
 
 from __future__ import annotations
@@ -144,8 +148,40 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode update of ``running_var`` takes
+    the biased batch variance, as Flax's ``BatchNorm`` does (torch's takes
+    the unbiased one).  Normalisation is unchanged: both normalise with
+    the biased variance."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        n = x.numel() // x.shape[1]
+        m = self.momentum
+        # F.batch_norm updates running_mean as Flax does, and the copy of
+        # running_var, which autograd keeps unchanged after the call
+        var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias, True, m, self.eps)
+        with torch.no_grad():
+            # var = (1 - m) old + m v n / (n - 1); keep (1 - m) old + m v
+            self.running_var.mul_((1.0 - m) / n).add_(var, alpha=(n - 1) / n)
+        return y
+
+
+def _bn(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+def drop_connect(x: torch.Tensor, rate: float,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+    """Per-sample stochastic depth: each sample of ``x`` is kept with
+    probability 1 - rate (floor(keep + U)) and scaled by 1 / keep."""
+    keep = 1.0 - rate
+    u = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), dtype=x.dtype, device=x.device,
+                   generator=generator)
+    return x / keep * torch.floor(keep + u)
 
 
 class MBConvBlock(nn.Module):
@@ -178,9 +214,11 @@ class MBConvBlock(nn.Module):
 
     def fusable(self) -> bool:
         """Whether the MBConv kernel can run this block: stride 1,
-        inference, squeeze-excite, and a residual iff Cin == Cout."""
+        inference (eval mode and no autograd: the kernel has no backward),
+        squeeze-excite, and a residual iff Cin == Cout."""
         a = self.args
-        return (not self.training and a.stride == 1 and self.has_se
+        return (not self.training and not torch.is_grad_enabled() and a.stride == 1
+                and self.has_se
                 and (a.id_skip or a.input_filters != a.output_filters))
 
     def fused_weights(self) -> dict:
@@ -235,12 +273,15 @@ class MBConvBlock(nn.Module):
     def forward(self, x: torch.Tensor, drop_rate: float = 0.0,
                 mask_in: torch.Tensor | None = None, mask_out: torch.Tensor | None = None,
                 se_count: torch.Tensor | None = None, fused: bool = False,
-                window: torch.Tensor | None = None) -> torch.Tensor:
+                window: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """x: NHWC.  mask_in/mask_out: optional (N, H, W, 1) valid-window
         indicators at the block's input/output resolution, se_count the
         per-image valid pixel count (N, 1, 1, 1) for a masked SE mean.
         fused: run the block through the MBConv kernel when ``fusable``;
-        ``window`` is the (N, 4) scalar form of the masks it takes."""
+        ``window`` is the (N, 4) scalar form of the masks it takes.
+        drop_rate, generator: the training-mode drop-connect and where it
+        draws."""
         a = self.args
         if fused and self.fusable():
             if window is not None:
@@ -250,8 +291,6 @@ class MBConvBlock(nn.Module):
                 has_expand=a.expand_ratio != 1,
                 has_skip=a.input_filters == a.output_filters,
             )
-        if self.training and drop_rate > 0.0:
-            raise NotImplementedError("drop-connect (training) is not ported yet")
         inputs = x
         h = _nchw(x)
         if a.expand_ratio != 1:
@@ -276,6 +315,8 @@ class MBConvBlock(nn.Module):
             h = h * _nchw(mask_out)
         out = _nhwc(h)
         if a.id_skip and a.stride == 1 and a.input_filters == a.output_filters:
+            if self.training and drop_rate > 0.0:
+                out = drop_connect(out, drop_rate, generator)
             out = out + inputs
         return out
 
@@ -297,13 +338,15 @@ class EfficientNet(nn.Module):
         self._bn0 = _bn(stem)
         self._blocks = nn.ModuleList(MBConvBlock(a) for a in self.block_args)
 
-    def forward(self, x: torch.Tensor, valid_window: torch.Tensor | None = None
-                ) -> list[torch.Tensor]:
+    def forward(self, x: torch.Tensor, valid_window: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> list[torch.Tensor]:
         """x: (N, H, W, 3).  valid_window: optional (N, 4) int
         (oy, ox, h, w) per-image windows inside the canvas, with (oy, ox)
         from placement_offset(); features are re-zeroed outside the
         per-stage window after every BN and SE pools over the window, which
-        makes the canvas forward equal the unpadded one."""
+        makes the canvas forward equal the unpadded one.  generator: where
+        training's drop-connect draws (``drop_connect_rate`` 0 turns it
+        off)."""
         lo, hi = _static_pad(3)
         h = F.pad(_nchw(x), (lo, hi, lo, hi))
         x = _nhwc(F.silu(self._bn0(self._conv_stem(h))))
@@ -324,6 +367,7 @@ class EfficientNet(nn.Module):
                 mask = window_mask(((x.shape[1] + 1) // 2, (x.shape[2] + 1) // 2), win, x.dtype)
                 count = (win[:, 2] * win[:, 3]).to(x.dtype)[:, None, None, None]
             x = block(x, drop_rate=rate, mask_in=mask_in, mask_out=mask, se_count=count,
-                      fused=args.input_filters <= self.fuse_max_in_filters, window=win)
+                      fused=args.input_filters <= self.fuse_max_in_filters, window=win,
+                      generator=generator)
             pyramid.append(x)
         return pyramid

@@ -73,6 +73,12 @@ class MuSCLe(nn.Module):
         # one mode load in the other
         self.fuse_dec = nn.Conv2d(bifpn_channels, num_classes, 1)
 
+    def trained_parameters(self) -> list[nn.Parameter]:
+        """The parameters the mode's network uses, those the JAX package's
+        model holds: all but ``fuse_dec`` in 'enc' mode."""
+        skip = "fuse_dec." if self.mode == "enc" else None
+        return [p for n, p in self.named_parameters() if skip is None or not n.startswith(skip)]
+
     def _cams(self, p7: torch.Tensor) -> torch.Tensor:
         """Per-class weighted sum of p7 channels by the detached classifier
         weights, rectified."""
@@ -107,11 +113,13 @@ class MuSCLe(nn.Module):
 
     def forward(self, x: torch.Tensor, mode: str = "cam",
                 valid_hw: torch.Tensor | None = None,
-                valid_window: torch.Tensor | None = None):
+                valid_window: torch.Tensor | None = None,
+                generator: torch.Generator | None = None):
         """x: (N, H, W, 3) normalised images.  valid_hw (enc modes): optional
         (N, 2) valid (h, w) inside a padded canvas, masking the GAP and the
         PCM normalisation.  valid_window: optional (N, 4) (oy, ox, h, w) for the
-        window-exact canvas mode; supersedes valid_hw."""
+        window-exact canvas mode; supersedes valid_hw.  generator: where the
+        backbone's training-mode drop-connect draws."""
         own = ENC_MODES if self.mode == "enc" else DEC_MODES
         if mode not in own:
             if mode in ENC_MODES + DEC_MODES:
@@ -119,7 +127,7 @@ class MuSCLe(nn.Module):
                                  f"{'dec' if self.mode == 'enc' else 'enc'!r}")
             raise ValueError(f"unknown mode {mode!r}")
         _, hh, ww, _ = x.shape
-        feats = self.backbone(x, valid_window=valid_window)
+        feats = self.backbone(x, valid_window=valid_window, generator=generator)
         if self.mode == "dec":
             return self._decode([feats[i] for i in self.p_seq[2:]], mode, hh, ww, valid_window)
         p1, _, p3, _, p5, _, p7 = (feats[i] for i in self.p_seq)

@@ -54,4 +54,6 @@ def load() -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_float, f32p,
     ]
     lib.muscle_dense_crf.restype = None
+    lib.muscle_exact_emd.argtypes = [f32p, f32p, f32p, ctypes.c_int, ctypes.c_int, f32p]
+    lib.muscle_exact_emd.restype = ctypes.c_float
     return lib

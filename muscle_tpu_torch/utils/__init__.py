@@ -1,0 +1,5 @@
+from muscle_tpu_torch.utils.logging import Logger, MetricLogger
+from muscle_tpu_torch.utils.timers import AverageMeter, Timer
+from muscle_tpu_torch.utils.train_vis import TrainVisualizer
+
+__all__ = ["AverageMeter", "Logger", "MetricLogger", "Timer", "TrainVisualizer"]

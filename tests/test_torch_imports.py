@@ -49,7 +49,11 @@ def test_importing_every_module_loads_no_jax(block_pil):
     mods = _modules()
     for m in ("inference.cam", "cli.infer_mcl", "inference.irn", "cli.infer_irn",
               "inference.seg", "cli.infer_seg", "cli.cam_to_label", "ops.crf",
-              "ops.exact_crf", "models.bifpn"):
+              "ops.exact_crf", "models.bifpn", "core.cam_norm", "core.ycbcr",
+              "data.loader", "data.voc12", "losses.classification", "losses.contrastive",
+              "losses.emd", "ops.exact_emd", "training.state", "training.schedule",
+              "training.liveness", "training.mcl", "utils.timers", "utils.logging",
+              "utils.tb_events", "utils.visualize", "utils.train_vis", "cli.train_mcl"):
         assert "muscle_tpu_torch." + m in mods
     code = "\n".join([
         "import sys, importlib",

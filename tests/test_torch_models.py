@@ -185,15 +185,18 @@ def test_init_weights_is_seeded():
 
 def test_fused_blocks_match_b1_eligibility():
     """fuse_mbconv gates exactly the stride-1 blocks whose input width is
-    within the limit (b1: every block but the stride-2 stage leads)."""
+    within the limit (b1: every block but the stride-2 stage leads), in
+    inference; with autograd on (the kernel has no backward) none."""
     from muscle_tpu_torch.models.efficientnet import efficientnet_config
 
     for name, n_stride1 in (("efficientnet-b1", 20), ("efficientnet-b3", 23)):
         blocks, _ = efficientnet_config(name, last_pooling=False)
         model = MuSCLe(backbone_name=name, last_pooling=False, fuse_mbconv=384).eval()
-        fusable = [b.fusable() and a.input_filters <= 384
-                   for a, b in zip(blocks, model.backbone._blocks)]
+        with torch.inference_mode():
+            fusable = [b.fusable() and a.input_filters <= 384
+                       for a, b in zip(blocks, model.backbone._blocks)]
         assert sum(fusable) == n_stride1
+        assert not any(b.fusable() for b in model.backbone._blocks)
 
 
 def test_fused_blocks_match_b7_dec_eligibility():
@@ -205,8 +208,9 @@ def test_fused_blocks_match_b7_dec_eligibility():
     blocks, _ = efficientnet_config("efficientnet-b7", last_pooling=True)
     model = MuSCLe(backbone_name="efficientnet-b7", mode="dec", last_pooling=True,
                    fuse_mbconv=384).eval()
-    fusable = [b.fusable() and a.input_filters <= model.backbone.fuse_max_in_filters
-               for a, b in zip(blocks, model.backbone._blocks)]
+    with torch.inference_mode():
+        fusable = [b.fusable() and a.input_filters <= model.backbone.fuse_max_in_filters
+                   for a, b in zip(blocks, model.backbone._blocks)]
     assert len(blocks) == 55 and sum(fusable) == 48
     assert max(a.input_filters for a, f in zip(blocks, fusable) if f) == 384
     assert sum(a.stride == 2 for a in blocks) == 4  # stages 2-4 and 6 lead with stride 2
