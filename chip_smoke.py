@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's CAM-generation, IRN-refinement,
-segmentation-inference and MCL-training paths on one CUDA card.
+segmentation-inference, MCL-training, segmentation-training and
+IRN-training paths on one CUDA card.
 
     python3 chip_smoke.py            # every phase, the full check
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,kernels,seg
     python3 chip_smoke.py --phases train_mcl
+    python3 chip_smoke.py --phases build,train_seg,train_irn
     python3 chip_smoke.py --phases build,profile   # where the device time goes
 
 Phases:
@@ -63,6 +65,29 @@ Phases:
            TF32 on, which must fail it); step A's device ms, wall ms and
            launches with the backbone's Flax-style BatchNorm2d and with
            plain torch.nn.BatchNorm2d;
+  train_seg
+           train MuSCLe-b7 dec (BiFPN 3 x 256, float32, TF32 off, seeded
+           random weights, the head calibrated, fuse_mbconv=384) at the
+           train_muscle default, batch 6, crop 448, k 128, step 7, on
+           numpy-made 4:2:0 batches with packed soft masks, labelled with
+           the classes the model's map covers most so BEACON engages: 2
+           warm-up and 5 timed steps (ms, images/s, peak memory; BEACON
+           nonzero on every timed step), the kernels' launches in the
+           steps (0) and in the epoch-end eval after them (one scale-1
+           SegTTAEngine batch of 4 images with the fused blocks: 48 MBConv
+           launches, probabilities within 1e-3 of the plain blocks'),
+           BEACON's own forward + backward ms, both terms' gradient norms,
+           and one step at b1 (BiFPN 1 x 64, crop 64, k 16) held to the
+           CPU with the same BEACON draws: loss terms, gradients, BN
+           statistics, BEACON's boundary counts equal and its sign flips
+           counted, and the same step with TF32 on, which must fail it;
+  train_irn
+           train IRNNet (ResNet-50 frozen, seeded random weights) at the
+           train_irn default, batch 8, crop 512, numpy-made 4:2:0 batches
+           with bit-packed affinity masks: 2 warm-up and 5 timed steps (ms,
+           images/s, peak memory), the kernels' launches (0), the backbone
+           unchanged, and one crop-64 step held to the CPU (loss terms,
+           head gradients), and with TF32 on, which must fail it;
   profile  (not run by default) device time by kernel name over --fast 0
            CAM batches, with and without the MBConv kernel, over IRN
            batches with the stencil kernel, and over one seg batch, and
@@ -79,6 +104,7 @@ when any phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -170,6 +196,23 @@ CHECK_BACKBONE, CHECK_BATCH, CHECK_CROP, CHECK_VIEW = "efficientnet-b1", 4, 64, 
 TRAIN_RTOL, TRAIN_ATOL, TRAIN_STAT_TOL = 1e-4, 1e-7, 1e-4
 GRAD_TOLS = {"step_a": (1e-4, 1e-5), "step_b": (1e-3, 1e-3)}  # (tolerance, zero share)
 LIVE_FLOOR = 1e-6  # a live term's gradient norm, relative to the largest term's
+# segmentation training (train_seg phase): the train_muscle defaults
+SEG_TRAIN_BACKBONE, SEG_TRAIN_BATCH, SEG_TRAIN_CROP = "efficientnet-b7", 6, 448
+SEG_TRAIN_K, SEG_TRAIN_STEP, SEG_TRAIN_LR, SEG_TRAIN_WD = 128, 7, 1e-5, 1e-5
+SEG_EVAL_LAUNCHES = 48  # fused b7 blocks in one scale-1 forward (orig + flip in one batch)
+# card vs CPU seg step: b1 dec, BiFPN 1 x 64, crop 64, batch 2, k 16
+# (tests/test_torch_train_seg.py's sizes and limits): loss terms 1e-4
+# relative, BN statistics 1e-5 or 1e-4 relative (the BiFPN's 1 x 1 p6/p7
+# maps take a variance over 2 values), gradients 1e-4 of each tensor's
+# largest with a floor of 1e-5 of the model's largest
+SEG_CHECK_BACKBONE, SEG_CHECK_BATCH, SEG_CHECK_CROP, SEG_CHECK_K = "efficientnet-b1", 2, 64, 16
+SEG_STAT_ATOL = 1e-5
+SEG_GRAD_TOLS = (1e-4, 1e-5)
+# IRN training (train_irn phase): the train_irn defaults; card vs CPU at crop
+# 64, head gradients 1e-4 of each tensor's largest (tests/test_torch_train_irn.py)
+IRN_TRAIN_BATCH, IRN_TRAIN_CROP, IRN_TRAIN_LR, IRN_TRAIN_WD = 8, 512, 0.1, 1e-4
+IRN_CHECK_BATCH, IRN_CHECK_CROP = 2, 64
+IRN_GRAD_TOLS = (1e-4, 1e-5)
 
 
 def log(msg: str) -> None:
@@ -1028,6 +1071,23 @@ def _seg_breakdown(engine, batch) -> None:
                       "engine_rest": total - model}), flush=True)
 
 
+def _ycbcr_planes(rng, n: int, side: int):
+    """n smooth random side x side RGB images (16-pixel blocks plus
+    noise) as the datasets' uint8 4:2:0 planes (y (n, side, side), c (n,
+    side/2, side/2, 2)), made with numpy: BT.601 full range, the chroma
+    box-subsampled."""
+    import numpy as np
+
+    lo = rng.uniform(0, 255, (n, side // 16, side // 16, 3))
+    rgb = np.kron(lo, np.ones((1, 16, 16, 1))) + rng.normal(0, 12, (n, side, side, 3))
+    rgb = np.clip(rgb, 0, 255)
+    y = 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+    cb = 128 - 0.168736 * rgb[..., 0] - 0.331264 * rgb[..., 1] + 0.5 * rgb[..., 2]
+    cr = 128 + 0.5 * rgb[..., 0] - 0.418688 * rgb[..., 1] - 0.081312 * rgb[..., 2]
+    c = np.stack([cb, cr], -1).reshape(n, side // 2, 2, side // 2, 2, 2).mean((2, 4))
+    return np.round(y).astype(np.uint8), np.round(c).astype(np.uint8)
+
+
 def _train_batch(n: int, crop: int, view: int, seed: int) -> dict:
     """A batch in the MCL dataset's default output (uint8 4:2:0 planes
     img/view1/view2, int32 overlaps coord1/coord2 of two view-sized crops
@@ -1039,21 +1099,9 @@ def _train_batch(n: int, crop: int, view: int, seed: int) -> dict:
     from muscle_tpu_torch.data.transforms import _intersection
 
     rng = np.random.default_rng(seed)
-
-    def planes(side):
-        lo = rng.uniform(0, 255, (n, side // 16, side // 16, 3))
-        rgb = np.kron(lo, np.ones((1, 16, 16, 1))) + rng.normal(0, 12, (n, side, side, 3))
-        rgb = np.clip(rgb, 0, 255)
-        # BT.601 full range, the dataset's 4:2:0 pack (BOX chroma subsample)
-        y = 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
-        cb = 128 - 0.168736 * rgb[..., 0] - 0.331264 * rgb[..., 1] + 0.5 * rgb[..., 2]
-        cr = 128 + 0.5 * rgb[..., 0] - 0.418688 * rgb[..., 1] - 0.081312 * rgb[..., 2]
-        c = np.stack([cb, cr], -1).reshape(n, side // 2, 2, side // 2, 2, 2).mean((2, 4))
-        return np.round(y).astype(np.uint8), np.round(c).astype(np.uint8)
-
     b = {}
     for key, side in (("img", crop), ("view1", view), ("view2", view)):
-        b[key + "_y"], b[key + "_c"] = planes(side)
+        b[key + "_y"], b[key + "_c"] = _ycbcr_planes(rng, n, side)
     coords = []
     while len(coords) < n:
         i1, j1, i2, j2 = (int(v) for v in rng.integers(0, 2 * view - view + 1, 4))
@@ -1116,6 +1164,18 @@ def _grad_err(card: dict, cpu: dict, tol: float, zero_share: float) -> tuple[flo
     return worst, name
 
 
+@contextlib.contextmanager
+def _tf32_restored():
+    """Context: the TF32 switches of cuDNN and of matmul restored after."""
+    import torch
+
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
 def _card_vs_cpu_readings(card: tuple, cpu: tuple) -> dict:
     """Loss, BN-statistic and gradient errors of one card run against the
     CPU's, with ``passed``."""
@@ -1154,8 +1214,7 @@ def _check_train_card_vs_cpu() -> dict:
     host = {k: v.cpu() for k, v in _live_labels(base, host).items()}
     frac = draw_crop_fractions(CHECK_BATCH, torch.Generator().manual_seed(1))
     runs = {}
-    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    try:
+    with _tf32_restored():
         for name, dev, tf32 in (("f32", "cuda", False), ("tf32", "cuda", True),
                                 ("cpu", "cpu", False)):
             torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -1170,8 +1229,6 @@ def _check_train_card_vs_cpu() -> dict:
                       mcl_views_step(model, opt, batch, cfg, crop_frac=frac.to(dev)).items()})
             grads["step_b"] = _grads(model)
             runs[name] = (m, stats, grads)
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
     f32 = _card_vs_cpu_readings(runs["f32"], runs["cpu"])
     control = _card_vs_cpu_readings(runs["tf32"], runs["cpu"])
     rec = {"train_mcl_card_vs_cpu": CHECK_BACKBONE, "batch": CHECK_BATCH, "crop": CHECK_CROP,
@@ -1331,9 +1388,438 @@ def phase_train_mcl(card: str) -> dict:
     return out
 
 
+def _profile_steps(tag: str, step) -> None:
+    """Device time by kernel name and the busy share of two training steps
+    ``step(0)``, ``step(1)`` (device activity only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for it in range(2):
+            step(it)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _profile_record(tag, 2, wall, _device_rows(prof), "mbconv_kernel_ms",
+                    ("expand_dw_kernel", "se_kernel", "project_kernel"), top=20)
+
+
+@contextlib.contextmanager
+def _bn_frozen_train(model):
+    """Context: ``batch_stats_train`` (train mode, BNs updating nothing)
+    with drop-connect off; restored after."""
+    from muscle_tpu_torch.training import batch_stats_train
+
+    rate = model.backbone.drop_connect_rate
+    model.backbone.drop_connect_rate = 0.0
+    try:
+        with batch_stats_train(model):
+            yield model
+    finally:
+        model.backbone.drop_connect_rate = rate
+
+
+def _seg_train_batch(model, n: int, crop: int, seed: int, calibrate: bool = False) -> dict:
+    """A batch in the seg dataset's default output (uint8 4:2:0 planes, a
+    packed uint8 soft mask with its channel ids, float32 labels), made with
+    numpy and the model on its device.  Labels: each image's two
+    foreground classes that the model's train-mode map covers most, so
+    BEACON finds their boundaries; the mask: the softmax of the map over
+    the background and those two classes (the classes meet where the map
+    changes class), x255-quantised.  calibrate: first rescale the head on
+    these images in train mode (``calibrate_seg_head``: a random BiFPN
+    labels every pixel one class)."""
+    import numpy as np
+    import torch
+
+    from muscle_tpu_torch.models import calibrate_seg_head
+    from muscle_tpu_torch.training import decode_image
+
+    dev = next(model.parameters()).device
+    rng = np.random.default_rng(seed)
+    y, c = _ycbcr_planes(rng, n, crop)
+    img = decode_image({"img_y": torch.from_numpy(y).to(dev),
+                        "img_c": torch.from_numpy(c).to(dev)}, "img")
+    with _bn_frozen_train(model), torch.no_grad():
+        if calibrate:
+            calibrate_seg_head(model, img)
+        seg = model(img, mode="seg")[0]
+    area = torch.nn.functional.one_hot(seg.argmax(-1), seg.shape[-1]).sum(dim=(1, 2))[:, 1:]
+    top = area.argsort(dim=1, descending=True, stable=True)[:, :2] + 1  # (n, 2) classes
+    ids = torch.cat([torch.zeros_like(top[:, :1]), top], dim=1)  # background first
+    probs = torch.softmax(torch.gather(seg, -1, ids[:, None, None, :].expand(-1, crop, crop, 3)),
+                          dim=-1)
+    label = torch.zeros((n, 20), device=dev)
+    label.scatter_(1, top - 1, 1.0)
+    return {"img_y": y, "img_c": c,
+            "mask": torch.round(probs * 255.0).to(torch.uint8).cpu().numpy(),
+            "mask_idx": ids.to(torch.int32).cpu().numpy(), "label": label.cpu().numpy()}
+
+
+def _seg_train_model(backbone: str, bifpn_layers: int, bifpn_channels: int, fuse: int,
+                     seed: int, device):
+    import torch
+
+    from muscle_tpu_torch.models import MuSCLe, init_weights
+
+    model = MuSCLe(backbone_name=backbone, mode="dec", bifpn_layers=bifpn_layers,
+                   bifpn_channels=bifpn_channels, last_pooling=True, fuse_mbconv=fuse)
+    return init_weights(model, torch.Generator().manual_seed(seed)).to(device)
+
+
+def _beacon_signs(model, batch: dict, cfg, draws):
+    """BEACON's (count, sign_mask, sign_sim) of each (image, class) pair on
+    a train-mode forward that updates nothing, both marginals stacked."""
+    import torch
+
+    from muscle_tpu_torch.core.cam_norm import attach_bg_channel
+    from muscle_tpu_torch.losses.beacon import FieldLossConfig, pair_signs, pair_similarities
+    from muscle_tpu_torch.training.seg import _dequant_batch
+
+    b = _dequant_batch(batch, cfg.num_classes)
+    with _bn_frozen_train(model), torch.no_grad():
+        seg_map, dense_ft = model(b["img"], mode="seg")
+        flc = FieldLossConfig(num_classes=seg_map.shape[-1], k=cfg.k, step=cfg.step,
+                              beta=cfg.beta)
+        sim, sim_mask, count, _ = pair_similarities(seg_map, dense_ft, b["mask"],
+                                                    attach_bg_channel(b["label"]), flc, draws)
+        signs = [pair_signs(sim, sim_mask, axis) for axis in (1, 0)]
+    return (count.cpu(), torch.stack([s[0] for s in signs]).cpu(),
+            torch.stack([s[1] for s in signs]).cpu())
+
+
+def _seg_card_vs_cpu_readings(card: tuple, cpu: tuple, k_samples: int) -> dict:
+    """Loss, BN-statistic and gradient errors of one seg card run against
+    the CPU's (each over its limit), BEACON's boundary counts and sign
+    flips, with ``passed``."""
+    import torch
+
+    (mc, sc, gc, (cc, smc, ssc)), (mh, sh, gh, (ch, smh, ssh)) = card, cpu
+    loss_err = max(abs(mc[k] - mh[k]) / (TRAIN_RTOL * abs(mh[k]) + TRAIN_ATOL) for k in mh)
+    stat_err = max(float(((sc[k] - sh[k]).abs() / (SEG_STAT_ATOL + TRAIN_RTOL * sh[k].abs()))
+                         .max()) for k in sh)
+    grad_err, grad_param = _grad_err(gc, gh, *SEG_GRAD_TOLS)
+    engaged = ch > k_samples
+    same_counts = bool(torch.equal(cc, ch))
+    return {"card": mc, "loss_err_over_tol": loss_err, "bn_stat_err_over_tol": stat_err,
+            "grad_err_over_tol": grad_err, "grad_worst_param": grad_param,
+            "engaged_pairs": int(engaged.sum()), "same_boundary_counts": same_counts,
+            "beacon_sign_flips": {"mask": int((smc != smh)[:, engaged].sum()),
+                                  "sim": int((ssc != ssh)[:, engaged].sum()),
+                                  "of": int(smh[:, engaged].numel())},
+            "passed": (loss_err <= 1.0 and stat_err <= 1.0 and grad_err <= 1.0
+                       and same_counts)}
+
+
+def _check_seg_train_card_vs_cpu() -> dict:
+    """One seg step at b1 dec (BiFPN 1 x 64, crop 64, batch 2, k 16, step
+    3, drop-connect off) on the card and on the CPU from the same weights,
+    batch and BEACON draws: loss terms, the gradient norm, every
+    parameter's clipped gradient, BN statistics; and BEACON's boundary
+    counts (the same on both devices) and sign decisions (flips counted).
+    The card runs twice: f32 (TF32 off), which must pass, and the control
+    with TF32 on, which must fail."""
+    import copy
+
+    import torch
+
+    from muscle_tpu_torch.training import SegConfig, make_adam, seg_train_step
+
+    cfg = SegConfig(k=SEG_CHECK_K, step=3)
+    base = _seg_train_model(SEG_CHECK_BACKBONE, 1, 64, 0, seed=1, device="cpu")
+    base.backbone.drop_connect_rate = 0.0
+    host = {k: torch.from_numpy(v) for k, v in
+            _seg_train_batch(base, SEG_CHECK_BATCH, SEG_CHECK_CROP, seed=1,
+                             calibrate=True).items()}
+    draws = torch.rand((SEG_CHECK_BATCH, 20, SEG_CHECK_CROP, SEG_CHECK_CROP),
+                       generator=torch.Generator().manual_seed(1))
+    runs = {}
+    with _tf32_restored():
+        for name, dev, tf32 in (("f32", "cuda", False), ("tf32", "cuda", True),
+                                ("cpu", "cpu", False)):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+            model = copy.deepcopy(base).to(dev)
+            batch = {k: v.to(dev) for k, v in host.items()}
+            signs = _beacon_signs(model, batch, cfg, draws.to(dev))
+            opt = make_adam(model.trained_parameters(), SEG_TRAIN_LR, SEG_TRAIN_WD)
+            m = {k: float(v) for k, v in
+                 seg_train_step(model, opt, batch, cfg, draws=draws.to(dev)).items()}
+            stats = {k: v.detach().cpu() for k, v in model.state_dict().items()
+                     if k.endswith("running_mean") or k.endswith("running_var")}
+            runs[name] = (m, stats, _grads(model), signs)
+    f32 = _seg_card_vs_cpu_readings(runs["f32"], runs["cpu"], cfg.k)
+    control = _seg_card_vs_cpu_readings(runs["tf32"], runs["cpu"], cfg.k)
+    rec = {"train_seg_card_vs_cpu": SEG_CHECK_BACKBONE, "batch": SEG_CHECK_BATCH,
+           "crop": SEG_CHECK_CROP, "k": cfg.k, "cpu": runs["cpu"][0], "f32": f32,
+           "tf32_control": control}
+    print(json.dumps(rec), flush=True)
+    if not (f32["passed"] and runs["cpu"][0]["loss_beacon"] != 0):
+        raise AssertionError(f"train_seg card vs CPU failed: {rec}")
+    if control["passed"]:
+        raise AssertionError("train_seg card vs CPU passed with TF32 on: the check is blind")
+    return rec
+
+
+def phase_train_seg(card: str) -> dict:
+    """Segmentation training at the train_muscle default: MuSCLe-b7 dec
+    (BiFPN 3 x 256, float32, TF32 off, seeded random weights, the head
+    calibrated), batch 6, crop 448, k 128, step 7, Adam, clip 9, 4:2:0 and
+    packed-mask upload; 2 warm-up and 5 timed steps.  The MBConv kernel's
+    launches in the steps (0: training runs the plain blocks) and in the
+    epoch-end eval that follows (one scale-1 SegTTAEngine batch of 4
+    images with the fused blocks, held to the plain blocks); BEACON's own
+    ms, every term's gradient norm, and one b1 step held to the CPU."""
+    import torch
+
+    from muscle_tpu_torch.core.cam_norm import attach_bg_channel
+    from muscle_tpu_torch.inference import SegTTAEngine
+    from muscle_tpu_torch.inference.upload import to_device
+    from muscle_tpu_torch.losses.beacon import FieldLossConfig, boundary_samples, field_loss
+    from muscle_tpu_torch.ops import banded_walk, mbconv, stencil_walk
+    from muscle_tpu_torch.training import SegConfig, make_adam, seg_term_grad_norms, seg_train_step
+    from muscle_tpu_torch.training.seg import _dequant_batch
+
+    def launches():
+        return {"mbconv_stride1": mbconv.mbconv_stride1.launches,
+                "stencil_walk": stencil_walk.stencil_walk.launches,
+                "banded_walk": banded_walk.banded_walk.launches}
+
+    dev = torch.device("cuda")
+    model = _seg_train_model(SEG_TRAIN_BACKBONE, 3, 256, 384, seed=0, device=dev)
+    hosts = [_seg_train_batch(model, SEG_TRAIN_BATCH, SEG_TRAIN_CROP, seed, calibrate=seed == 0)
+             for seed in range(2)]
+    opt = make_adam(model.trained_parameters(), SEG_TRAIN_LR, SEG_TRAIN_WD)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cfg = SegConfig(k=SEG_TRAIN_K, step=SEG_TRAIN_STEP)
+    out = {"train_seg": SEG_TRAIN_BACKBONE, "bifpn": "3 x 256", "batch": SEG_TRAIN_BATCH,
+           "crop": SEG_TRAIN_CROP, "k": cfg.k, "step": cfg.step, "card": card}
+    _zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks, beacon = [], []
+    for it in range(TRAIN_WARMUP + TRAIN_ITERS):
+        if it == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        batch = {k: to_device(v, dev) for k, v in hosts[it % 2].items()}
+        ev[0].record()
+        metrics = seg_train_step(model, opt, batch, cfg, gen)
+        ev[1].record()
+        if it >= TRAIN_WARMUP:
+            marks.append(ev)
+            beacon.append(metrics["loss_beacon"])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / TRAIN_ITERS
+    _profile_steps("train_seg (2 steps)", lambda it: seg_train_step(
+        model, opt, {k: to_device(v, dev) for k, v in hosts[it].items()}, cfg, gen))
+    out["step_launches"] = launches()
+    out.update(step_ms=sum(e[0].elapsed_time(e[1]) for e in marks) / TRAIN_ITERS,
+               iter_wall_ms=wall * 1e3, images_per_s=SEG_TRAIN_BATCH / wall,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               losses={k: float(v) for k, v in metrics.items()},
+               loss_beacon_timed=[float(b) for b in beacon])
+
+    # the epoch-end eval: scale 1, fused blocks, against the plain blocks
+    imgs, names = _seg_batches(1, seed=3)[0]
+    _zero_counts()
+    got = SegTTAEngine(model, scales=(1.0,), device=dev).run_batch(imgs, names)
+    out["launches"] = launches()
+    eval_launches = out["launches"]["mbconv_stride1"]
+    plain = _seg_train_model(SEG_TRAIN_BACKBONE, 3, 256, 0, seed=0, device=dev)
+    plain.load_state_dict(model.state_dict())
+    want = SegTTAEngine(plain, scales=(1.0,), device=dev).run_batch(imgs, names)
+    err = max(float(abs(g["probs"] - w["probs"]).max()) for g, w in zip(got, want))
+    out.update(eval_images=len(imgs), eval_launches=eval_launches, eval_probs_max_abs_err=err)
+    del plain
+    model.train()
+
+    # BEACON alone, forward and backward, on the last batch's maps
+    b = _dequant_batch(batch, cfg.num_classes)
+    label_bg = attach_bg_channel(b["label"])
+    flc = FieldLossConfig(k=cfg.k, step=cfg.step)
+    with _bn_frozen_train(model), torch.no_grad():
+        seg_map, dense_ft = model(b["img"], mode="seg")
+    leaf = dense_ft.detach().requires_grad_(True)
+    out["beacon_ms"] = time_ms(
+        lambda: field_loss(seg_map, leaf, b["mask"], label_bg, flc, gen)[0].backward(), reps=5)
+    draws = torch.rand(seg_map.shape[:1] + (20,) + seg_map.shape[1:3], device=dev,
+                       generator=gen)
+    out["beacon_engaged_pairs"] = int((boundary_samples(seg_map, label_bg, flc, draws)[3]
+                                       > cfg.k).sum())
+    del seg_map, dense_ft, leaf
+    norms = seg_term_grad_norms(model, batch, cfg, gen)
+    out["term_grad_norms"] = norms
+    print(json.dumps(out), flush=True)
+    if any(out["step_launches"].values()) or any(
+            v for k, v in out["launches"].items() if k != "mbconv_stride1"):
+        raise AssertionError(f"train_seg launched a kernel other than the eval's MBConv: {out}")
+    if eval_launches != SEG_EVAL_LAUNCHES or err > SEG_PROBS_TOL:
+        raise AssertionError(f"train_seg eval: {eval_launches} MBConv launches (want "
+                             f"{SEG_EVAL_LAUNCHES}), probs err {err} (tol {SEG_PROBS_TOL})")
+    if not all(v != 0 and v == v for v in out["loss_beacon_timed"]):
+        raise AssertionError(f"train_seg: BEACON not engaged on every timed step: {out}")
+    if sorted(norms) != ["beacon", "seg"] or not all(
+            v >= LIVE_FLOOR * max(norms.values()) and v > 0 for v in norms.values()):
+        raise AssertionError(f"train_seg: a loss term's gradient norm is dead: {norms}")
+    del model, opt, batch, b
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = _check_seg_train_card_vs_cpu()
+    return out
+
+
+def _irn_train_batch(n: int, crop: int, seed: int) -> dict:
+    """A batch in the IRN dataset's default output (uint8 4:2:0 planes and
+    bit-packed bg_pos/fg_pos/neg over the stride-4 pair grid), made with
+    numpy: each image's pseudo-label a background with two rectangles of
+    classes that may overlap and a void band (a canvas pad), its affinity
+    masks by ``affinity_labels_from_indices``."""
+    import numpy as np
+    import torch
+
+    from muscle_tpu_torch.core.bitpack import packbits_last
+    from muscle_tpu_torch.ops.affinity_labels import affinity_labels_from_indices
+    from muscle_tpu_torch.training.irn import IRNTrainConfig, _grid_path_index
+
+    rng = np.random.default_rng(seed)
+    y, c = _ycbcr_planes(rng, n, crop)
+    pi = _grid_path_index(IRNTrainConfig(crop_size=crop))
+    masks = {k: [] for k in ("bg_pos", "fg_pos", "neg")}
+    for _ in range(n):
+        lab = np.zeros((crop, crop), np.uint8)
+        for cls in rng.choice(np.arange(1, 21), 2, replace=False):
+            t, left = rng.integers(0, crop // 2, 2)
+            h, w = rng.integers(crop // 4, crop // 2, 2)
+            lab[t: t + h, left: left + w] = cls
+        lab[:, crop - int(rng.integers(1, crop // 4)):] = 255
+        small = torch.from_numpy(lab[2::4, 2::4].reshape(-1).astype(np.int64))
+        for k, m in zip(masks, affinity_labels_from_indices(small, pi)):
+            masks[k].append(packbits_last(m.numpy().astype(np.uint8)))
+    return {"img_y": y, "img_c": c, **{k: np.stack(v) for k, v in masks.items()}}
+
+
+def _check_irn_train_card_vs_cpu() -> dict:
+    """One IRN step at crop 64 (batch 2) on the card and on the CPU from the
+    same weights and batch: loss terms and every head parameter's
+    gradient; the backbone unchanged on each.  The card runs twice: f32
+    (TF32 off), which must pass, and the control with TF32 on, which must
+    fail."""
+    import copy
+
+    import torch
+
+    from muscle_tpu_torch.models import IRNNet, init_weights
+    from muscle_tpu_torch.training import IRNTrainConfig, irn_train_step, make_irn_sgd
+
+    base = init_weights(IRNNet(), torch.Generator().manual_seed(1))
+    host = {k: torch.from_numpy(v) for k, v in
+            _irn_train_batch(IRN_CHECK_BATCH, IRN_CHECK_CROP, seed=1).items()}
+    runs = {}
+    with _tf32_restored():
+        for name, dev, tf32 in (("f32", "cuda", False), ("tf32", "cuda", True),
+                                ("cpu", "cpu", False)):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+            model = copy.deepcopy(base).to(dev)
+            opt = make_irn_sgd(model, IRN_TRAIN_LR, IRN_TRAIN_WD)
+            m = irn_train_step(model, opt, {k: v.to(dev) for k, v in host.items()},
+                               IRNTrainConfig(crop_size=IRN_CHECK_CROP))
+            names = {id(p): n for n, p in model.named_parameters()}
+            grads = {names[id(p)]: p.grad.detach().cpu() for p in model.head_parameters()}
+            frozen = all(torch.equal(v.cpu(), base.state_dict()[k])
+                         for k, v in model.state_dict().items() if k.startswith("resnet50."))
+            runs[name] = ({k: float(v) for k, v in m.items()}, grads, frozen)
+
+    def readings(card, cpu):
+        (mc, gc, fc), (mh, gh, fh) = card, cpu
+        loss_err = max(abs(mc[k] - mh[k]) / (TRAIN_RTOL * abs(mh[k]) + TRAIN_ATOL) for k in mh)
+        grad_err, grad_param = _grad_err(gc, gh, *IRN_GRAD_TOLS)
+        return {"card": mc, "loss_err_over_tol": loss_err, "grad_err_over_tol": grad_err,
+                "grad_worst_param": grad_param, "backbone_unchanged": fc and fh,
+                "passed": loss_err <= 1.0 and grad_err <= 1.0 and fc and fh}
+
+    f32, control = readings(runs["f32"], runs["cpu"]), readings(runs["tf32"], runs["cpu"])
+    rec = {"train_irn_card_vs_cpu": "IRNNet", "crop": IRN_CHECK_CROP, "batch": IRN_CHECK_BATCH,
+           "cpu": runs["cpu"][0], "f32": f32, "tf32_control": control}
+    print(json.dumps(rec), flush=True)
+    if not f32["passed"]:
+        raise AssertionError(f"train_irn card vs CPU failed: {rec}")
+    if control["passed"]:
+        raise AssertionError("train_irn card vs CPU passed with TF32 on: the check is blind")
+    return rec
+
+
+def phase_train_irn(card: str) -> dict:
+    """IRN training at the train_irn default: IRNNet (ResNet-50 frozen,
+    float32, TF32 off, seeded random weights), batch 8, crop 512, 4:2:0
+    and bit-packed masks, SGD with momentum and a poly-decayed lr on the
+    heads; 2 warm-up and 5 timed steps, the kernels' launches (0), the
+    backbone unchanged, and one crop-64 step held to the CPU."""
+    import torch
+
+    from muscle_tpu_torch.inference.upload import to_device
+    from muscle_tpu_torch.models import IRNNet, init_weights
+    from muscle_tpu_torch.ops import banded_walk, mbconv, stencil_walk
+    from muscle_tpu_torch.training import (
+        IRNTrainConfig,
+        irn_train_step,
+        make_irn_sgd,
+        poly_schedule,
+        set_learning_rate,
+    )
+
+    dev = torch.device("cuda")
+    model = init_weights(IRNNet(), torch.Generator().manual_seed(0)).to(dev)
+    frozen = {k: v.clone() for k, v in model.state_dict().items() if k.startswith("resnet50.")}
+    opt = make_irn_sgd(model, IRN_TRAIN_LR, IRN_TRAIN_WD)
+    lr_at = poly_schedule(IRN_TRAIN_LR, TRAIN_WARMUP + TRAIN_ITERS, 0.9)
+    cfg = IRNTrainConfig(crop_size=IRN_TRAIN_CROP)
+    hosts = [_irn_train_batch(IRN_TRAIN_BATCH, IRN_TRAIN_CROP, seed) for seed in range(2)]
+    out = {"train_irn": "IRNNet (ResNet-50 frozen)", "batch": IRN_TRAIN_BATCH,
+           "crop": IRN_TRAIN_CROP, "card": card}
+    _zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+    for it in range(TRAIN_WARMUP + TRAIN_ITERS):
+        if it == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        set_learning_rate(opt, lr_at(it))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        batch = {k: to_device(v, dev) for k, v in hosts[it % 2].items()}
+        ev[0].record()
+        metrics = irn_train_step(model, opt, batch, cfg)
+        ev[1].record()
+        if it >= TRAIN_WARMUP:
+            marks.append(ev)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / TRAIN_ITERS
+    _profile_steps("train_irn (2 steps)", lambda it: irn_train_step(
+        model, opt, {k: to_device(v, dev) for k, v in hosts[it].items()}, cfg))
+    out["launches"] = {"mbconv_stride1": mbconv.mbconv_stride1.launches,
+                       "stencil_walk": stencil_walk.stencil_walk.launches,
+                       "banded_walk": banded_walk.banded_walk.launches}
+    vals = {k: float(v) for k, v in metrics.items()}
+    sd = model.state_dict()
+    out.update(step_ms=sum(e[0].elapsed_time(e[1]) for e in marks) / TRAIN_ITERS,
+               iter_wall_ms=wall * 1e3, images_per_s=IRN_TRAIN_BATCH / wall,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30, losses=vals,
+               backbone_unchanged=all(torch.equal(sd[k], v) for k, v in frozen.items()))
+    print(json.dumps(out), flush=True)
+    if any(out["launches"].values()):
+        raise AssertionError(f"train_irn launched kernels of the inference paths: {out}")
+    if not (out["backbone_unchanged"] and all(v == v and abs(v) < float("inf")
+                                              for v in vals.values())):
+        raise AssertionError(f"train_irn: backbone moved or losses not finite: {out}")
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = _check_irn_train_card_vs_cpu()
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="build,kernels,main,irn,seg,train_mcl")
+    p.add_argument("--phases", default="build,kernels,main,irn,seg,train_mcl,train_seg,train_irn")
     args = p.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -1363,6 +1849,8 @@ def main(argv=None) -> int:
     irn_out = phase_irn() if "irn" in phases else None
     seg_out = phase_seg() if "seg" in phases else None
     train_out = phase_train_mcl(card) if "train_mcl" in phases else None
+    seg_train_out = phase_train_seg(card) if "train_seg" in phases else None
+    irn_train_out = phase_train_irn(card) if "train_irn" in phases else None
     if "profile" in phases:
         phase_profile(4)
 
@@ -1380,8 +1868,14 @@ def main(argv=None) -> int:
                     **summaries[name]} for name in KERNEL_SOURCES]
         # the MBConv kernel also runs on the seg path: its launches there
         entries[0]["launches_seg"] = seg_out["fast0"]["launches"] if seg_out else None
-        for e in entries:  # none runs on the training path
+        for e in entries:  # none runs in a training step; the seg eval runs MBConv
             e["launches_train_mcl"] = train_out["launches"][e["name"]] if train_out else None
+            e["launches_train_seg"] = (seg_train_out["launches"][e["name"]]
+                                       if seg_train_out else None)
+            e["launches_train_seg_steps"] = (seg_train_out["step_launches"][e["name"]]
+                                             if seg_train_out else None)
+            e["launches_train_irn"] = (irn_train_out["launches"][e["name"]]
+                                       if irn_train_out else None)
         print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -212,3 +212,16 @@ def cutout(arr: np.ndarray, mask: np.ndarray, rng: np.random.Generator,
     arr[y0:y1, x0:x1] = 0
     mask[y0:y1, x0:x1] = 0
     return arr, mask
+
+
+def resize_soft_mask(mask: np.ndarray, target_hw: tuple[int, int]) -> np.ndarray:
+    """Bilinear resize of an (H, W, C) float soft mask, channel by channel
+    through PIL's float ('F') images."""
+    from PIL import Image
+
+    th, tw = target_hw
+    out = np.empty((th, tw, mask.shape[-1]), np.float32)
+    for c in range(mask.shape[-1]):
+        im = Image.fromarray(mask[..., c].astype(np.float32), mode="F")
+        out[..., c] = np.asarray(im.resize((tw, th), resample=Image.BILINEAR))
+    return out

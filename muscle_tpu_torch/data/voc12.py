@@ -1,5 +1,6 @@
-"""VOC2012 lists, labels and the MCL training dataset (port of the parts of
-``muscle_tpu/data/voc12.py`` that CAM generation and MCL training use).
+"""VOC2012 lists, labels and the training datasets (port of
+``muscle_tpu/data/voc12.py``): MCL (``VOC12ClsPixDataset``), IRN
+(``VOC12AffinityDataset``) and segmentation (``VOC12SegDataset``).
 
 Datasets yield fixed-shape numpy arrays, NHWC; all randomness flows through
 the numpy Generator the loader passes to ``get``, in the JAX package's
@@ -119,13 +120,9 @@ class VOC12ClsPixDataset(VOC12ImageDataset):
         self.crop_size = crop_size
         self.view_size = view_size
         self.device_norm = device_norm
-        if upload not in ("rgb", "ycbcr420"):
-            raise ValueError(f"upload must be 'rgb' or 'ycbcr420', got {upload!r}")
-        if upload == "ycbcr420" and not device_norm:
-            raise ValueError("upload='ycbcr420' requires device_norm=True")
-        if upload == "ycbcr420" and (crop_size % 2 or view_size[0] % 2 or view_size[1] % 2):
-            raise ValueError(f"upload='ycbcr420' needs even crop_size/view_size, got "
-                             f"{crop_size}/{view_size}")
+        _check_upload(upload, device_norm, crop_size)
+        if upload == "ycbcr420" and (view_size[0] % 2 or view_size[1] % 2):
+            raise ValueError(f"upload='ycbcr420' needs an even view_size, got {view_size}")
         self.upload = upload
 
     def get(self, idx: int, rng: np.random.Generator) -> dict[str, np.ndarray]:
@@ -170,4 +167,199 @@ class VOC12ClsPixDataset(VOC12ImageDataset):
 
             for k in ("img", "view1", "view2"):
                 out[k + "_y"], out[k + "_c"] = rgb_to_ycbcr420(out.pop(k))
+        return out
+
+
+def _check_upload(upload: str, device_norm: bool, crop_size: int) -> None:
+    if upload not in ("rgb", "ycbcr420"):
+        raise ValueError(f"upload must be 'rgb' or 'ycbcr420', got {upload!r}")
+    if upload == "ycbcr420" and not device_norm:
+        raise ValueError("upload='ycbcr420' requires device_norm=True")
+    if upload == "ycbcr420" and crop_size % 2:
+        raise ValueError(f"upload='ycbcr420' needs an even crop_size, got {crop_size}")
+
+
+class VOC12AffinityDataset(VOC12ImageDataset):
+    """IRN training set: a crop-padded image and the path-pair affinity
+    masks of its pseudo-label PNG on the stride-``stride`` grid.
+
+    ``get(idx, rng)`` -> img (crop, crop, 3) and bg_pos/fg_pos/neg (D, P)
+    over the PathIndex of radius ``radius`` on the (crop / stride)^2 grid.
+    device_norm: uint8 image (pad filled with ``IMAGENET_MEAN_U8``) and
+    uint8 0/1 masks, decoded on the device by ``irn_train_step``;
+    upload='ycbcr420': the image as img_y/img_c planes; pack_bits: the
+    masks 8 pairs a byte (``core/bitpack.py``, exact)."""
+
+    def __init__(self, name_list, voc12_root, labels, pseudo_label_root: str,
+                 crop_size: int = 512, stride: int = 4, radius: int = 5,
+                 min_scale: float = 0.5, max_scale: float = 1.5, device_norm: bool = False,
+                 upload: str = "rgb", pack_bits: bool = False):
+        super().__init__(name_list, voc12_root, labels)
+        self.pseudo_label_root = pseudo_label_root
+        self.crop_size = crop_size
+        self.stride = stride
+        self.radius = radius
+        self.min_scale = min_scale
+        self.max_scale = max_scale
+        self.device_norm = device_norm
+        if pack_bits and not device_norm:
+            raise ValueError("pack_bits requires device_norm=True")
+        _check_upload(upload, device_norm, crop_size)
+        self.upload = upload
+        self.pack_bits = bool(pack_bits)
+        from muscle_tpu_torch.ops.random_walk import PathIndex
+
+        g = crop_size // stride
+        self._pi = PathIndex(radius, (g, g))
+        if self.pack_bits and self._pi.src_indices.size % 8:
+            raise ValueError(f"pack_bits needs the pair-grid width P={self._pi.src_indices.size} "
+                             "divisible by 8: use pack_bits=False for this "
+                             "crop_size/stride/radius")
+
+    def get(self, idx: int, rng: np.random.Generator) -> dict[str, np.ndarray]:
+        from PIL import Image
+
+        name = self.name_list[idx]
+        img = self.image(idx)
+        lab = Image.open(os.path.join(self.pseudo_label_root, name + ".png"))
+
+        scale = float(rng.uniform(self.min_scale, self.max_scale))
+        tw, th = round(img.size[0] * scale), round(img.size[1] * scale)
+        img = img.resize((tw, th), resample=Image.BILINEAR)
+        lab = lab.resize((tw, th), resample=Image.NEAREST)
+
+        cs = self.crop_size
+        if self.device_norm:
+            arr = np.asarray(img)
+            canvas = np.full((cs, cs, 3), T.IMAGENET_MEAN_U8, np.uint8)
+        else:
+            arr = T.color_norm(np.asarray(img))
+            canvas = np.zeros((cs, cs, 3), np.float32)
+        lab_arr = np.asarray(lab)
+        lab_canvas = np.full((cs, cs), 255, np.uint8)  # pad = void
+        ch, cw = min(th, cs), min(tw, cs)
+        top = int(rng.integers(0, max(th - cs, 0) + 1))
+        left = int(rng.integers(0, max(tw - cs, 0) + 1))
+        canvas[:ch, :cw] = arr[top: top + ch, left: left + cw]
+        lab_canvas[:ch, :cw] = lab_arr[top: top + ch, left: left + cw]
+        if rng.random() < 0.5:
+            canvas = T.hflip(canvas)
+            lab_canvas = np.ascontiguousarray(lab_canvas[:, ::-1])
+
+        # nearest downsample to the stride grid
+        s = self.stride
+        bg_pos, fg_pos, neg = self._affinity_masks(lab_canvas[s // 2:: s, s // 2:: s])
+        if not self.device_norm:
+            return {"img": canvas, "bg_pos": bg_pos, "fg_pos": fg_pos, "neg": neg}
+        out = {"img": canvas, "bg_pos": bg_pos.astype(np.uint8),
+               "fg_pos": fg_pos.astype(np.uint8), "neg": neg.astype(np.uint8)}
+        if self.pack_bits:
+            from muscle_tpu_torch.core.bitpack import packbits_last
+
+            for k in ("bg_pos", "fg_pos", "neg"):
+                out[k] = packbits_last(out[k])
+        if self.upload == "ycbcr420":
+            from muscle_tpu_torch.core.ycbcr import rgb_to_ycbcr420
+
+            out["img_y"], out["img_c"] = rgb_to_ycbcr420(out.pop("img"))
+        return out
+
+    def _affinity_masks(self, small: np.ndarray):
+        import torch
+
+        from muscle_tpu_torch.ops.affinity_labels import affinity_labels_from_indices
+
+        flat = torch.from_numpy(small.reshape(-1).astype(np.int64))
+        return tuple(m.numpy() for m in affinity_labels_from_indices(flat, self._pi))
+
+
+class VOC12SegDataset(VOC12ImageDataset):
+    """Segmentation training set: an image and its soft pseudo mask
+    (``<mask_root>/<name>.npy``, (H, W, C) float) with joint augmentation
+    (jitter, scale 0.5-1.75, crop, flip).
+
+    ``get(idx, rng)`` -> img (crop, crop, 3), mask (crop, crop, C), label
+    (20,).  device_norm: uint8 image (pad ``IMAGENET_MEAN_U8``) and the
+    mask x255-quantised to uint8, decoded on the device by
+    ``seg_train_step``.  pack_mask: ship only the mask channels that can
+    be nonzero (the background and the image's classes: the walk's
+    pseudo-masks zero every other class) as (crop, crop, K) plus their
+    (K,) int32 channel ids ``mask_idx``, zero-padded, an exact
+    re-encoding; K > 0 a fixed budget that raises when a mask has more
+    nonzero channels, -1 K from the dataset's labels, 0 the dense mask.
+    upload='ycbcr420': the image as img_y/img_c planes."""
+
+    def __init__(self, name_list, voc12_root, labels, mask_root: str, min_scale: float = 0.5,
+                 max_scale: float = 1.75, crop_size: int = 448, device_norm: bool = False,
+                 pack_mask: int = 0, upload: str = "rgb"):
+        super().__init__(name_list, voc12_root, labels)
+        self.mask_root = mask_root
+        self.min_scale = min_scale
+        self.max_scale = max_scale
+        self.crop_size = crop_size
+        self.device_norm = device_norm
+        if pack_mask == -1:
+            pack_mask = 1 + max(1, max(int(self.label(i).sum()) for i in range(len(name_list))))
+        self.pack_mask = int(pack_mask)
+        _check_upload(upload, device_norm, crop_size)
+        self.upload = upload
+
+    def _pack_mask(self, mask: np.ndarray, name: str):
+        """(H, W, C) -> ((H, W, k <= K) active channels, (K,) int32 channel
+        ids, zero-padded).  Channel 0 is always kept, so a pad id 0
+        scatters zeros onto a channel that exists."""
+        k = self.pack_mask
+        nz = np.flatnonzero((mask != 0).any(axis=(0, 1)))
+        active = nz if (nz.size and nz[0] == 0) else np.concatenate(([0], nz))
+        if active.size > k:
+            raise ValueError(f"pack_mask={k} but {name} has {active.size} nonzero mask channels "
+                             f"{active.tolist()}: raise pack_mask or use pack_mask=0 (dense)")
+        idx = np.zeros(k, np.int32)
+        idx[: active.size] = active
+        return mask[..., active], idx
+
+    def get(self, idx: int, rng: np.random.Generator) -> dict[str, np.ndarray]:
+        from PIL import Image
+
+        name = self.name_list[idx]
+        img = self.image(idx)
+        mask = np.load(os.path.join(self.mask_root, name + ".npy"),
+                       allow_pickle=True).astype(np.float32)  # (H, W, C)
+        mask_idx = None
+        if self.pack_mask:
+            # before the geometric augmentation: the per-channel resize then
+            # runs on k channels (an all-zero channel stays zero, and no draw
+            # depends on the channel count)
+            mask, mask_idx = self._pack_mask(mask, name)
+
+        img = T.color_jitter(img, rng, 0.1, 0.1, 0.1, 0.05)
+        scale = float(rng.uniform(self.min_scale, self.max_scale))
+        w, h = img.size
+        tw, th = round(w * scale), round(h * scale)
+        img = img.resize((tw, th), resample=Image.BILINEAR)
+        mask = T.resize_soft_mask(mask, (th, tw))
+
+        if self.device_norm:
+            arr, mask = T.random_crop(np.asarray(img), self.crop_size, rng, extra=mask,
+                                      fill=T.IMAGENET_MEAN_U8)
+        else:
+            arr, mask = T.random_crop(T.color_norm(np.asarray(img)), self.crop_size, rng,
+                                      extra=mask)
+        if rng.random() < 0.5:
+            arr, mask = T.hflip(arr), T.hflip(mask)
+        if mask_idx is not None and mask.shape[-1] < self.pack_mask:
+            mask = np.pad(mask, ((0, 0), (0, 0), (0, self.pack_mask - mask.shape[-1])))
+        if self.device_norm:
+            out = {"img": arr.astype(np.uint8),
+                   "mask": np.round(np.clip(mask, 0.0, 1.0) * 255.0).astype(np.uint8),
+                   "label": self.label(idx)}
+            if self.upload == "ycbcr420":
+                from muscle_tpu_torch.core.ycbcr import rgb_to_ycbcr420
+
+                out["img_y"], out["img_c"] = rgb_to_ycbcr420(out.pop("img"))
+        else:
+            out = {"img": arr.astype(np.float32), "mask": mask.astype(np.float32),
+                   "label": self.label(idx)}
+        if mask_idx is not None:
+            out["mask_idx"] = mask_idx
         return out

@@ -2,9 +2,10 @@
 ``muscle_tpu/models/irn.py``).
 
 A frozen ResNet-50 feeds two heads: a class-boundary edge map and a
-2-channel displacement field.  ``EdgeDisplacement`` is the inference
-wrapper of the random-walk refinement: it pads the (orig, flip) pair to a
-fixed crop, runs the net once, and fuses ``sigmoid(e0/2 + flip(e1)/2)``.
+2-channel displacement field.  ``IRNNet`` is the raw two-head net that IRN
+training runs; ``EdgeDisplacement`` is its inference wrapper for the
+random-walk refinement: it pads the (orig, flip) pair to a fixed crop,
+runs the net once, and fuses ``sigmoid(e0/2 + flip(e1)/2)``.
 
 Keys follow the reference: ``resnet50.*``, ``fc_edge{1..5}.{0,1}``,
 ``fc_edge6.{weight,bias}``, ``fc_dp{1..6}.{0,1}``, ``fc_dp7.{0,1,3}``,
@@ -54,13 +55,13 @@ class _MeanShift(nn.Module):
         return x - self.running_mean[None, :, None, None]
 
 
-class EdgeDisplacement(nn.Module):
-    """ResNet-50 + IRN heads with the reference's inference wrapper."""
+class IRNNet(nn.Module):
+    """ResNet-50 + the edge and displacement heads, the net IRN training
+    runs: the backbone is frozen (run without autograd, as the JAX
+    package's ``stop_gradient``), the heads train."""
 
-    def __init__(self, crop_size: int = 512, stride: int = 4):
+    def __init__(self):
         super().__init__()
-        self.crop_size = crop_size
-        self.stride = stride
         self.resnet50 = ResNet50(strides=(2, 2, 2, 1))
         self.fc_edge1 = _ConvGN(64, 32, 4)
         self.fc_edge2 = _ConvGN(256, 32, 4)
@@ -78,6 +79,11 @@ class EdgeDisplacement(nn.Module):
                                     nn.GroupNorm(16, 256, eps=1e-5), nn.ReLU(),
                                     nn.Conv2d(256, 2, 1, bias=False))
         self.mean_shift = _MeanShift(2)
+
+    def head_parameters(self) -> list[nn.Parameter]:
+        """The parameters IRN training updates: every one but the
+        backbone's."""
+        return [p for n, p in self.named_parameters() if not n.startswith("resnet50.")]
 
     def _edge_logits(self, feats) -> torch.Tensor:
         x1, x2, x3, x4, x5 = feats
@@ -99,6 +105,25 @@ class EdgeDisplacement(nn.Module):
         d5 = self.fc_dp5(x5)[..., :h3, :w3]
         d_up3 = self.fc_dp6(torch.cat([d3, d4, d5], dim=1))[..., :d2.shape[2], :d2.shape[3]]
         return self.mean_shift(self.fc_dp7(torch.cat([d1, d2, d_up3], dim=1)))
+
+    def forward(self, x: torch.Tensor):
+        """x: (N, H, W, 3) NHWC normalised images.  Returns the raw
+        (edge logits (N, h, w, 1), displacement (N, h, w, 2)) at stride 4,
+        NHWC, without the inference wrapper's flip fusion."""
+        with torch.no_grad():
+            feats = self.resnet50(x.permute(0, 3, 1, 2).contiguous())
+        return (self._edge_logits(feats).permute(0, 2, 3, 1),
+                self._displacement(feats).permute(0, 2, 3, 1))
+
+
+class EdgeDisplacement(IRNNet):
+    """``IRNNet`` with the reference's inference wrapper; the two share
+    modules and state-dict keys, so trained ``IRNNet`` weights load here."""
+
+    def __init__(self, crop_size: int = 512, stride: int = 4):
+        super().__init__()
+        self.crop_size = crop_size
+        self.stride = stride
 
     def _run(self, x: torch.Tensor, valid_hw, crop_size, with_dp: bool):
         single = x.ndim == 4

@@ -71,6 +71,8 @@ class PathIndex:
             coords = sorted(_path_cells(dy, dx), key=lambda c: -abs(c[0]) - abs(c[1]))  # far to near
             paths_by_len.setdefault(len(coords), []).append(coords)
         self.search_paths = [np.asarray(v) for _, v in sorted(paths_by_len.items()) if v]
+        # (D, 2) offset (dy, dx) of each direction, in the pairs' order
+        self.search_dst = np.concatenate([p[:, 0] for p in self.search_paths], axis=0)
 
         h, w = self.size
         full = np.arange(h * w, dtype=np.int64).reshape(h, w)

@@ -32,7 +32,7 @@ from muscle_tpu_torch.losses import (
     soft_margin_loss,
 )
 from muscle_tpu_torch.training.liveness import term_liveness
-from muscle_tpu_torch.training.state import minimize
+from muscle_tpu_torch.training.state import batch_stats_train, minimize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,8 +160,6 @@ def mcl_term_grad_norms(model, batch: dict, generator: torch.Generator | None = 
     step B runs in eval mode; on an uncalibrated model (identity running
     statistics) eval-mode BN flattens the maxnormed maps and PixPro/EMD
     show zero gradients that say nothing about the graph."""
-    was_training = model.training
-    bns = [m for m in model.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
     names = {id(p): n for n, p in model.named_parameters()}
     params = {names[id(p)]: p for p in model.trained_parameters()}
     imgs = {k: decode_image(batch, k) for k in ("img", "view1", "view2")
@@ -181,9 +179,7 @@ def mcl_term_grad_norms(model, batch: dict, generator: torch.Generator | None = 
     if cfg.use_pixpro and "view1" in imgs:
         makers.append((terms_b, ["pixpro"] + ["emd"] * cfg.use_emd))
     norms: dict[str, float] = {}
-    try:
-        for m in bns:  # train-mode forwards normalise by batch, update nothing
-            m.track_running_stats = False
+    with batch_stats_train(model):  # the makers set each term's mode
         for maker, keys in makers:
             keys = sorted(keys)
 
@@ -193,8 +189,4 @@ def mcl_term_grad_norms(model, batch: dict, generator: torch.Generator | None = 
 
             _, vals = term_liveness(stacked, len(keys), params, method)
             norms.update({k: float(v) for k, v in zip(keys, vals)})
-    finally:
-        for m in bns:
-            m.track_running_stats = True
-        model.train(was_training)
     return norms

@@ -13,6 +13,7 @@ The JAX package's ``.msgpack``/Orbax formats are not written.
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -27,23 +28,47 @@ def make_adam(params, lr: float, weight_decay: float) -> torch.optim.Adam:
                             weight_decay=weight_decay)
 
 
+@contextlib.contextmanager
+def batch_stats_train(model: torch.nn.Module):
+    """The model in train mode with its batch norms normalising by the
+    batch and updating nothing (no running statistics, no count); the mode
+    and the norms' settings are restored after."""
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    was, tracked = model.training, [m.track_running_stats for m in bns]
+    model.train()
+    try:
+        for m in bns:
+            m.track_running_stats = False
+        yield model
+    finally:
+        for m, t in zip(bns, tracked):
+            m.track_running_stats = t
+        model.train(was)
+
+
 def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
     for group in opt.param_groups:
         group["lr"] = lr
 
 
-def minimize(opt: torch.optim.Optimizer, loss: torch.Tensor) -> None:
+def minimize(opt: torch.optim.Optimizer, loss: torch.Tensor,
+             clip_norm: float | None = None) -> torch.Tensor | None:
     """One optimizer step on ``loss``.  A parameter the loss does not reach
     gets a zero gradient rather than none: optax updates every parameter
     (decay and moments included) at every step, torch.optim skips those
-    without a gradient."""
+    without a gradient.  clip_norm: first scale every gradient by
+    min(1, clip_norm / (g + 1e-6)), g their global norm, and return g."""
     opt.zero_grad(set_to_none=True)
     loss.backward()
-    for group in opt.param_groups:
-        for p in group["params"]:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+    params = [p for group in opt.param_groups for p in group["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    gnorm = None
+    if clip_norm is not None:
+        gnorm = torch.nn.utils.clip_grad_norm_(params, clip_norm)
     opt.step()
+    return gnorm
 
 
 def save_checkpoint(ckpt_dir: str, model: torch.nn.Module, opt: torch.optim.Optimizer,

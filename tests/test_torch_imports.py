@@ -53,7 +53,10 @@ def test_importing_every_module_loads_no_jax(block_pil):
               "data.loader", "data.voc12", "losses.classification", "losses.contrastive",
               "losses.emd", "ops.exact_emd", "training.state", "training.schedule",
               "training.liveness", "training.mcl", "utils.timers", "utils.logging",
-              "utils.tb_events", "utils.visualize", "utils.train_vis", "cli.train_mcl"):
+              "utils.tb_events", "utils.visualize", "utils.train_vis", "cli.train_mcl",
+              "core.sobel", "core.bitpack", "losses.beacon", "losses.edge_support",
+              "data.transforms", "training.seg", "training.irn", "ops.affinity_labels",
+              "ops.random_walk", "models.irn", "cli.train_muscle", "cli.train_irn"):
         assert "muscle_tpu_torch." + m in mods
     code = "\n".join([
         "import sys, importlib",
