@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's CAM-generation, IRN-refinement,
-segmentation-inference, MCL-training, segmentation-training and
-IRN-training paths on one CUDA card.
+segmentation-inference (in float32 and in bfloat16), MCL-training,
+segmentation-training and IRN-training paths on one CUDA card.
 
     python3 chip_smoke.py            # every phase, the full check
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,kernels,seg
+    python3 chip_smoke.py --phases build,bf16
     python3 chip_smoke.py --phases train_mcl
     python3 chip_smoke.py --phases build,train_seg,train_irn
-    python3 chip_smoke.py --phases build,profile   # where the device time goes
+    python3 chip_smoke.py --phases build,profile        # where the device time goes
+    python3 chip_smoke.py --phases build,bf16,profile   # the same for the bf16 paths
 
 Phases:
   build    compile every CUDA kernel of the paths from the checkout
@@ -28,7 +30,11 @@ Phases:
            torch.matmul steps (its library yardstick); both walks at the
            edges of their tilings (ragged grids, one row, one class, more
            classes than a chunk, band >= V), each repeating itself bit for
-           bit;
+           bit; then the MBConv kernel's bf16 instantiation at the same b3
+           and b7 shapes, windowed, against its bf16 plain version (max
+           |diff| <= 2^-7 of the plain output's largest value), repeating
+           itself bit for bit, its bound with bf16 products and bytes, and
+           the f32 kernel's ms at the same shape beside it;
   main     run CamTTAEngine over synthetic VOC-shaped images at scales
            0.5/1/1.5/2 with MuSCLe-b3 (fuse_mbconv=384, float32, seeded
            random weights), count the kernel launches, and hold the
@@ -49,6 +55,23 @@ Phases:
            with the plain blocks; counts the launches, compares, and times
            the mean-field CRF (t = 4) on the card and checks the native
            CRF against it on one image;
+  bf16     the bf16 serving paths, each beside f32 in the same run: the CAM
+           engine at the JAX bench's CamBench configuration (b3 enc,
+           compute_dtype bf16, lowres, 4 classes, stride-4 grid, uint8
+           download, tight 4:2:0 upload) over 4 batches of 8 images, with
+           the kernel and with the plain blocks (scores within 1e-2; each
+           SGC map's mean within 5e-3 away from the zeroing, or within
+           twice the map's own bf16-vs-f32 distance), and against the f32
+           engine (SGC, printed); the seg engine at SegBench's (b7 dec,
+           BiFPN 3 x 256, bf16, stride-4 grid, tight 4:2:0 upload, labels,
+           six scales x flip) over 2 batches of 4, kernel vs plain blocks:
+           labels agree on >= 99% of each image's pixels whose f32 top-two
+           probability margin exceeds 1e-2, or disagree on at most twice
+           what the plain bf16 blocks disagree with f32 there; 288 bf16
+           MBConv launches per batch; the IRN refiner with its edge model in bf16
+           and the stencil walk in f32 over 2 batches of 8, labels within
+           99% of the f32 refiner's; and the count of bf16 (and tf32)
+           HGMMA instructions in the built MBConv library (cuobjdump);
   train_mcl
            train MuSCLe-b3 enc (float32, TF32 off, seeded random weights,
            plain blocks) at the train_mcl default, batch 16, crop 448,
@@ -91,7 +114,9 @@ Phases:
   profile  (not run by default) device time by kernel name over --fast 0
            CAM batches, with and without the MBConv kernel, over IRN
            batches with the stencil kernel, and over one seg batch, and
-           the device's busy share of the wall time.
+           the device's busy share of the wall time; with the bf16 phase
+           chosen too, over the bf16 paths at their bench configurations
+           instead.
 
 Prints the card's name and power limit (first, and again before the
 summary), one JSON line per kernel shape, a {"kernels": [...]} summary
@@ -141,6 +166,11 @@ VOC_HW = (375, 500)
 TTA_BATCH = 16  # 8 images x (orig, flip)
 SEG_BATCH = 8  # 4 images x (orig, flip)
 KERNEL_TOL = 1e-4  # f32 kernel vs f32 plain: summation order only
+# bf16 kernel vs bf16 plain, relative to the plain output's largest value:
+# y rounded once in both (one ulp 2^-8 of its power of two), the f32 sums
+# in another order, and the kernel keeps each depthwise product exact where
+# the plain version (as the Pallas kernel) rounds it
+BF16_REL = 2.0 ** -7
 SCORE_TOL, SGC_TOL = 1e-4, 5e-3  # the JAX package's engine bounds
 KERNEL_REPS = 10  # timed launches per kernel shape, after one warm-up
 MAIN_BATCHES = 4  # timed TTA batches of 8 images per engine
@@ -166,6 +196,8 @@ BANDED_EDGES = ((2, 5, 700, 40, 8), (1, 4, 300, 400, 6), (1, 1, 500, 30, 8), (2,
 # kernel -> (source under muscle_tpu_torch/csrc, the TPU kernel's pallas_call)
 KERNEL_SOURCES = {
     "mbconv_stride1": ("mbconv.cu", "muscle_tpu/ops/pallas/mbconv.py:299"),
+    # the same pallas_call at compute_dtype=bf16, as its own kernel here
+    "mbconv_bf16": ("mbconv.cu", "muscle_tpu/ops/pallas/mbconv.py:299"),
     "stencil_walk": ("stencil_walk.cu", "muscle_tpu/ops/pallas/stencil_walk.py:102"),
     "banded_walk": ("banded_walk.cu", "muscle_tpu/ops/pallas/banded_walk.py:109"),
 }
@@ -179,6 +211,24 @@ SEG_LABEL_AGREE = 0.999  # labels: kernel and plain blocks, near-ties of random 
 CRF_AGREE = 0.9  # native vs mean-field CRF labels, two-region image: the JAX package's bound
 LABEL_AGREE = 0.999  # labels: kernel and plain walk, argmax ties only
 IRN_SCORE_TOL = 1e-3  # f16 scores, kernel and plain walk
+# bf16 serving (bf16 phase): timed batches of each path (CAM batches of 8,
+# seg batches of 4, IRN batches of 8).  The CAM kernel vs the plain blocks,
+# both bf16: scores max |diff|; each fused SGC map's mean |diff| away from
+# the zeroing discontinuity within the larger of BF16_SGC_TOL and
+# BF16_SGC_REL times the map's own bf16 sensitivity (the plain bf16 map's
+# distance from the f32 one).  A random net's SGC maps are nearly flat
+# (the PCM averages the CAM over near-uniform affinities) and the min-max
+# normalisation divides by their small range: f32 noise of ~1e-7 already
+# moves them by up to 5e-3 (the main phase), bf16's ~4e-3 by tenths.  The
+# bf16 CAM vs the f32 one (both with the kernel): SGC mean |diff|,
+# printed.  Seg labels, kernel vs plain blocks at bf16, on the pixels whose
+# f32 top-two probability margin exceeds BF16_MARGIN: agreeing on
+# BF16_LABEL_AGREE of them, or disagreeing on at most BF16_SGC_REL times
+# what the plain bf16 blocks disagree with f32 there, whichever allows
+# more.  IRN labels, bf16 vs f32 edge model, on every pixel
+BF16_BATCHES = {"cam": 4, "seg": 2, "irn": 2}
+BF16_SCORE_TOL, BF16_SGC_TOL, BF16_SGC_REL = 1e-2, 5e-3, 2.0
+BF16_MARGIN, BF16_LABEL_AGREE = 1e-2, 0.99
 # MCL training (train_mcl phase): the JAX CLI's defaults
 TRAIN_BACKBONE, TRAIN_BATCH, TRAIN_CROP, TRAIN_VIEW = "efficientnet-b3", 16, 448, 224
 TRAIN_WARMUP, TRAIN_ITERS = 2, 5
@@ -224,8 +274,20 @@ def _zero_counts() -> None:
     from muscle_tpu_torch.ops import banded_walk, mbconv, stencil_walk
 
     mbconv.mbconv_stride1.launches = 0
+    mbconv.mbconv_stride1.launches_bf16 = 0
     stencil_walk.stencil_walk.launches = 0
     banded_walk.banded_walk.launches = 0
+
+
+def _launch_counts() -> dict:
+    """Every kernel's launch count, by the names of the kernels line (the
+    MBConv wrapper counts its bf16 launches apart)."""
+    from muscle_tpu_torch.ops import banded_walk, mbconv, stencil_walk
+
+    return {"mbconv_stride1": mbconv.mbconv_stride1.launches,
+            "mbconv_bf16": mbconv.mbconv_stride1.launches_bf16,
+            "stencil_walk": stencil_walk.stencil_walk.launches,
+            "banded_walk": banded_walk.banded_walk.launches}
 
 
 def time_ms(fn, reps: int) -> float:
@@ -293,7 +355,7 @@ def _check_mbconv(blocks: dict, batch: int, scales, canvas) -> dict:
     gen = torch.Generator().manual_seed(0)
     xgen = torch.Generator(device=dev).manual_seed(0)
     total = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0, "product_flops": 0,
-             "depthwise_flops": 0, "max_abs_err": 0.0}
+             "depthwise_flops": 0, "max_abs_err": 0.0, "shape_ms": {}}
     for name, (stride, cin, cout, expand, k) in blocks.items():
         block = _random_block(cin, cout, expand, k, gen, dev)
         wd = block.fused_weights()
@@ -330,6 +392,7 @@ def _check_mbconv(blocks: dict, batch: int, scales, canvas) -> dict:
                     raise AssertionError(f"{name} scale {scale} windowed={windowed}: "
                                          f"max_abs_err {err} > {KERNEL_TOL}")
                 if windowed:
+                    total["shape_ms"][(name, scale)] = ms
                     total["ms"] += ms
                     total["plain_ms"] += plain_ms
                     total["bytes"] += work[0]
@@ -337,6 +400,73 @@ def _check_mbconv(blocks: dict, batch: int, scales, canvas) -> dict:
                     total["product_flops"] += split[0]
                     total["depthwise_flops"] += split[1]
                 total["max_abs_err"] = max(total["max_abs_err"], err)
+            del x
+        del block, wd
+        torch.cuda.empty_cache()
+    return total
+
+
+def _check_mbconv_bf16(blocks: dict, batch: int, scales, canvas, f32_ms: dict) -> dict:
+    """The MBConv kernel's bf16 instantiation at ``blocks``' shapes,
+    windowed, held to the bf16 plain version (max |diff| <= BF16_REL of the
+    plain output's largest value) and to itself (a repeat bit for bit),
+    with the f32 kernel's ms at the same shape from ``f32_ms`` beside it;
+    returns the sums over the calls."""
+    import torch
+
+    from muscle_tpu_torch.ops import mbconv as M
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(0)
+    xgen = torch.Generator(device=dev).manual_seed(0)
+    total = {"ms": 0.0, "plain_ms": 0.0, "f32_ms": 0.0, "bytes": 0, "product_flops": 0,
+             "depthwise_flops": 0, "max_abs_err": 0.0, "max_rel_err": 0.0}
+    for name, (stride, cin, cout, expand, k) in blocks.items():
+        block = _random_block(cin, cout, expand, k, gen, dev)
+        wd = block.fused_weights(bf16)
+        cmid, csq = cin * expand, wd["w_se_r"].shape[1]
+        kw = dict(k=k, has_expand=expand != 1, has_skip=cin == cout)
+        for scale in scales:
+            ch, cw = canvas(scale)
+            h, w = ch // stride, cw // stride
+            x = torch.randn((batch, h, w, cin), generator=xgen, device=dev).to(bf16)
+            win = _windows(stride, scale, dev, batch)
+            before = M.mbconv_stride1.launches_bf16
+            with torch.inference_mode():
+                got = M.mbconv_stride1(x, wd, win, **kw)
+                again = M.mbconv_stride1(x, wd, win, **kw)
+                want = M.mbconv_stride1_plain(x, wd, win, **kw)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                scale_max = float(want.float().abs().max())
+                same = bool(torch.equal(got, again))
+                ok = got.dtype == bf16 and tuple(got.shape) == tuple(want.shape)
+                del got, again, want
+                ms = time_ms(lambda: M.mbconv_stride1(x, wd, win, **kw), KERNEL_REPS)
+                plain_ms = time_ms(lambda: M.mbconv_stride1_plain(x, wd, win, **kw),
+                                   KERNEL_REPS)
+            launches = M.mbconv_stride1.launches_bf16 - before
+            nbytes, _ = M.block_work(batch, h, w, cin, cmid, csq, cout, k, expand != 1, bf16)
+            split = M.block_flops(batch, h, w, cin, cmid, cout, k, expand != 1)
+            bound, by = M.bound_tc_ms(nbytes, *split, bf16)
+            rec = {"kernel": "mbconv_bf16", "block": name, "scale": scale, "windowed": True,
+                   "B": batch, "H": h, "W": w, "Cin": cin, "Cmid": cmid, "Cout": cout, "k": k,
+                   "max_abs_err": err, "plain_max_abs": scale_max,
+                   "tol": BF16_REL * scale_max, "repeats_bitwise": same, "ms": ms,
+                   "plain_ms": plain_ms, "f32_ms": f32_ms.get((name, scale)),
+                   "bound_ms": bound, "bound_by": by, "launches": launches}
+            print(json.dumps(rec), flush=True)
+            if not (ok and same and err <= BF16_REL * scale_max):
+                raise AssertionError(f"bf16 {name} scale {scale}: max_abs_err {err} > "
+                                     f"{BF16_REL} * {scale_max}, repeats bit for bit: {same}")
+            total["ms"] += ms
+            total["plain_ms"] += plain_ms
+            total["f32_ms"] += f32_ms.get((name, scale), float("nan"))
+            total["bytes"] += nbytes
+            total["product_flops"] += split[0]
+            total["depthwise_flops"] += split[1]
+            total["max_abs_err"] = max(total["max_abs_err"], err)
+            total["max_rel_err"] = max(total["max_rel_err"], err / scale_max)
             del x
         del block, wd
         torch.cuda.empty_cache()
@@ -509,6 +639,8 @@ def _check_edges() -> None:
 def phase_kernels() -> dict:
     """Every kernel against its plain version; returns the summaries the
     {"kernels": ...} line reports, at the main paths' shapes."""
+    import torch
+
     from muscle_tpu_torch.data.tta import bucket_side
     from muscle_tpu_torch.inference.cam import _batch_canvas
     from muscle_tpu_torch.ops.mbconv import bound_ms, bound_tc_ms
@@ -519,12 +651,27 @@ def phase_kernels() -> dict:
         return {"max_abs_err": mb["max_abs_err"], "ms": mb["ms"], "plain_ms": mb["plain_ms"],
                 "bound_ms": bound, "bound_by": by, "bound_tc_ms": bound_tc}
 
-    b3 = summary(_check_mbconv(B3_BLOCKS, TTA_BATCH, (1.0, 2.0),
-                               lambda s: _batch_canvas(s, [VOC_HW] * 8, 500)))
-    b7 = summary(_check_mbconv(B7_BLOCKS, SEG_BATCH, (1.0, 1.75),
-                               lambda s: (bucket_side(s), bucket_side(s))))
-    print(json.dumps({"mbconv_b3_cam_windowed_total": b3, "mbconv_b7_seg_windowed_total": b7}),
-          flush=True)
+    def summary_bf16(mb: dict) -> dict:
+        # the bound with each operation at its type's peak: bf16 products on
+        # the tensor cores, the f32 depthwise on the f32 pipes
+        bound, by = bound_tc_ms(mb["bytes"], mb["product_flops"], mb["depthwise_flops"],
+                                torch.bfloat16)
+        return {"max_abs_err": mb["max_abs_err"], "max_rel_err": mb["max_rel_err"],
+                "ms": mb["ms"], "plain_ms": mb["plain_ms"], "f32_kernel_ms": mb["f32_ms"],
+                "bound_ms": bound, "bound_by": by}
+
+    b3_canvas = lambda s: _batch_canvas(s, [VOC_HW] * 8, 500)  # noqa: E731
+    b7_canvas = lambda s: (bucket_side(s), bucket_side(s))  # noqa: E731
+    b3_raw = _check_mbconv(B3_BLOCKS, TTA_BATCH, (1.0, 2.0), b3_canvas)
+    b7_raw = _check_mbconv(B7_BLOCKS, SEG_BATCH, (1.0, 1.75), b7_canvas)
+    b3, b7 = summary(b3_raw), summary(b7_raw)
+    b3_16 = summary_bf16(_check_mbconv_bf16(B3_BLOCKS, TTA_BATCH, (1.0, 2.0), b3_canvas,
+                                            b3_raw["shape_ms"]))
+    b7_16 = summary_bf16(_check_mbconv_bf16(B7_BLOCKS, SEG_BATCH, (1.0, 1.75), b7_canvas,
+                                            b7_raw["shape_ms"]))
+    print(json.dumps({"mbconv_b3_cam_windowed_total": b3, "mbconv_b7_seg_windowed_total": b7,
+                      "mbconv_bf16_b3_cam_windowed_total": b3_16,
+                      "mbconv_bf16_b7_seg_windowed_total": b7_16}), flush=True)
     stencil = _check_stencil()[STENCIL_GRIDS[0]]
     banded = _check_banded()[BANDED_CASES[-1][0]]
     _check_edges()
@@ -532,6 +679,9 @@ def phase_kernels() -> dict:
     return {
         "mbconv_stride1": {**b3, "max_abs_err": max(b3["max_abs_err"], b7["max_abs_err"]),
                            "library_ms": None, "b7_seg": b7},
+        "mbconv_bf16": {**b3_16, "max_abs_err": max(b3_16["max_abs_err"], b7_16["max_abs_err"]),
+                        "max_rel_err": max(b3_16["max_rel_err"], b7_16["max_rel_err"]),
+                        "library_ms": None, "b7_seg": b7_16},
         "stencil_walk": {k: stencil[k] for k in keys},
         "banded_walk": {k: banded[k] for k in keys},
     }
@@ -957,6 +1107,204 @@ def phase_seg(n_batches: int = SEG_BATCHES) -> dict:
     return out
 
 
+def _sass_counts() -> dict:
+    """Tensor-core (HGMMA) instructions of the built MBConv library by
+    operand type: bf16 for the bf16 kernel, tf32 for the f32 one."""
+    import shutil
+
+    from muscle_tpu_torch.ops import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(build.library_path("mbconv"))],
+                          capture_output=True, text=True, check=True).stdout
+    hgmma = [line for line in sass.splitlines() if "HGMMA" in line]
+    return {"hgmma_bf16": sum("BF16" in line for line in hgmma),
+            "hgmma_tf32": sum("TF32" in line for line in hgmma)}
+
+
+def _fused_mean_errs(got, want, key: str = "sgc") -> tuple[list, float]:
+    """(per-map mean |got - want| away from the fusion's zeroing, largest
+    share of a map's pixels whose zeroing flipped) over the records' fused
+    maps (``_map_err`` says why the zeroed pixels are set apart)."""
+    import numpy as np
+
+    errs, flips = [], 0.0
+    for g, w in zip(got, want):
+        assert g["name"] == w["name"] and sorted(g[key]) == sorted(w[key])
+        for c in w[key]:
+            a, b = g[key][c].astype(np.float32), w[key][c].astype(np.float32)
+            zg, zw = a == a.min(), b == b.min()
+            keep = ~(zg | zw)
+            errs.append(float(np.abs(a[keep] - b[keep]).mean()) if keep.any() else 0.0)
+            flips = max(flips, float((zg != zw).mean()))
+    return errs, flips
+
+
+def _bf16_cam(n_batches: int) -> dict:
+    """The JAX bench's CAM configuration (CamBench: b3 enc, bf16, lowres, 4
+    classes, stride-4 grid, uint8 download, tight 4:2:0 upload) with the
+    MBConv kernel and with the plain blocks, and the same engine at f32."""
+    import numpy as np
+    import torch
+
+    from muscle_tpu_torch.inference import CamTTAEngine
+    from muscle_tpu_torch.models import MuSCLe, init_weights
+
+    models = {fuse: init_weights(MuSCLe(backbone_name="efficientnet-b3", mode="enc",
+                                        last_pooling=False, fuse_mbconv=fuse),
+                                 torch.Generator().manual_seed(0)) for fuse in (384, 0)}
+    cfg = dict(scales=(0.5, 1.0, 1.5, 2.0), return_cam=False, max_classes=4, accum_stride=4,
+               download_dtype="uint8", tight_upload=True, upload_mode="ycbcr420", device="cuda")
+    engines = {"bf16": CamTTAEngine(models[384], compute_dtype=torch.bfloat16, **cfg),
+               "bf16_plain": CamTTAEngine(models[0], compute_dtype=torch.bfloat16, **cfg),
+               "f32": CamTTAEngine(models[384], **cfg)}
+    warm, batches = _images(2, seed=1), _images(n_batches, seed=2)
+    for e in engines.values():
+        _run(e, warm)
+    _zero_counts()
+    got, bf16_s = _run(engines["bf16"], batches)
+    launches = _launch_counts()
+    want = 23 * len(cfg["scales"]) * n_batches
+    if launches["mbconv_bf16"] != want or launches["mbconv_stride1"]:
+        raise AssertionError(f"bf16 CAM: launches {launches}, want {want} bf16 ones "
+                             "(23 per forward, 4 forwards per batch) and no f32 ones")
+    plain, _ = _run(engines["bf16_plain"], batches)
+    f32, f32_s = _run(engines["f32"], batches)
+    _check_contract(got, batches)
+    score_err = max(float(np.abs(g["score"] - w["score"]).max()) for g, w in zip(got, plain))
+    errs, flips = _fused_mean_errs(got, plain)
+    own, _ = _fused_mean_errs(plain, f32)  # each map's own bf16 sensitivity
+    vs_f32, vs_f32_flips = _fused_mean_errs(got, f32)
+    tols = [max(BF16_SGC_TOL, BF16_SGC_REL * o) for o in own]
+    n_img = 8 * n_batches
+    rec = {"bf16": "cam, CamBench config", "images": n_img,
+           "launches_bf16": launches["mbconv_bf16"], "bf16_images_per_s": n_img / bf16_s,
+           "f32_images_per_s": n_img / f32_s,
+           "kernel_vs_plain_score_max_abs_err": score_err,
+           "kernel_vs_plain_sgc_mean_abs_err_max": max(errs),
+           "kernel_vs_plain_sgc_mean_abs_err_median": float(np.median(errs)),
+           "sgc_maps": len(errs),
+           "sgc_maps_within_abs_tol": sum(e <= BF16_SGC_TOL for e in errs),
+           "kernel_vs_plain_over_own_bf16_max": max(e / max(o, 1e-12) for e, o in zip(errs, own)),
+           "kernel_vs_plain_zeroing_flips": flips,
+           "plain_bf16_vs_f32_sgc_mean_abs_err_max": max(own),
+           "plain_bf16_vs_f32_sgc_mean_abs_err_median": float(np.median(own)),
+           "bf16_vs_f32_sgc_mean_abs_err_max": max(vs_f32),
+           "bf16_vs_f32_sgc_mean_abs_err_median": float(np.median(vs_f32)),
+           "bf16_vs_f32_zeroing_flips": vs_f32_flips}
+    print(json.dumps(rec), flush=True)
+    if not (score_err <= BF16_SCORE_TOL and all(e <= t for e, t in zip(errs, tols))):
+        raise AssertionError(f"bf16 CAM out of bounds: {rec}")
+    return rec
+
+
+def _bf16_seg(n_batches: int) -> dict:
+    """The JAX bench's seg configuration (SegBench: b7 dec, BiFPN 3 x 256,
+    bf16, stride-4 grid, tight 4:2:0 upload, labels) with the MBConv kernel
+    and with the plain blocks, the same at f32, and f32 probabilities for
+    the top-two margin."""
+    import numpy as np
+    import torch
+
+    from muscle_tpu_torch.inference import SegTTAEngine
+
+    fused = _seg_model(384)
+    plain = _seg_model(0)
+    plain.load_state_dict(fused.state_dict())
+    cfg = dict(scales=SEG_SCALES, accum_stride=4, download_dtype="float16", tight_upload=True,
+               upload_mode="ycbcr420", device="cuda")
+    bf16 = torch.bfloat16
+    engines = {"bf16": SegTTAEngine(fused, compute_dtype=bf16, output="labels", **cfg),
+               "bf16_plain": SegTTAEngine(plain, compute_dtype=bf16, output="labels", **cfg),
+               "f32": SegTTAEngine(fused, output="labels", **cfg)}
+    warm, batches = _seg_batches(1, seed=1), _seg_batches(n_batches, seed=2)
+    for e in engines.values():
+        _seg_run(e, warm)
+    _zero_counts()
+    got, bf16_s = _seg_run(engines["bf16"], batches)
+    launches = _launch_counts()
+    if launches["mbconv_bf16"] != SEG_LAUNCHES * n_batches or launches["mbconv_stride1"]:
+        raise AssertionError(f"bf16 seg: launches {launches}, want {SEG_LAUNCHES * n_batches} "
+                             "bf16 ones (48 per forward, 6 per batch) and no f32 ones")
+    plain_out, _ = _seg_run(engines["bf16_plain"], batches)
+    f32, f32_s = _seg_run(engines["f32"], batches)
+    probs, _ = _seg_run(SegTTAEngine(fused, **cfg), batches)
+    flat = [img for imgs, _ in batches for img in imgs]
+    agree, own, vs_f32, clear_share, classes = [], [], [], 1.0, set()
+    for g, w, f, p, img in zip(got, plain_out, f32, probs, flat):
+        assert g["label"].shape == img.shape[:2] and g["label"].dtype == np.uint8
+        top2 = np.sort(p["probs"].astype(np.float32), axis=-1)[..., -2:]
+        clear = (top2[..., 1] - top2[..., 0]) > BF16_MARGIN
+        agree.append(float((g["label"] == w["label"])[clear].mean()))
+        own.append(float((w["label"] == f["label"])[clear].mean()))
+        vs_f32.append(float((g["label"] == f["label"])[clear].mean()))
+        clear_share = min(clear_share, float(clear.mean()))
+        classes |= set(np.unique(g["label"]).tolist())
+    # each image: kernel vs plain blocks disagree on at most the larger of
+    # 1 - BF16_LABEL_AGREE and BF16_SGC_REL times the plain bf16 blocks'
+    # own disagreement with f32
+    floors = [1 - max(1 - BF16_LABEL_AGREE, BF16_SGC_REL * (1 - o)) for o in own]
+    n_img = SEG_PER_BATCH * n_batches
+    rec = {"bf16": "seg, SegBench config", "images": n_img,
+           "launches_bf16": launches["mbconv_bf16"],
+           "launches_bf16_per_batch": launches["mbconv_bf16"] / n_batches,
+           "bf16_images_per_s": n_img / bf16_s, "f32_images_per_s": n_img / f32_s,
+           "kernel_vs_plain_labels_agreement": agree,
+           "plain_bf16_vs_f32_labels_agreement": own,
+           "bf16_vs_f32_labels_agreement": vs_f32, "margin_share_min": clear_share,
+           "classes_seen": len(classes)}
+    print(json.dumps(rec), flush=True)
+    if not (all(a >= fl for a, fl in zip(agree, floors)) and len(classes) > 1):
+        raise AssertionError(f"bf16 seg out of bounds: {rec}")
+    return rec
+
+
+def _bf16_irn(n_batches: int) -> dict:
+    """RandomWalkRefiner at crop 512, fast IO, labels: the edge model in
+    bf16 and the stencil walk in f32, beside the f32 refiner."""
+    import torch
+
+    from muscle_tpu_torch.inference import RandomWalkRefiner
+
+    model = _irn_model()
+    batches, warm = _irn_batches(n_batches, seed=4), _irn_batches(1, seed=5)
+    kw = dict(crop_size=512, fast_io=True, output="labels", device="cuda")
+    r16 = RandomWalkRefiner(model, compute_dtype=torch.bfloat16, **kw)
+    r32 = RandomWalkRefiner(model, **kw)
+    for r in (r16, r32):
+        _refine(r, warm)
+    _zero_counts()
+    got, s16 = _refine(r16, batches)
+    launches = _launch_counts()
+    if launches["stencil_walk"] != n_batches:
+        raise AssertionError(f"bf16 irn: {launches}, want {n_batches} stencil launches")
+    want, s32 = _refine(r32, batches)
+    agree = _labels_agreement(got, want, batches)
+    n_img = 8 * n_batches
+    rec = {"bf16": "irn, fast labels, crop 512", "images": n_img,
+           "stencil_launches": launches["stencil_walk"],
+           "bf16_ms_per_image": s16 * 1e3 / n_img, "f32_ms_per_image": s32 * 1e3 / n_img,
+           "bf16_vs_f32_labels_agreement_min": agree}
+    print(json.dumps(rec), flush=True)
+    if not agree >= BF16_LABEL_AGREE:
+        raise AssertionError(f"bf16 irn: labels agree with f32 on {agree} < {BF16_LABEL_AGREE}")
+    return rec
+
+
+def phase_bf16(n_batches: int = BF16_BATCHES) -> dict:
+    """The bf16 serving paths: the CAM and seg engines at the JAX bench's
+    bf16 configurations and the IRN refiner with its edge model in bf16,
+    each beside f32 in the same run; and the bf16 tensor-core instructions
+    in the built MBConv library."""
+    out = {"cam": _bf16_cam(n_batches["cam"]), "seg": _bf16_seg(n_batches["seg"]),
+           "irn": _bf16_irn(n_batches["irn"])}
+    out["sass"] = _sass_counts()
+    print(json.dumps({"bf16_sass": out["sass"]}), flush=True)
+    if not out["sass"]["hgmma_bf16"] > 0:
+        raise AssertionError(f"no bf16 HGMMA in the MBConv library: {out['sass']}")
+    return out
+
+
 def _device_rows(prof):
     """(ms, calls, name) of the device-side events of a profile (kernels,
     copies; no double count with host ops), largest first."""
@@ -982,63 +1330,76 @@ def _profile_record(tag, n_batches, wall, rows, ours_name, ours_keys, top: int =
     }), flush=True)
 
 
-def phase_profile(n_batches: int) -> None:
+def phase_profile(n_batches: int, bf16: bool = False) -> None:
     """Where the device time goes: one torch.profiler window over
-    ``n_batches`` --fast 0 CAM batches per engine (kernel and plain
-    blocks), one over ``n_batches`` IRN batches of 8 (stencil kernel), and
-    one over a --fast 0 seg batch of 4 (MBConv kernel); device time summed
-    by kernel name."""
+    ``n_batches`` CAM batches per engine (kernel and plain blocks), one
+    over ``n_batches`` IRN batches of 8 (stencil kernel), and one over a
+    seg batch of 4 (MBConv kernel); device time summed by kernel name.
+    f32: the --fast 0 CAM and seg configurations; with ``bf16`` (the bf16
+    phase chosen too) the bf16 paths at the JAX bench's configurations
+    instead, and the IRN edge model in bf16."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from muscle_tpu_torch.inference import CamTTAEngine
     from muscle_tpu_torch.models import MuSCLe, init_weights
 
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    tag = "bf16 CamBench" if bf16 else "fast0"
+    cam_cfg = dict(max_classes=4, accum_stride=4, download_dtype="uint8", tight_upload=True,
+                   upload_mode="ycbcr420") if bf16 else {}
+    mbconv_keys = ("expand_dw_kernel", "se_kernel", "project_kernel")
     batches = _images(n_batches, seed=3)
     for fuse in (384, 0):
         m = init_weights(MuSCLe(backbone_name="efficientnet-b3", mode="enc",
                                 last_pooling=False, fuse_mbconv=fuse),
                          torch.Generator().manual_seed(0))
-        engine = CamTTAEngine(m, return_cam=False, device="cuda")
+        engine = CamTTAEngine(m, return_cam=False, compute_dtype=dtype, device="cuda", **cam_cfg)
         _run(engine, _images(1, seed=1))
         # device activity only: tracing host ops would slow the dispatch
         # and understate the busy share
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _, wall = _run(engine, batches)
-        _profile_record(f"fast0 fuse_mbconv={fuse}", n_batches, wall, _device_rows(prof),
-                        "mbconv_kernel_ms", ("expand_dw_kernel", "se_kernel", "project_kernel"))
+        _profile_record(f"{tag} fuse_mbconv={fuse}", n_batches, wall, _device_rows(prof),
+                        "mbconv_kernel_ms", mbconv_keys)
 
     from muscle_tpu_torch.inference import RandomWalkRefiner
 
     refiner = RandomWalkRefiner(_irn_model(), crop_size=512, fast_io=True, output="labels",
-                                device="cuda")
+                                compute_dtype=dtype, device="cuda")
     _refine(refiner, _irn_batches(1, seed=5))
     irn_batches = _irn_batches(n_batches, seed=6)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall = _refine(refiner, irn_batches)
-    _profile_record("irn fast labels, stencil kernel", n_batches, wall, _device_rows(prof),
-                    "stencil_kernel_ms", ("stencil_step",))
+    _profile_record(f"irn fast labels, stencil kernel, edge model {dtype}", n_batches, wall,
+                    _device_rows(prof), "stencil_kernel_ms", ("stencil_step",))
 
     from muscle_tpu_torch.inference import SegTTAEngine
 
-    engine = SegTTAEngine(_seg_model(384), scales=SEG_SCALES, upload_mode="rgb",
-                          tight_upload=False, device="cuda")
+    seg_cfg = (dict(accum_stride=4, tight_upload=True, upload_mode="ycbcr420", output="labels")
+               if bf16 else dict(upload_mode="rgb", tight_upload=False))
+    engine = SegTTAEngine(_seg_model(384), scales=SEG_SCALES, compute_dtype=dtype,
+                          device="cuda", **seg_cfg)
     _seg_run(engine, _seg_batches(1, seed=1))
     batch = _seg_batches(1, seed=3)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall = _seg_run(engine, batch)
-    _profile_record("seg fast0 b7, MBConv kernel", 1, wall, _device_rows(prof),
-                    "mbconv_kernel_ms", ("expand_dw_kernel", "se_kernel", "project_kernel"),
-                    top=30)
+    _profile_record(f"seg {'bf16 SegBench' if bf16 else 'fast0'} b7, MBConv kernel", 1, wall,
+                    _device_rows(prof), "mbconv_kernel_ms", mbconv_keys, top=30)
+    if bf16:  # the breakdown reads the RGB canvas of the upload
+        engine = SegTTAEngine(engine.model, scales=SEG_SCALES, compute_dtype=dtype,
+                              upload_mode="rgb", tight_upload=False, device="cuda")
+        _seg_run(engine, _seg_batches(1, seed=1))
     _seg_breakdown(engine, batch[0])
 
 
 def _seg_breakdown(engine, batch) -> None:
     """Device ms of one seg batch by stage, each stage profiled on its own:
     the whole device pipeline, the backbone alone and the model (backbone,
-    BiFPN and head) at each scale's (orig, flip) canvas; the rest of the
-    pipeline is the upload unpack, the bicubic scaling, the logits'
-    upsample, softmax and accumulation."""
+    BiFPN and head) at each scale's (orig, flip) canvas, in the engine's
+    compute dtype; the rest of the pipeline is the upload unpack, the
+    bicubic scaling, the logits' upsample, softmax and accumulation.  The
+    engine uploads RGB."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1063,10 +1424,12 @@ def _seg_breakdown(engine, batch) -> None:
             canvas = _batch_canvas(s, sizes_np, engine.max_side, n_strided=N_STRIDED_DEC)
             scaled, off, pairs = scaled_pairs(images, sizes, s, canvas, engine._mean,
                                               engine._std, N_STRIDED_DEC)
+            pairs = pairs.to(engine.compute_dtype)
             win = torch.cat([off, scaled], -1).repeat_interleave(2, dim=0)
             backbone += device_ms(lambda: engine.model.backbone(pairs, valid_window=win))
             model += device_ms(lambda: engine.model(pairs, mode="seg_lowres", valid_window=win))
-    print(json.dumps({"seg_breakdown": "fast0, one batch of 4, device ms",
+    print(json.dumps({"seg_breakdown": f"{engine.compute_dtype}, RGB upload, one batch of 4, "
+                                        "device ms",
                       "pipeline": total, "backbone": backbone, "bifpn_and_head": model - backbone,
                       "engine_rest": total - model}), flush=True)
 
@@ -1293,7 +1656,6 @@ def phase_train_mcl(card: str) -> dict:
     import torch
 
     from muscle_tpu_torch.inference.upload import to_device
-    from muscle_tpu_torch.ops import banded_walk, mbconv, stencil_walk
     from muscle_tpu_torch.training import (
         MCLConfig,
         make_adam,
@@ -1359,9 +1721,7 @@ def phase_train_mcl(card: str) -> dict:
     _profile_record("train_mcl epoch12 (step A + step B)", 2, wall, _device_rows(prof),
                     "mbconv_kernel_ms", ("expand_dw_kernel", "se_kernel", "project_kernel"),
                     top=25)
-    out["launches"] = {"mbconv_stride1": mbconv.mbconv_stride1.launches,
-                       "stencil_walk": stencil_walk.stencil_walk.launches,
-                       "banded_walk": banded_walk.banded_walk.launches}
+    out["launches"] = _launch_counts()
     if any(out["launches"].values()):
         raise AssertionError(f"train_mcl launched kernels of the inference paths: "
                              f"{out['launches']}")
@@ -1575,15 +1935,10 @@ def phase_train_seg(card: str) -> dict:
     from muscle_tpu_torch.inference import SegTTAEngine
     from muscle_tpu_torch.inference.upload import to_device
     from muscle_tpu_torch.losses.beacon import FieldLossConfig, boundary_samples, field_loss
-    from muscle_tpu_torch.ops import banded_walk, mbconv, stencil_walk
     from muscle_tpu_torch.training import SegConfig, make_adam, seg_term_grad_norms, seg_train_step
     from muscle_tpu_torch.training.seg import _dequant_batch
 
-    def launches():
-        return {"mbconv_stride1": mbconv.mbconv_stride1.launches,
-                "stencil_walk": stencil_walk.stencil_walk.launches,
-                "banded_walk": banded_walk.banded_walk.launches}
-
+    launches = _launch_counts
     dev = torch.device("cuda")
     model = _seg_train_model(SEG_TRAIN_BACKBONE, 3, 256, 384, seed=0, device=dev)
     hosts = [_seg_train_batch(model, SEG_TRAIN_BATCH, SEG_TRAIN_CROP, seed, calibrate=seed == 0)
@@ -1758,7 +2113,6 @@ def phase_train_irn(card: str) -> dict:
 
     from muscle_tpu_torch.inference.upload import to_device
     from muscle_tpu_torch.models import IRNNet, init_weights
-    from muscle_tpu_torch.ops import banded_walk, mbconv, stencil_walk
     from muscle_tpu_torch.training import (
         IRNTrainConfig,
         irn_train_step,
@@ -1796,9 +2150,7 @@ def phase_train_irn(card: str) -> dict:
     wall = (time.perf_counter() - t0) / TRAIN_ITERS
     _profile_steps("train_irn (2 steps)", lambda it: irn_train_step(
         model, opt, {k: to_device(v, dev) for k, v in hosts[it].items()}, cfg))
-    out["launches"] = {"mbconv_stride1": mbconv.mbconv_stride1.launches,
-                       "stencil_walk": stencil_walk.stencil_walk.launches,
-                       "banded_walk": banded_walk.banded_walk.launches}
+    out["launches"] = _launch_counts()
     vals = {k: float(v) for k, v in metrics.items()}
     sd = model.state_dict()
     out.update(step_ms=sum(e[0].elapsed_time(e[1]) for e in marks) / TRAIN_ITERS,
@@ -1819,7 +2171,8 @@ def phase_train_irn(card: str) -> dict:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--phases", default="build,kernels,main,irn,seg,train_mcl,train_seg,train_irn")
+    p.add_argument("--phases",
+                   default="build,kernels,main,irn,seg,bf16,train_mcl,train_seg,train_irn")
     args = p.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -1842,23 +2195,31 @@ def main(argv=None) -> int:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    if "build" in phases:
-        phase_build()
-    summaries = phase_kernels() if "kernels" in phases else None
-    main_out = phase_main() if "main" in phases else None
-    irn_out = phase_irn() if "irn" in phases else None
-    seg_out = phase_seg() if "seg" in phases else None
-    train_out = phase_train_mcl(card) if "train_mcl" in phases else None
-    seg_train_out = phase_train_seg(card) if "train_seg" in phases else None
-    irn_train_out = phase_train_irn(card) if "train_irn" in phases else None
-    if "profile" in phases:
-        phase_profile(4)
+    def run(name, fn, *a):
+        if name not in phases:
+            return None
+        t0 = time.perf_counter()
+        result = fn(*a)
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        return result
+
+    run("build", phase_build)
+    summaries = run("kernels", phase_kernels)
+    main_out = run("main", phase_main)
+    irn_out = run("irn", phase_irn)
+    seg_out = run("seg", phase_seg)
+    bf16_out = run("bf16", phase_bf16)
+    train_out = run("train_mcl", phase_train_mcl, card)
+    seg_train_out = run("train_seg", phase_train_seg, card)
+    irn_train_out = run("train_irn", phase_train_irn, card)
+    run("profile", phase_profile, 4, "bf16" in phases)
 
     print(card, flush=True)  # again beside the results, for readers of the output's tail
     if summaries is not None:
         # null, not 0, where the phase that drives the kernel's path did not run
         launches = {
             "mbconv_stride1": main_out["fast0"]["launches"] if main_out else None,
+            "mbconv_bf16": bf16_out["cam"]["launches_bf16"] if bf16_out else None,
             "stencil_walk": irn_out["stencil_launches"] if irn_out else None,
             "banded_walk": irn_out["banded_launches"] if irn_out else None,
         }
@@ -1868,6 +2229,7 @@ def main(argv=None) -> int:
                     **summaries[name]} for name in KERNEL_SOURCES]
         # the MBConv kernel also runs on the seg path: its launches there
         entries[0]["launches_seg"] = seg_out["fast0"]["launches"] if seg_out else None
+        entries[1]["launches_seg"] = bf16_out["seg"]["launches_bf16"] if bf16_out else None
         for e in entries:  # none runs in a training step; the seg eval runs MBConv
             e["launches_train_mcl"] = train_out["launches"][e["name"]] if train_out else None
             e["launches_train_seg"] = (seg_train_out["launches"][e["name"]]

@@ -53,7 +53,8 @@ def main(argv=None) -> None:
     p.add_argument("--walk_method", default="stencil",
                    choices=["stencil", "vector", "banded", "power"], type=str)
     p.add_argument("--batch_size", default=8, type=int)
-    p.add_argument("--bf16", default=0, type=int, help="not supported yet: 0 only")
+    p.add_argument("--bf16", default=0, type=int,
+                   help="1 = run the edge model in bfloat16 (the walk stays float32)")
     p.add_argument("--fast", default=1, type=int,
                    help="1 = fast IO (ycbcr420 image upload, K-channel f16 CAMs at the walk "
                         "grid, uint8 labels or grid-res f16 scores down); 0 = full-res f32 "
@@ -61,9 +62,8 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda", type=str, help="cuda or cpu")
     add_voc_args(p)
     args = p.parse_args(argv)
-    if args.bf16:
-        raise NotImplementedError("--bf16 1: bf16 edge-model compute is not ported yet")
 
+    import torch
     from PIL import Image
 
     from muscle_tpu_torch.inference.irn import RandomWalkRefiner
@@ -74,6 +74,7 @@ def main(argv=None) -> None:
     refiner = RandomWalkRefiner(
         model, beta=args.beta, exp_times=args.exp_times, bg_threshold=args.sem_seg_bg_thres,
         walk_method=args.walk_method, fast_io=bool(args.fast), device=args.device,
+        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
         # PNG-only output needs no soft scores: the reference tail (upsample,
         # /max, bg threshold, argmax) runs on the device, one uint8 map down
         output="scores" if (args.soft_output or not args.fast) else "labels",

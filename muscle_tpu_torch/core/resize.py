@@ -11,6 +11,12 @@ here is a pair of 1-D weight matrices applied as two contractions:
 The ``dynamic_*`` builders take lengths as tensors (any leading batch
 shape) so one call yields the per-image matrices of a whole batch.  Sizes
 are carried in float32, as on the device in the JAX package.
+
+Dtypes follow the JAX package's: ``resize_bilinear`` takes its matrices
+in x's dtype (a bfloat16 map resizes in bfloat16) and ``avg_pool_3x3_s2``
+sums in x's dtype, while the window resizes and pools build float32
+weights, so a bfloat16 source promotes to float32 there, as jnp promotes
+it.
 """
 
 from __future__ import annotations
@@ -47,20 +53,22 @@ def _interp_matrix(in_size: int, out_size: int, align_corners: bool) -> np.ndarr
 
 @functools.lru_cache(maxsize=256)
 def _interp_tensor(in_size: int, out_size: int, align_corners: bool,
-                   device: torch.device) -> torch.Tensor:
-    """``_interp_matrix`` on ``device``, copied there once.  Made outside
-    inference mode even when first asked for inside it: an inference tensor
-    in the cache could not take part in a later autograd graph (the
-    training step after an epoch-end eval)."""
+                   device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``_interp_matrix`` in ``dtype`` on ``device``, made there once.  Made
+    outside inference mode even when first asked for inside it: an
+    inference tensor in the cache could not take part in a later autograd
+    graph (the training step after an epoch-end eval)."""
     with torch.inference_mode(False):
-        return torch.from_numpy(_interp_matrix(in_size, out_size, align_corners)).to(device)
+        m = torch.from_numpy(_interp_matrix(in_size, out_size, align_corners))
+        return m.to(device=device, dtype=dtype)
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
                     align_corners: bool = True) -> torch.Tensor:
     """Bilinearly resize the two spatial axes of an NHWC (or HWC/HW)
     tensor; equals ``F.interpolate(mode='bilinear')`` under the requested
-    corner convention."""
+    corner convention.  Computes in x's dtype, the matrices rounded to it
+    (the JAX package's bf16 resize)."""
     squeeze_batch = squeeze_channel = False
     if x.ndim == 2:
         x = x[None, :, :, None]
@@ -71,8 +79,8 @@ def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int],
     _, h, w, _ = x.shape
     oh, ow = out_hw
     if (h, w) != (oh, ow):
-        wh = _interp_tensor(h, oh, align_corners, x.device).to(x.dtype)
-        ww = _interp_tensor(w, ow, align_corners, x.device).to(x.dtype)
+        wh = _interp_tensor(h, oh, align_corners, x.device, x.dtype)
+        ww = _interp_tensor(w, ow, align_corners, x.device, x.dtype)
         x = torch.einsum("Ih,nhwc->nIwc", wh, x)
         x = torch.einsum("Jw,nIwc->nIJc", ww, x)
     if squeeze_channel:
@@ -255,7 +263,8 @@ def batched_window_resize_ac(src: torch.Tensor, src_win: torch.Tensor,
                              dst_win: torch.Tensor, dst_hw: tuple[int, int]) -> torch.Tensor:
     """Per-image align_corners=True resize of the valid window ``src_win``
     ((N, 4) int (oy, ox, h, w)) of ``src`` (N, hs, ws, C) onto the window
-    ``dst_win`` of an (dst_h, dst_w) canvas; zero outside that window."""
+    ``dst_win`` of an (dst_h, dst_w) canvas; zero outside that window.
+    float32 weights: a bfloat16 ``src`` promotes, the output is float32."""
     hs, ws = src.shape[1:3]
     hd, wd = dst_hw
     wh = dynamic_bilinear_resize_weights(
@@ -266,7 +275,7 @@ def batched_window_resize_ac(src: torch.Tensor, src_win: torch.Tensor,
         src_win[:, 3], dst_win[:, 3], ws, wd, align_corners=True,
         src_off=src_win[:, 1], dst_off=dst_win[:, 1],
     )
-    a = torch.einsum("nIy,nyxc->nIxc", wh, src)
+    a = torch.einsum("nIy,nyxc->nIxc", wh, src.to(wh.dtype))
     return torch.einsum("nJx,nIxc->nIJc", ww, a)
 
 
@@ -298,12 +307,13 @@ def batched_window_avgpool_s2(src: torch.Tensor, src_win: torch.Tensor,
     """Per-image avg_pool(3, 2, pad=1, count_include_pad) of the windows
     ``src_win`` ((N, 4) int (oy, ox, h, w)) of ``src`` (N, hs, ws, C) onto
     an (dst_h, dst_w) canvas at the origin.  Returns (pooled, pooled_win),
-    pooled_win = (0, 0, ceil(h / 2), ceil(w / 2))."""
+    pooled_win = (0, 0, ceil(h / 2), ceil(w / 2)).  float32 weights: a
+    bfloat16 ``src`` promotes, ``pooled`` is float32."""
     hs, ws = src.shape[1:3]
     hd, wd = dst_hw
     wh = dynamic_avgpool3s2_weights(src_win[:, 2], hs, hd, src_off=src_win[:, 0])
     ww = dynamic_avgpool3s2_weights(src_win[:, 3], ws, wd, src_off=src_win[:, 1])
-    a = torch.einsum("nIy,nyxc->nIxc", wh, src)
+    a = torch.einsum("nIy,nyxc->nIxc", wh, src.to(wh.dtype))
     pooled = torch.einsum("nJx,nIxc->nIJc", ww, a)
     zero = torch.zeros_like(src_win[:, 0])
     pooled_win = torch.stack(
@@ -314,7 +324,19 @@ def batched_window_avgpool_s2(src: torch.Tensor, src_win: torch.Tensor,
 def avg_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     """3x3 / stride-2 / pad-1 average pool of NHWC ``x`` counting the
     padded zeros (torch's default ``count_include_pad``): the BiFPN's
-    downsample.  Output sides are floor((n - 1) / 2) + 1."""
-    y = torch.nn.functional.avg_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1,
-                                       count_include_pad=True)
-    return y.permute(0, 2, 3, 1)
+    downsample.  Output sides are floor((n - 1) / 2) + 1.  At bfloat16 the
+    window sum runs in bfloat16, tap by tap in row-major order, then / 9:
+    the JAX package's ``reduce_window`` add over a bf16 array."""
+    if x.dtype != torch.bfloat16:
+        y = torch.nn.functional.avg_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1,
+                                           count_include_pad=True)
+        return y.permute(0, 2, 3, 1)
+    _, h, w, _ = x.shape
+    oh, ow = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    acc = None
+    for dy in range(3):
+        for dx in range(3):
+            tap = xp[:, dy:dy + 2 * oh - 1:2, dx:dx + 2 * ow - 1:2]
+            acc = tap if acc is None else acc + tap
+    return acc / 9.0

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tile loads, ldmatrix, the 3xTF32 operand split, wgmma in tf32,
-// and the host-side tensor-map encoder.  Inline PTX only; no CUTLASS.
+// TMA tile loads, ldmatrix, the 3xTF32 operand split, bf16 packing, wgmma
+// in tf32 and bf16, and the host-side tensor-map encoder.  Inline PTX only;
+// no CUTLASS.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -106,6 +108,20 @@ __device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) 
   lo = tf32_rna(a - __uint_as_float(hi));
 }
 
+// ---- bf16 pairs -------------------------------------------------------------
+// A 32-bit register holding two bf16 values: the lower column in the low
+// half (the wgmma A fragment and ldmatrix .b16 layout).
+
+__device__ __forceinline__ float bf16_lo(uint32_t r) { return __uint_as_float(r << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t r) { return __uint_as_float(r & 0xFFFF0000u); }
+
+// (lo, hi) rounded to nearest even and packed, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
 // ---- wgmma ----------------------------------------------------------------
 
 // Shared-memory matrix descriptor of a K-major operand tile of 128-byte
@@ -160,6 +176,31 @@ __device__ __forceinline__ void wgmma_m64n64k8_rs(float* d, const uint32_t* a, u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// D (64 x 64, f32, 32 registers a thread, laid out as in wgmma_m64n64k8_rs)
+// = A (64 x 16, bf16, from registers: warp w holds rows 16w .. 16w + 15 as
+// a0 (g, 2t .. 2t + 1), a1 (g + 8, 2t ..), a2 (g, 2t + 8 ..), a3 (g + 8,
+// 2t + 8 ..), two values a register, the lower column in the low half) * B
+// (16 x 64, bf16, K-major in shared memory, not transposed) + (accumulate ?
+// D : 0).  The products are exact and summed in f32.
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_rs(float* d, const uint32_t* a,
+                                                        uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 // ---- host: tensor maps ------------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -184,16 +225,18 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A float32 tensor map of `rank` dims (innermost first, packed: the stride
-// of dim i is the product of the sizes below it), tile `box`, zero fill
-// outside the tensor.  Returns false when the driver refuses it.
-inline bool make_map_f32(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                         const uint32_t* box, bool swizzle128) {
+// A tensor map of `rank` dims of `type` (`elem_bytes` each; innermost
+// first, packed: the stride of dim i is the product of the sizes below it),
+// tile `box`, zero fill outside the tensor.  Returns false when the driver
+// refuses it.
+inline bool make_tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                            const void* base, int rank, const uint64_t* dims,
+                            const uint32_t* box, bool swizzle128) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   cuuint64_t gdim[5], gstride[4];
   cuuint32_t bdim[5], estride[5];
-  uint64_t stride = 4;
+  uint64_t stride = elem_bytes;
   for (int i = 0; i < rank; ++i) {
     gdim[i] = dims[i];
     bdim[i] = box[i];
@@ -201,11 +244,17 @@ inline bool make_map_f32(CUtensorMap* map, const void* base, int rank, const uin
     if (i > 0) gstride[i - 1] = stride;
     stride *= dims[i];
   }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(base), gdim, gstride,
-            bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  return fn(map, type, rank, const_cast<void*>(base), gdim, gstride, bdim, estride,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
             swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool make_map_f32(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                         const uint32_t* box, bool swizzle128) {
+  return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, rank, dims, box,
+                         swizzle128);
 }
 
 }  // namespace hopper

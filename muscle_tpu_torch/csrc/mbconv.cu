@@ -1,8 +1,10 @@
-// Inference stride-1 MBConv block for Hopper (sm_90a), float32.
+// Inference stride-1 MBConv block for Hopper (sm_90a), float32 and
+// bfloat16.
 //
 // Replaces the Pallas TPU kernel muscle_tpu/ops/pallas/mbconv.py
-// (fused_mbconv_stride1 / _kernel).  Computes, per image b of x (B,H,W,Cin)
-// NHWC with valid window win[b] = (oy, ox, h, w):
+// (fused_mbconv_stride1 / _kernel) at compute_dtype float32 and bfloat16.
+// Computes, per image b of x (B,H,W,Cin) NHWC with valid window win[b] =
+// (oy, ox, h, w):
 //
 //   e = swish(x @ w_exp * s0 + b0)         (e = x when the block has no expand)
 //   e = e * mask                           (zero outside the window: the
@@ -11,47 +13,68 @@
 //   g = sigmoid(swish(mean_window(d) @ w_se_r + b_se_r) @ w_se_e + b_se_e)
 //   y = ((d * g) @ w_proj * s2 + b2) * mask  (+ x when Cin == Cout)
 //
-// with the batch norms folded to per-channel scale and bias, every channel
-// count a multiple of 8 (the wrapper zero-pads odd ones, which is exact:
-// TMA wants 16-byte strides), and the two 1x1 weights given K-major and
-// split for 3xTF32 (w_exp_kt = (hi, lo) of w_exp^T, (2, Cmid, Cin);
-// w_proj_kt likewise (2, Cout, Cmid)), as ops/mbconv.py's kernel_operands
-// makes them: wgmma takes tf32 operands from shared memory only K-major.
+// with the batch norms folded to per-channel f32 scale and bias, and every
+// channel count a multiple of 8 at f32 or 16 at bf16 (the wrapper
+// zero-pads odd ones, which is exact: TMA wants 16-byte strides, a bf16
+// wgmma K step 16 values).  The two 1x1 weights come K-major, as
+// ops/mbconv.py's kernel_operands makes them: wgmma takes non-16-bit
+// operands from shared memory only K-major.  At f32 they are split for
+// 3xTF32 (w_exp_kt = (hi, lo) of w_exp^T, (2, Cmid, Cin); w_proj_kt
+// likewise (2, Cout, Cmid)); at bf16 they are w_exp^T and w_proj^T.
+//
+// Element type T (float or bf16).  x, the expand's halo tiles, e, d and y
+// are T; so are the five weight matrices.  Every product runs on the
+// tensor cores with f32 accumulation: three tf32 products (the 3xTF32
+// split, f32 accuracy) at f32, one bf16 product at bf16.  BN, swish, the
+// depthwise sums, the window masks, the SE sums and gate, and the residual
+// add run in f32 registers.  At bf16 the rounding points are the Pallas
+// kernel's: e is rounded to bf16 after BN0 + swish + mask, d after BN1 +
+// swish + mask (the SE partial sums are taken from f32 d before that), the
+// SE FCs' inputs and the gated d before their products, y once after the
+// residual.  One difference: the Pallas kernel rounds each depthwise
+// product e * w_dw to bf16 before its f32 sum; this kernel keeps the exact
+// product (bf16 x bf16 fits f32) in its f32 FMA.
 //
 // Bound on the card.  The ideal kernel moves x in and y out and does the
 // 1x1 products (2*px*(Cin*Cmid + Cmid*Cout) FLOPs) on the tensor cores and
 // the depthwise (2*px*k*k*Cmid) on the f32 pipes.  f32 accuracy on the
 // tensor cores takes the 3xTF32 split (hopper.cuh): three tf32 products at
 // 495/3 TFLOP/s.  At the b3 CAM shapes that bound is about half the f32
-// one, and the early blocks (Cmid <= 288) sit on the bytes side.
+// one, and the early blocks (Cmid <= 288) sit on the bytes side.  At bf16
+// the products run at 989 TFLOP/s and the activations move half the bytes,
+// so the depthwise on the f32 pipes sets the bound at most shapes.
 //
 // Design: three launches, because the SE gate needs a reduction over the
-// whole image before the project can start.
+// whole image before the project can start.  A K chunk is one 128-byte
+// row: 32 channels at f32, 64 at bf16.
 //
 //   a. expand_dw: one CTA per (image, TH x 16 output tile, 64 mid
 //      channels), TH = 12 at k = 3 and 8 at k = 5, so the halo (252 or 240
 //      pixels, 1.31x and 1.88x the tile) fills four 64-row wgmma tiles.
-//      Per 32-deep chunk of Cin, TMA brings the halo of x (one 128-byte
-//      swizzled row per pixel; out-of-image pixels and channels arrive
-//      zero) and the 64 x 32 tiles of w_exp_kt into a ring of two stages
-//      on mbarriers.  Each warpgroup runs wgmma m64n64k8 tf32 on two of
-//      the row tiles in the 3xTF32 split: A (x) by ldmatrix into registers,
-//      split there, B from shared memory.  BN0 + swish + mask write e over
-//      the ring; a CTA takes ~98 KB, so two share an SM.  Without an
-//      expand, 32 channels of x go by TMA straight into e.  The depthwise
-//      reads e from shared memory with the k*k taps in registers and a
-//      sliding window along each row (k shared reads per output, not k*k),
-//      then BN1 + swish + mask, SE partial sums in a fixed order (no
+//      Per K chunk of Cin, TMA brings the halo of x (one 128-byte swizzled
+//      row per pixel; out-of-image pixels and channels arrive zero) and
+//      the 64-row tiles of w_exp_kt (hi and lo at f32, one at bf16) into a
+//      ring of two stages on mbarriers.  Each warpgroup runs the wgmma on
+//      two of the row tiles: A (x) by ldmatrix into registers (split into
+//      tf32 hi and lo there at f32), B from shared memory.  BN0 + swish +
+//      mask write e over the ring.  TH is set by the four row tiles, not
+//      by shared memory: the ring takes ~96 KB at f32 and ~80 KB at bf16
+//      (one weight tile a stage), so two CTAs share an SM at both.
+//      Without an expand, 32 channels of x go by TMA straight into e.  The
+//      depthwise reads e from shared memory with the k*k taps in registers
+//      and a sliding window along each row (k shared reads per output, not
+//      k*k), then BN1 + swish + mask, SE partial sums in a fixed order (no
 //      atomics), and d to HBM.
 //   b. se: one CTA per image reduces the partials and runs both SE FCs.
 //   c. project: per-image 64-pixel x 64-channel tiles; a producer warp
-//      keeps a ring of up to 4 stages of TMA tiles (d and both halves of
-//      w_proj_kt) in flight; a consumer warpgroup runs wgmma m64n64k8 tf32
-//      with A (d) from registers, where the SE gate and the hi/lo split are
-//      applied (gating A in registers costs nothing and avoids writing a
-//      gated W per image: 57 MB at _blocks_25), and B from shared memory;
-//      BN2, the mask and the residual in the epilogue, staged through
-//      shared memory and stored as 16-byte writes.
+//      keeps a ring of up to 4 stages of TMA tiles (d and w_proj_kt) in
+//      flight; a consumer warpgroup runs the wgmma with A (d) from
+//      registers, where the SE gate is applied (and, at f32, the hi/lo
+//      split; at bf16 the gated d is rounded there), which costs nothing
+//      and avoids writing a gated W per image (57 MB at _blocks_25), and B
+//      from shared memory; BN2, the mask and the residual in the epilogue,
+//      staged through shared memory and stored as 16-byte (f32) or 8-byte
+//      (bf16) writes.
 //
 // d makes one round trip through HBM.  Keeping it on chip instead, by
 // rebuilding e and d per project tile from x, measured ~3x slower than
@@ -61,15 +84,62 @@
 
 #include <stddef.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace {
 
 using namespace hopper;
+using bf16 = __nv_bfloat16;
 
 constexpr int NT = 256;  // threads of the expand_dw CTAs
-constexpr int KC = 32;   // input channels per TMA chunk: one 128-byte row
 constexpr int TW = 16;   // output columns per tile
+
+// The element types: the TMA map type, and the weight tiles a K chunk
+// takes (hi and lo of the 3xTF32 split at f32, one at bf16).
+template <class T>
+struct Elem;
+template <>
+struct Elem<float> {
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  static constexpr int NW = 2;
+};
+template <>
+struct Elem<bf16> {
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static constexpr int NW = 1;
+};
+
+// channels of one K chunk: one 128-byte row
+template <class T>
+__host__ __device__ constexpr int kchunk() { return 128 / (int)sizeof(T); }
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <class T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
+// v rounded to T, back in f32
+template <class T>
+__device__ __forceinline__ float round_as(float v) { return to_f(from_f<T>(v)); }
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  return make_float4(bf16_lo(r.x), bf16_hi(r.x), bf16_lo(r.y), bf16_hi(r.y));
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+}
 
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
 __device__ __forceinline__ float swishf_(float v) { return v * sigmoidf_(v); }
@@ -86,10 +156,11 @@ __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 // The depthwise k x k + BN1 + swish over the TH x TW tile from e_s: thread
 // (c = tid % TC, row group tid / TC) runs along its rows with the k*k taps
-// in registers and a k x k window of e sliding along the row.  Calls
+// in registers and a k x k window of e sliding along the row, in f32 (at
+// bf16 each product of two bf16 values is exact in the FMA).  Calls
 // out(ly, lx, c, v) for every output pixel of its rows, v before the mask.
-template <int K, int TH, int TC, int ESP, class Out>
-__device__ __forceinline__ void depthwise_tile(const float* e_s, const float* __restrict__ w_dw,
+template <int K, int TH, int TC, int ESP, class T, class Out>
+__device__ __forceinline__ void depthwise_tile(const T* e_s, const T* __restrict__ w_dw,
                                                const float* __restrict__ s1,
                                                const float* __restrict__ b1, int c0, int Cmid,
                                                Out out) {
@@ -100,7 +171,7 @@ __device__ __forceinline__ void depthwise_tile(const float* e_s, const float* __
   const bool cok = c0 + c < Cmid;
   float wk[K * K];
 #pragma unroll
-  for (int i = 0; i < K * K; ++i) wk[i] = cok ? w_dw[(size_t)i * Cmid + c0 + c] : 0.f;
+  for (int i = 0; i < K * K; ++i) wk[i] = cok ? to_f(w_dw[(size_t)i * Cmid + c0 + c]) : 0.f;
   const float sc1 = cok ? s1[c0 + c] : 0.f, bi1 = cok ? b1[c0 + c] : 0.f;
 #pragma unroll 1
   for (int rr = 0; rr < RPG; ++rr) {
@@ -110,7 +181,8 @@ __device__ __forceinline__ void depthwise_tile(const float* e_s, const float* __
 #pragma unroll
     for (int ky = 0; ky < K; ++ky)
 #pragma unroll
-      for (int kx = 0; kx < K - 1; ++kx) wnd[ky][kx + 1] = e_s[((ly + ky) * HW + kx) * ESP + c];
+      for (int kx = 0; kx < K - 1; ++kx)
+        wnd[ky][kx + 1] = to_f(e_s[((ly + ky) * HW + kx) * ESP + c]);
 #pragma unroll
     for (int lx = 0; lx < TW; ++lx) {
       float a = 0.f;
@@ -118,7 +190,7 @@ __device__ __forceinline__ void depthwise_tile(const float* e_s, const float* __
       for (int ky = 0; ky < K; ++ky) {
 #pragma unroll
         for (int kx = 0; kx < K - 1; ++kx) wnd[ky][kx] = wnd[ky][kx + 1];
-        wnd[ky][K - 1] = e_s[((ly + ky) * HW + lx + K - 1) * ESP + c];
+        wnd[ky][K - 1] = to_f(e_s[((ly + ky) * HW + lx + K - 1) * ESP + c]);
 #pragma unroll
         for (int kx = 0; kx < K; ++kx) a = fmaf(wnd[ky][kx], wk[ky * K + kx], a);
       }
@@ -136,72 +208,75 @@ template <bool EXPAND>
 __host__ __device__ constexpr int dw_tc() { return EXPAND ? 64 : 32; }
 
 // Bytes of e without an expand: the halo of a TH x TW tile, TC channels.
-template <int K, int TH, int TC>
+template <int K, int TH, int TC, class T>
 __host__ __device__ constexpr int x_tile_bytes() {
-  return (TH + 2 * (K / 2)) * (TW + 2 * (K / 2)) * TC * 4;
+  return (TH + 2 * (K / 2)) * (TW + 2 * (K / 2)) * TC * (int)sizeof(T);
 }
 
 // e = x * mask for a block without an expand: one TMA box of TC channels
 // over the halo of the output tile at (ty0, tx0) straight into e_s (pixels
 // outside the image arrive zero), zeroed outside the window.  Ends
 // synchronised.
-template <int K, int TH, int TC>
-__device__ void load_x_tile(const CUtensorMap* xmap, float* e_s, uint64_t* bar,
-                            const int* win_s, int b, int ty0, int tx0, int c0) {
+template <int K, int TH, int TC, class T>
+__device__ void load_x_tile(const CUtensorMap* xmap, T* e_s, uint64_t* bar, const int* win_s,
+                            int b, int ty0, int tx0, int c0) {
   constexpr int P = K / 2, HW = TW + 2 * P;
-  constexpr int N = x_tile_bytes<K, TH, TC>() / 4;
+  constexpr int BYTES = x_tile_bytes<K, TH, TC, T>(), N = BYTES / (int)sizeof(T);
   if (threadIdx.x == 0) {
-    mbar_expect_tx(bar, N * 4);
+    mbar_expect_tx(bar, BYTES);
     tma_load_4d(e_s, xmap, bar, c0, tx0 - P, ty0 - P, b);
   }
   mbar_wait(bar, 0);
   for (int i = threadIdx.x; i < N; i += NT) {
     const int pix = i / TC;
-    if (!in_window(win_s, ty0 - P + pix / HW, tx0 - P + pix % HW)) e_s[i] = 0.f;
+    if (!in_window(win_s, ty0 - P + pix / HW, tx0 - P + pix % HW)) e_s[i] = from_f<T>(0.f);
   }
   __syncthreads();
 }
 
 // Shared memory of expand_dw's wgmma expand: two stages of (x halo chunk,
-// written by TMA | w_exp_kt chunk hi | lo); e is written over them.
-template <int K, int TH>
+// written by TMA | the w_exp_kt chunk's tiles); e is written over them.
+template <int K, int TH, class T>
 struct WgTile {
   static constexpr int P = K / 2;
   static constexpr int HW = TW + 2 * P, HP = (TH + 2 * P) * HW;  // halo
   static constexpr int MT = (HP + 63) / 64;                      // 64-row wgmma tiles
   static constexpr int XBYTES = MT * 64 * 128, WBYTES = 64 * 128;
-  static constexpr int STAGE = XBYTES + 2 * WBYTES;
-  static constexpr int ESP = 64 + 4;  // e row pitch (floats)
-  static constexpr int REGION = cmax(2 * STAGE, HP * ESP * 4);
+  static constexpr int STAGE = XBYTES + Elem<T>::NW * WBYTES;
+  static constexpr int ESP = 64 + 16 / (int)sizeof(T);  // e row pitch (elements)
+  static constexpr int REGION = cmax(2 * STAGE, HP * ESP * (int)sizeof(T));
 };
 
-// expand_dw's expand on wgmma: e (HP x ESP floats at `buf`) for the halo of
-// the output tile at (ty0, tx0), mid channels c0 .. c0 + 63.  Per 32-deep
-// chunk of Cin, TMA brings the x halo and the w_exp_kt tiles into one of
-// two stages (barrier xbar[kc % 2]), the next chunk's loads flying while
-// this one is multiplied.  Warpgroup w runs the 64-row tiles 2w and 2w + 1
+// expand_dw's expand on wgmma: e (HP x ESP values at `buf`) for the halo of
+// the output tile at (ty0, tx0), mid channels c0 .. c0 + 63.  Per K chunk
+// of Cin, TMA brings the x halo and the w_exp_kt tiles into one of two
+// stages (barrier xbar[kc % 2]), the next chunk's loads flying while this
+// one is multiplied.  Warpgroup w runs the 64-row tiles 2w and 2w + 1
 // against all 64 channels: A (x) by ldmatrix from the swizzled tile into
-// registers, split into tf32 hi and lo there, B (w) from shared memory;
-// each tile's 3xTF32 products of the chunk in a fresh accumulator added in
-// f32.  Ends synchronised.
-template <int K, int TH>
+// registers, B (w) from shared memory.  At f32 A is split into tf32 hi and
+// lo in registers and each tile's 3xTF32 products of the chunk go to a
+// fresh accumulator added in f32; at bf16 one product per 16-deep step
+// accumulates in place.  Ends synchronised.
+template <int K, int TH, class T>
 __device__ void expand_tile(const CUtensorMap* xmap, const CUtensorMap* wmap,
                             const float* __restrict__ s0, const float* __restrict__ b0, char* buf,
                             uint64_t* xbar, const int* win_s, int b, int ty0, int tx0, int c0,
                             int H, int W, int Cin, int Cmid) {
-  using T = WgTile<K, TH>;
-  static_assert(T::MT == 4 && NT == 256, "two 64-row tiles per warpgroup, two warpgroups");
+  using Tile = WgTile<K, TH, T>;
+  constexpr int KC = kchunk<T>(), NW = Elem<T>::NW;
+  static_assert(Tile::MT == 4 && NT == 256, "two 64-row tiles per warpgroup, two warpgroups");
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t = lane & 3;
   const int lr = lane & 7, lj = lane >> 3;
   const int nk = (Cin + KC - 1) / KC;
   auto issue = [&](int kc) {  // chunk kc into stage kc % 2
-    char* st = buf + (kc & 1) * T::STAGE;
+    char* st = buf + (kc & 1) * Tile::STAGE;
     uint64_t* bar = &xbar[kc & 1];
-    mbar_expect_tx(bar, T::HP * 128 + 2 * T::WBYTES);
-    tma_load_4d(st, xmap, bar, kc * KC, tx0 - T::P, ty0 - T::P, b);
-    tma_load_3d(st + T::XBYTES, wmap, bar, kc * KC, c0, 0);
-    tma_load_3d(st + T::XBYTES + T::WBYTES, wmap, bar, kc * KC, c0, 1);
+    mbar_expect_tx(bar, Tile::HP * 128 + NW * Tile::WBYTES);
+    tma_load_4d(st, xmap, bar, kc * KC, tx0 - Tile::P, ty0 - Tile::P, b);
+#pragma unroll
+    for (int i = 0; i < NW; ++i)
+      tma_load_3d(st + Tile::XBYTES + i * Tile::WBYTES, wmap, bar, kc * KC, c0, i);
   };
   if (tid == 0)
     for (int i = 0; i < 2 && i < nk; ++i) issue(i);
@@ -212,50 +287,67 @@ __device__ void expand_tile(const CUtensorMap* xmap, const CUtensorMap* wmap,
     for (int i = 0; i < 32; ++i) acc[m][i] = 0.f;
 
   for (int kc = 0; kc < nk; ++kc) {
-    char* st = buf + (kc & 1) * T::STAGE;
+    char* st = buf + (kc & 1) * Tile::STAGE;
     mbar_wait(&xbar[kc & 1], (kc >> 1) & 1);
 #pragma unroll
     for (int m = 0; m < 2; ++m) {
       // ldmatrix rows of A: this warp's 16 rows of tile 2w + m, +8 for odd
       // j, the next 16-byte chunk for j >= 2 (row = lane mod 8, the swizzle)
       const int a_row = (2 * wg + m) * 64 + wl * 16 + lr + 8 * (lj & 1);
-      uint32_t ah[4][4], al[4][4];
+      if constexpr (std::is_same<T, float>::value) {
+        uint32_t ah[4][4], al[4][4];
 #pragma unroll
-      for (int ks = 0; ks < KC / 8; ++ks) {
-        uint32_t a[4];
-        ldsm_x4(smem_addr(st) + a_row * 128 + (((2 * ks + (lj >> 1)) ^ lr) << 4), a);
+        for (int ks = 0; ks < 4; ++ks) {
+          uint32_t a[4];
+          ldsm_x4(smem_addr(st) + a_row * 128 + (((2 * ks + (lj >> 1)) ^ lr) << 4), a);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) split_tf32(__uint_as_float(a[q]), ah[ks][q], al[ks][q]);
-      }
-      float part[32];
+          for (int q = 0; q < 4; ++q) split_tf32(__uint_as_float(a[q]), ah[ks][q], al[ks][q]);
+        }
+        float part[32];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        part[i] = 0.f;
-        reg_fence(part[i]);
-      }
-      wgmma_fence();
+        for (int i = 0; i < 32; ++i) {
+          part[i] = 0.f;
+          reg_fence(part[i]);
+        }
+        wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < KC / 8; ++ks) {
-        const uint64_t bh = desc_sw128(st + T::XBYTES + ks * 32);
-        const uint64_t bl = desc_sw128(st + T::XBYTES + T::WBYTES + ks * 32);
-        wgmma_m64n64k8_rs(part, al[ks], bh, ks > 0);
-        wgmma_m64n64k8_rs(part, ah[ks], bl, 1);
-        wgmma_m64n64k8_rs(part, ah[ks], bh, 1);
-      }
-      wgmma_commit();
-      wgmma_wait0();
+        for (int ks = 0; ks < 4; ++ks) {
+          const uint64_t bh = desc_sw128(st + Tile::XBYTES + ks * 32);
+          const uint64_t bl = desc_sw128(st + Tile::XBYTES + Tile::WBYTES + ks * 32);
+          wgmma_m64n64k8_rs(part, al[ks], bh, ks > 0);
+          wgmma_m64n64k8_rs(part, ah[ks], bl, 1);
+          wgmma_m64n64k8_rs(part, ah[ks], bh, 1);
+        }
+        wgmma_commit();
+        wgmma_wait0();
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        reg_fence(part[i]);
-        acc[m][i] += part[i];
+        for (int i = 0; i < 32; ++i) {
+          reg_fence(part[i]);
+          acc[m][i] += part[i];
+        }
+      } else {
+        uint32_t a[4][4];
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          ldsm_x4(smem_addr(st) + a_row * 128 + (((2 * ks + (lj >> 1)) ^ lr) << 4), a[ks]);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) reg_fence(acc[m][i]);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          wgmma_m64n64k16_bf16_rs(acc[m], a[ks], desc_sw128(st + Tile::XBYTES + ks * 32), 1);
+        wgmma_commit();
+        wgmma_wait0();
+#pragma unroll
+        for (int i = 0; i < 32; ++i) reg_fence(acc[m][i]);
       }
     }
     __syncthreads();  // the stage is consumed
     if (tid == 0 && kc + 2 < nk) issue(kc + 2);
   }
 
-  // BN0 + swish + mask into e (over the consumed stages)
-  float* e_s = reinterpret_cast<float*>(buf);
+  // BN0 + swish + mask into e (over the consumed stages), rounded to T
+  T* e_s = reinterpret_cast<T*>(buf);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int col = j * 8 + 2 * t, cc = c0 + col;
@@ -266,13 +358,15 @@ __device__ void expand_tile(const CUtensorMap* xmap, const CUtensorMap* wmap,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int row = (2 * wg + m) * 64 + wl * 16 + g + 8 * h;
-        if (row < T::HP) {
-          const int gy = ty0 - T::P + row / T::HW, gx = tx0 - T::P + row % T::HW;
+        if (row < Tile::HP) {
+          const int gy = ty0 - Tile::P + row / Tile::HW, gx = tx0 - Tile::P + row % Tile::HW;
           const bool keep = gy >= 0 && gy < H && gx >= 0 && gx < W && in_window(win_s, gy, gx);
-          float2 e;
-          e.x = keep ? swishf_(acc[m][4 * j + 2 * h] * sc.x + bi.x) : 0.f;
-          e.y = keep ? swishf_(acc[m][4 * j + 2 * h + 1] * sc.y + bi.y) : 0.f;
-          *reinterpret_cast<float2*>(e_s + row * T::ESP + col) = e;
+          const float ex = keep ? swishf_(acc[m][4 * j + 2 * h] * sc.x + bi.x) : 0.f;
+          const float ey = keep ? swishf_(acc[m][4 * j + 2 * h + 1] * sc.y + bi.y) : 0.f;
+          if constexpr (std::is_same<T, float>::value)
+            *reinterpret_cast<float2*>(e_s + row * Tile::ESP + col) = make_float2(ex, ey);
+          else
+            *reinterpret_cast<uint32_t*>(e_s + row * Tile::ESP + col) = pack_bf16(ex, ey);
         }
       }
     }
@@ -280,23 +374,23 @@ __device__ void expand_tile(const CUtensorMap* xmap, const CUtensorMap* wmap,
   __syncthreads();
 }
 
-template <int K, bool EXPAND>
+template <int K, bool EXPAND, class T>
 constexpr size_t expand_dw_smem() {
-  constexpr int region = EXPAND ? WgTile<K, dw_th<K, EXPAND>()>::REGION
-                                : x_tile_bytes<K, dw_th<K, EXPAND>(), dw_tc<EXPAND>()>();
+  constexpr int region = EXPAND ? WgTile<K, dw_th<K, EXPAND>(), T>::REGION
+                                : x_tile_bytes<K, dw_th<K, EXPAND>(), dw_tc<EXPAND>(), T>();
   return 1024 + region + NT * 4 + 16 + 16;
 }
 
-template <int K, bool EXPAND>
+template <int K, bool EXPAND, class T>
 __global__ void __launch_bounds__(NT, 2) expand_dw_kernel(
     const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
     const int* __restrict__ win, const float* __restrict__ s0, const float* __restrict__ b0,
-    const float* __restrict__ w_dw, const float* __restrict__ s1, const float* __restrict__ b1,
-    float* __restrict__ d, float* __restrict__ part, int H, int W, int Cin, int Cmid,
+    const T* __restrict__ w_dw, const float* __restrict__ s1, const float* __restrict__ b1,
+    T* __restrict__ d, float* __restrict__ part, int H, int W, int Cin, int Cmid,
     int tiles_w) {
   constexpr int TH = dw_th<K, EXPAND>(), TC = dw_tc<EXPAND>();
-  constexpr int REGION = EXPAND ? WgTile<K, TH>::REGION : x_tile_bytes<K, TH, TC>();
-  constexpr int ESP = EXPAND ? WgTile<K, TH>::ESP : TC;
+  constexpr int REGION = EXPAND ? WgTile<K, TH, T>::REGION : x_tile_bytes<K, TH, TC, T>();
+  constexpr int ESP = EXPAND ? WgTile<K, TH, T>::ESP : TC;
   extern __shared__ char smem_raw[];
   char* base = align1024(smem_raw);
   float* red_s = reinterpret_cast<float*>(base + REGION);
@@ -315,25 +409,26 @@ __global__ void __launch_bounds__(NT, 2) expand_dw_kernel(
   __syncthreads();
 
   if constexpr (EXPAND) {
-    expand_tile<K, TH>(&xmap, &wmap, s0, b0, base, xbar, win_s, b, ty0, tx0, c0, H, W, Cin,
-                       Cmid);
+    expand_tile<K, TH, T>(&xmap, &wmap, s0, b0, base, xbar, win_s, b, ty0, tx0, c0, H, W, Cin,
+                          Cmid);
   } else {
-    load_x_tile<K, TH, TC>(&xmap, reinterpret_cast<float*>(base), &xbar[0], win_s, b, ty0, tx0,
-                           c0);
+    load_x_tile<K, TH, TC, T>(&xmap, reinterpret_cast<T*>(base), &xbar[0], win_s, b, ty0, tx0,
+                              c0);
   }
 
   const size_t img = (size_t)b * H * W;
   float psum = 0.f;
-  depthwise_tile<K, TH, TC, ESP>(reinterpret_cast<const float*>(base), w_dw, s1, b1, c0, Cmid,
-                                 [&](int ly, int lx, int c, float v) {
-                                   const int gy = ty0 + ly, gx = tx0 + lx;
-                                   if (gy < H && gx < W) {
-                                     v = in_window(win_s, gy, gx) ? v : 0.f;
-                                     if (c0 + c < Cmid)
-                                       d[(img + (size_t)gy * W + gx) * Cmid + c0 + c] = v;
-                                     psum += v;
-                                   }
-                                 });
+  depthwise_tile<K, TH, TC, ESP, T>(reinterpret_cast<const T*>(base), w_dw, s1, b1, c0, Cmid,
+                                    [&](int ly, int lx, int c, float v) {
+                                      const int gy = ty0 + ly, gx = tx0 + lx;
+                                      if (gy < H && gx < W) {
+                                        v = in_window(win_s, gy, gx) ? v : 0.f;
+                                        if (c0 + c < Cmid)
+                                          d[(img + (size_t)gy * W + gx) * Cmid + c0 + c] =
+                                              from_f<T>(v);
+                                        psum += v;  // f32 d, before the rounding
+                                      }
+                                    });
   red_s[tid] = psum;  // row group tid / TC, channel tid % TC
   __syncthreads();
   if (tid < TC && c0 + tid < Cmid) {
@@ -346,12 +441,13 @@ __global__ void __launch_bounds__(NT, 2) expand_dw_kernel(
 
 constexpr int SE_NT = 1024;
 
-// One CTA per image: gate[b] = sigmoid(swish(mean @ w_r + b_r) @ w_e + b_e).
+// One CTA per image: gate[b] = sigmoid(swish(mean @ w_r + b_r) @ w_e + b_e),
+// each FC's input rounded to T (the Pallas kernel's bf16 operands).
+template <class T>
 __global__ void __launch_bounds__(SE_NT) se_kernel(
     const float* __restrict__ part, int ntiles, const int* __restrict__ win,
-    const float* __restrict__ w_r, const float* __restrict__ b_r,
-    const float* __restrict__ w_e, const float* __restrict__ b_e,
-    float* __restrict__ gate, int Cmid, int Csq) {
+    const T* __restrict__ w_r, const float* __restrict__ b_r, const T* __restrict__ w_e,
+    const float* __restrict__ b_e, float* __restrict__ gate, int Cmid, int Csq) {
   extern __shared__ float sm[];
   float* mean = sm;       // Cmid
   float* sq = sm + Cmid;  // Csq
@@ -371,23 +467,23 @@ __global__ void __launch_bounds__(SE_NT) se_kernel(
     if (row == 0 && c < Cmid) {
       float tot = 0.f;
       for (int r = 0; r < 32; ++r) tot += red[r][lane];
-      mean[c] = tot / count;
+      mean[c] = round_as<T>(tot / count);
     }
     __syncthreads();
   }
 
   for (int j = row; j < Csq; j += 32) {
     float s = 0.f;
-    for (int c = lane; c < Cmid; c += 32) s = fmaf(mean[c], w_r[(size_t)c * Csq + j], s);
+    for (int c = lane; c < Cmid; c += 32) s = fmaf(mean[c], to_f(w_r[(size_t)c * Csq + j]), s);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) sq[j] = swishf_(s + b_r[j]);
+    if (lane == 0) sq[j] = round_as<T>(swishf_(s + b_r[j]));
   }
   __syncthreads();
 
   for (int c = threadIdx.x; c < Cmid; c += SE_NT) {
     float s = 0.f;
-    for (int j = 0; j < Csq; ++j) s = fmaf(sq[j], w_e[(size_t)j * Cmid + c], s);
+    for (int j = 0; j < Csq; ++j) s = fmaf(sq[j], to_f(w_e[(size_t)j * Cmid + c]), s);
     gate[(size_t)b * Cmid + c] = sigmoidf_(s + b_e[c]);
   }
 }
@@ -397,18 +493,23 @@ __global__ void __launch_bounds__(SE_NT) se_kernel(
 constexpr int PBM = 64, PBN = 64, PSTAGES = 4;
 constexpr int P_THREADS = 160;  // one consumer warpgroup and a producer warp
 constexpr int PA_BYTES = PBM * 128, PB_BYTES = PBN * 128;
-constexpr int PSTAGE_BYTES = PA_BYTES + 2 * PB_BYTES;
 constexpr int PSTG = PBN + 4;  // epilogue staging pitch (floats)
 constexpr int PSTG_BYTES = PBM * PSTG * 4;
 
+template <class T>
+__host__ __device__ constexpr int pstage_bytes() { return PA_BYTES + Elem<T>::NW * PB_BYTES; }
+
+template <class T>
 int project_stages(int Cmid) {
-  const int nk = (Cmid + 31) / 32;
+  const int nk = (Cmid + kchunk<T>() - 1) / kchunk<T>();
   return nk < PSTAGES ? nk : PSTAGES;
 }
 
+template <class T>
 size_t project_smem(int Cmid) {
-  return 1024 + cmax(project_stages(Cmid) * PSTAGE_BYTES, PSTG_BYTES) +
-         (size_t)(Cmid + 31) / 32 * 32 * 4 + 16 + 2 * PSTAGES * 8;
+  const int nk = (Cmid + kchunk<T>() - 1) / kchunk<T>();
+  return 1024 + cmax(project_stages<T>(Cmid) * pstage_bytes<T>(), PSTG_BYTES) +
+         (size_t)nk * kchunk<T>() * 4 + 16 + 2 * PSTAGES * 8;
 }
 
 __device__ __forceinline__ void named_sync(int id, int n) {
@@ -421,22 +522,24 @@ __device__ __forceinline__ void named_sync(int id, int n) {
 // pixel tiles, with the ring running on across them, measured slower at
 // every b3 shape: it needs a staging buffer beside the ring, which halves
 // the CTAs an SM holds.)
+template <class T>
 __global__ void __launch_bounds__(P_THREADS) project_kernel(
     const __grid_constant__ CUtensorMap dmap, const __grid_constant__ CUtensorMap wmap,
     const float* __restrict__ gate, const float* __restrict__ s2, const float* __restrict__ b2,
-    const float* __restrict__ x, const int* __restrict__ win, float* __restrict__ y, int H,
-    int W, int Cmid, int Cout, int has_skip, int stages) {
+    const T* __restrict__ x, const int* __restrict__ win, T* __restrict__ y, int H, int W,
+    int Cmid, int Cout, int has_skip, int stages) {
+  constexpr int KC = kchunk<T>(), NW = Elem<T>::NW, STAGE = pstage_bytes<T>();
   extern __shared__ char smem_raw[];
   char* ring = align1024(smem_raw);
-  const int nk = (Cmid + 31) / 32;
-  float* gate_s = reinterpret_cast<float*>(ring + cmax(stages * PSTAGE_BYTES, PSTG_BYTES));
-  int* win_s = reinterpret_cast<int*>(gate_s + nk * 32);
+  const int nk = (Cmid + KC - 1) / KC;
+  float* gate_s = reinterpret_cast<float*>(ring + cmax(stages * STAGE, PSTG_BYTES));
+  int* win_s = reinterpret_cast<int*>(gate_s + nk * KC);
   uint64_t* full = reinterpret_cast<uint64_t*>(win_s + 4);
   uint64_t* empty = full + PSTAGES;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n0 = blockIdx.x * PBN, p0 = blockIdx.y * PBM, b = blockIdx.z;
-  for (int i = tid; i < nk * 32; i += P_THREADS)
+  for (int i = tid; i < nk * KC; i += P_THREADS)
     gate_s[i] = i < Cmid ? gate[(size_t)b * Cmid + i] : 0.f;
   if (tid < 4) win_s[tid] = win[4 * b + tid];
   if (tid == 0) {
@@ -453,11 +556,12 @@ __global__ void __launch_bounds__(P_THREADS) project_kernel(
       for (int kc = 0; kc < nk; ++kc) {
         const int s = kc % stages;
         if (kc >= stages) mbar_wait(&empty[s], ((kc / stages) - 1) & 1);
-        char* st = ring + s * PSTAGE_BYTES;
-        mbar_expect_tx(&full[s], PSTAGE_BYTES);
-        tma_load_3d(st, &dmap, &full[s], kc * 32, p0, b);
-        tma_load_3d(st + PA_BYTES, &wmap, &full[s], kc * 32, n0, 0);
-        tma_load_3d(st + PA_BYTES + PB_BYTES, &wmap, &full[s], kc * 32, n0, 1);
+        char* st = ring + s * STAGE;
+        mbar_expect_tx(&full[s], STAGE);
+        tma_load_3d(st, &dmap, &full[s], kc * KC, p0, b);
+#pragma unroll
+        for (int i = 0; i < NW; ++i)
+          tma_load_3d(st + PA_BYTES + i * PB_BYTES, &wmap, &full[s], kc * KC, n0, i);
       }
     }
     return;
@@ -473,47 +577,75 @@ __global__ void __launch_bounds__(P_THREADS) project_kernel(
   for (int kc = 0; kc < nk; ++kc) {
     const int s = kc % stages;
     mbar_wait(&full[s], (kc / stages) & 1);
-    const char* st = ring + s * PSTAGE_BYTES;
-    uint32_t ah[4][4], al[4][4];
+    const char* st = ring + s * STAGE;
+    if constexpr (std::is_same<T, float>::value) {
+      uint32_t ah[4][4], al[4][4];
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const int k0 = ks * 8 + t;
-      const float g0 = gate_s[kc * 32 + k0], g1 = gate_s[kc * 32 + k0 + 4];
-      uint32_t a[4];
-      ldsm_x4(smem_addr(st) + a_row * 128 + (((2 * ks + (lj >> 1)) ^ lr) << 4), a);
-      const float gq[4] = {g0, g0, g1, g1};
+      for (int ks = 0; ks < 4; ++ks) {
+        const int k0 = ks * 8 + t;
+        const float g0 = gate_s[kc * KC + k0], g1 = gate_s[kc * KC + k0 + 4];
+        uint32_t a[4];
+        ldsm_x4(smem_addr(st) + a_row * 128 + (((2 * ks + (lj >> 1)) ^ lr) << 4), a);
+        const float gq[4] = {g0, g0, g1, g1};
 #pragma unroll
-      for (int q = 0; q < 4; ++q) split_tf32(__uint_as_float(a[q]) * gq[q], ah[ks][q], al[ks][q]);
-    }
-    // this stage's 32-deep product in a fresh accumulator (the tensor
-    // cores' accumulation truncates), added to acc in f32
-    float part[32];
+        for (int q = 0; q < 4; ++q)
+          split_tf32(__uint_as_float(a[q]) * gq[q], ah[ks][q], al[ks][q]);
+      }
+      // this stage's 32-deep product in a fresh accumulator (the tensor
+      // cores' accumulation truncates), added to acc in f32
+      float part[32];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      part[i] = 0.f;
-      reg_fence(part[i]);
-    }
-    wgmma_fence();
+      for (int i = 0; i < 32; ++i) {
+        part[i] = 0.f;
+        reg_fence(part[i]);
+      }
+      wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const uint64_t dh = desc_sw128(st + PA_BYTES + ks * 32);
-      const uint64_t dl = desc_sw128(st + PA_BYTES + PB_BYTES + ks * 32);
-      wgmma_m64n64k8_rs(part, al[ks], dh, ks > 0);
-      wgmma_m64n64k8_rs(part, ah[ks], dl, 1);
-      wgmma_m64n64k8_rs(part, ah[ks], dh, 1);
-    }
-    wgmma_commit();
-    wgmma_wait0();
+      for (int ks = 0; ks < 4; ++ks) {
+        const uint64_t dh = desc_sw128(st + PA_BYTES + ks * 32);
+        const uint64_t dl = desc_sw128(st + PA_BYTES + PB_BYTES + ks * 32);
+        wgmma_m64n64k8_rs(part, al[ks], dh, ks > 0);
+        wgmma_m64n64k8_rs(part, ah[ks], dl, 1);
+        wgmma_m64n64k8_rs(part, ah[ks], dh, 1);
+      }
+      wgmma_commit();
+      wgmma_wait0();
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      reg_fence(part[i]);
-      acc[i] += part[i];
+      for (int i = 0; i < 32; ++i) {
+        reg_fence(part[i]);
+        acc[i] += part[i];
+      }
+    } else {
+      // A: d (bf16 pairs) times the gate, rounded to bf16 again; a0/a1 hold
+      // columns 2t, 2t + 1 of the 16-deep step, a2/a3 columns 2t + 8, 2t + 9
+      uint32_t a[4][4];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const float* gk = gate_s + kc * KC + ks * 16 + 2 * t;
+        uint32_t r[4];
+        ldsm_x4(smem_addr(st) + a_row * 128 + (((2 * ks + (lj >> 1)) ^ lr) << 4), r);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int o = q < 2 ? 0 : 8;
+          a[ks][q] = pack_bf16(bf16_lo(r[q]) * gk[o], bf16_hi(r[q]) * gk[o + 1]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) reg_fence(acc[i]);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_m64n64k16_bf16_rs(acc, a[ks], desc_sw128(st + PA_BYTES + ks * 32), 1);
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) reg_fence(acc[i]);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
-  // epilogue: stage the 64 x 64 tile over the ring, then 16-byte stores
+  // epilogue: stage the 64 x 64 tile over the ring, then 4-channel stores
   named_sync(1, 128);  // every consumer warp is done with the ring
   float* stg = reinterpret_cast<float*>(ring);
 #pragma unroll
@@ -540,44 +672,50 @@ __global__ void __launch_bounds__(P_THREADS) project_kernel(
       v.w = keep ? v.w * sc.w + bi.w : 0.f;
       const size_t o = ((size_t)b * HWn + p) * Cout + n;
       if (has_skip) {
-        const float4 r = *reinterpret_cast<const float4*>(x + o);
+        const float4 r = load4(x + o);
         v.x += r.x;
         v.y += r.y;
         v.z += r.z;
         v.w += r.w;
       }
-      *reinterpret_cast<float4*>(y + o) = v;
+      store4(y + o, v);
     }
   }
 }
 
 // ---- host ---------------------------------------------------------------------
 
+// The pointers of one call: x, d, y, the weight matrices and the K-major
+// operands in the element type, the scales and biases f32.
 struct Args {
-  const float *x, *w_exp_kt, *s0, *b0, *w_dw, *s1, *b1, *w_se_r, *b_se_r, *w_se_e, *b_se_e,
-      *w_proj_kt, *s2, *b2;
+  const void *x, *w_exp_kt, *w_dw, *w_se_r, *w_se_e, *w_proj_kt;
+  const float *s0, *b0, *s1, *b1, *b_se_r, *b_se_e, *s2, *b2;
   const int* win;
-  float *d, *part, *gate, *y;
+  void* d;
+  float *part, *gate;
+  void* y;
   int B, H, W, Cin, Cmid, Csq, Cout, has_skip;
   cudaStream_t st;
 };
 
 // x (B, H, W, C) as a 4-D tensor map with a box of `cbox` channels over
 // a th x 16 tile's (th + 2p) x (16 + 2p) pixel halo; the 128-byte swizzle for the
-// expand's 32-channel chunks, none where e = x is taken whole into e_s.
+// expand's K chunks, none where e = x is taken whole into e_s.
+template <class T>
 bool x_map(CUtensorMap* map, const Args& a, int cbox, int k, int th, bool swizzle) {
   const int p = k / 2;
   const uint64_t dims[4] = {(uint64_t)a.Cin, (uint64_t)a.W, (uint64_t)a.H, (uint64_t)a.B};
   const uint32_t box[4] = {(uint32_t)cbox, (uint32_t)(TW + 2 * p), (uint32_t)(th + 2 * p), 1};
-  return make_map_f32(map, a.x, 4, dims, box, swizzle);
+  return make_tensor_map(map, Elem<T>::MAP, sizeof(T), a.x, 4, dims, box, swizzle);
 }
 
-// A K-major split weight (2, rows, K) as a 3-D map of 32 x `rows_box`
+// A K-major weight (NW, rows, K) as a 3-D map of (K chunk) x `rows_box`
 // tiles in the 128-byte swizzle.
-bool kt_map(CUtensorMap* map, const float* w, int rows, int K, int rows_box) {
-  const uint64_t dims[3] = {(uint64_t)K, (uint64_t)rows, 2};
-  const uint32_t box[3] = {KC, (uint32_t)rows_box, 1};
-  return make_map_f32(map, w, 3, dims, box, true);
+template <class T>
+bool kt_map(CUtensorMap* map, const void* w, int rows, int K, int rows_box) {
+  const uint64_t dims[3] = {(uint64_t)K, (uint64_t)rows, (uint64_t)Elem<T>::NW};
+  const uint32_t box[3] = {(uint32_t)kchunk<T>(), (uint32_t)rows_box, 1};
+  return make_tensor_map(map, Elem<T>::MAP, sizeof(T), w, 3, dims, box, true);
 }
 
 template <class F>
@@ -585,41 +723,71 @@ cudaError_t set_smem(F* kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int K, bool EXPAND>
+template <int K, bool EXPAND, class T>
 cudaError_t launch_expand_dw(const Args& a) {
   constexpr int TC = dw_tc<EXPAND>(), TH = dw_th<K, EXPAND>();
   CUtensorMap xm, wm;
-  if (!x_map(&xm, a, EXPAND ? KC : TC, K, TH, EXPAND)) return cudaErrorInvalidValue;
+  if (!x_map<T>(&xm, a, EXPAND ? kchunk<T>() : TC, K, TH, EXPAND)) return cudaErrorInvalidValue;
   if (!EXPAND)
     wm = xm;  // unused
-  else if (!kt_map(&wm, a.w_exp_kt, a.Cmid, a.Cin, TC))
+  else if (!kt_map<T>(&wm, a.w_exp_kt, a.Cmid, a.Cin, TC))
     return cudaErrorInvalidValue;
   const int tiles_w = (a.W + TW - 1) / TW, tiles_h = (a.H + TH - 1) / TH;
   const dim3 grid(tiles_h * tiles_w, (a.Cmid + TC - 1) / TC, a.B);
-  constexpr size_t smem = expand_dw_smem<K, EXPAND>();
-  cudaError_t err = set_smem(expand_dw_kernel<K, EXPAND>, smem);
+  constexpr size_t smem = expand_dw_smem<K, EXPAND, T>();
+  cudaError_t err = set_smem(expand_dw_kernel<K, EXPAND, T>, smem);
   if (err != cudaSuccess) return err;
-  expand_dw_kernel<K, EXPAND><<<grid, NT, smem, a.st>>>(xm, wm, a.win, a.s0, a.b0, a.w_dw, a.s1,
-                                                        a.b1, a.d, a.part, a.H, a.W, a.Cin,
-                                                        a.Cmid, tiles_w);
+  expand_dw_kernel<K, EXPAND, T><<<grid, NT, smem, a.st>>>(
+      xm, wm, a.win, a.s0, a.b0, static_cast<const T*>(a.w_dw), a.s1, a.b1,
+      static_cast<T*>(a.d), a.part, a.H, a.W, a.Cin, a.Cmid, tiles_w);
   return cudaGetLastError();
 }
 
+template <class T>
 cudaError_t launch_project(const Args& a) {
   CUtensorMap dmap, wmap;
   const uint64_t ddims[3] = {(uint64_t)a.Cmid, (uint64_t)a.H * a.W, (uint64_t)a.B};
-  const uint32_t dbox[3] = {32, PBM, 1};
-  if (!make_map_f32(&dmap, a.d, 3, ddims, dbox, true) ||
-      !kt_map(&wmap, a.w_proj_kt, a.Cout, a.Cmid, PBN))
+  const uint32_t dbox[3] = {(uint32_t)kchunk<T>(), PBM, 1};
+  if (!make_tensor_map(&dmap, Elem<T>::MAP, sizeof(T), a.d, 3, ddims, dbox, true) ||
+      !kt_map<T>(&wmap, a.w_proj_kt, a.Cout, a.Cmid, PBN))
     return cudaErrorInvalidValue;
   const dim3 grid((a.Cout + PBN - 1) / PBN, (a.H * a.W + PBM - 1) / PBM, a.B);
-  const size_t smem = project_smem(a.Cmid);
-  cudaError_t err = set_smem(project_kernel, smem);
+  const size_t smem = project_smem<T>(a.Cmid);
+  cudaError_t err = set_smem(project_kernel<T>, smem);
   if (err != cudaSuccess) return err;
-  project_kernel<<<grid, P_THREADS, smem, a.st>>>(dmap, wmap, a.gate, a.s2, a.b2, a.x, a.win,
-                                                  a.y, a.H, a.W, a.Cmid, a.Cout, a.has_skip,
-                                                  project_stages(a.Cmid));
+  project_kernel<T><<<grid, P_THREADS, smem, a.st>>>(
+      dmap, wmap, a.gate, a.s2, a.b2, static_cast<const T*>(a.x), a.win, static_cast<T*>(a.y),
+      a.H, a.W, a.Cmid, a.Cout, a.has_skip, project_stages<T>(a.Cmid));
   return cudaGetLastError();
+}
+
+int partials_per_image(int H, int W, int k, int has_expand) {
+  const int th = has_expand && k == 3 ? dw_th<3, true>() : dw_th<5, false>();
+  return ((H + th - 1) / th) * ((W + TW - 1) / TW);
+}
+
+// The three launches on a.st; returns the first launch error (an invalid
+// value when a tensor map is refused), 0 on success.
+template <class T>
+int run(const Args& a, int k, int has_expand) {
+  constexpr int MULT = std::is_same<T, float>::value ? 8 : 16;  // channel granularity
+  if ((k != 3 && k != 5) || a.Cin % MULT || a.Cmid % MULT || a.Cout % MULT)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (k == 3)
+    err = has_expand ? launch_expand_dw<3, true, T>(a) : launch_expand_dw<3, false, T>(a);
+  else
+    err = has_expand ? launch_expand_dw<5, true, T>(a) : launch_expand_dw<5, false, T>(a);
+  if (err != cudaSuccess) return (int)err;
+
+  se_kernel<T><<<a.B, SE_NT, (size_t)(a.Cmid + a.Csq) * sizeof(float), a.st>>>(
+      a.part, partials_per_image(a.H, a.W, k, has_expand), a.win,
+      static_cast<const T*>(a.w_se_r), a.b_se_r, static_cast<const T*>(a.w_se_e), a.b_se_e,
+      a.gate, a.Cmid, a.Csq);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  return (int)launch_project<T>(a);
 }
 
 }  // namespace
@@ -628,8 +796,7 @@ extern "C" {
 
 // SE partial sums per image: the number of expand_dw tiles.
 int mbconv_partials_per_image(int H, int W, int k, int has_expand) {
-  const int th = has_expand && k == 3 ? dw_th<3, true>() : dw_th<5, false>();
-  return ((H + th - 1) / th) * ((W + TW - 1) / TW);
+  return partials_per_image(H, W, k, has_expand);
 }
 
 const char* mbconv_error_string(int code) {
@@ -648,25 +815,26 @@ int mbconv_stride1_f32(const float* x, const int* win, const float* w_exp_kt, co
                        const float* b2, float* d, float* part, float* gate, float* y, int B,
                        int H, int W, int Cin, int Cmid, int Csq, int Cout, int k, int has_expand,
                        int has_skip, void* stream) {
-  if ((k != 3 && k != 5) || Cin % 8 || Cmid % 8 || Cout % 8)
-    return (int)cudaErrorInvalidValue;
-  const Args a{x, w_exp_kt, s0, b0, w_dw, s1, b1, w_se_r, b_se_r, w_se_e, b_se_e, w_proj_kt,
-               s2, b2, win, d, part, gate, y, B, H, W, Cin, Cmid, Csq, Cout, has_skip,
-               (cudaStream_t)stream};
-  cudaError_t err;
-  if (k == 3)
-    err = has_expand ? launch_expand_dw<3, true>(a) : launch_expand_dw<3, false>(a);
-  else
-    err = has_expand ? launch_expand_dw<5, true>(a) : launch_expand_dw<5, false>(a);
-  if (err != cudaSuccess) return (int)err;
+  const Args a{x,  w_exp_kt, w_dw, w_se_r, w_se_e, w_proj_kt, s0, b0, s1, b1, b_se_r, b_se_e,
+               s2, b2,       win,  d,      part,   gate,      y,  B,  H,  W,  Cin,    Cmid,
+               Csq, Cout,    has_skip, (cudaStream_t)stream};
+  return run<float>(a, k, has_expand);
+}
 
-  se_kernel<<<B, SE_NT, (size_t)(Cmid + Csq) * sizeof(float), a.st>>>(
-      part, mbconv_partials_per_image(H, W, k, has_expand), win, w_se_r, b_se_r, w_se_e, b_se_e,
-      gate, Cmid, Csq);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  return (int)launch_project(a);
+// The same at bf16: x, the weight matrices, the K-major operands, d and y
+// bf16 (pointers to __nv_bfloat16), the rest f32.  Every channel count is
+// a multiple of 16.
+int mbconv_stride1_bf16(const void* x, const int* win, const void* w_exp_kt, const float* s0,
+                        const float* b0, const void* w_dw, const float* s1, const float* b1,
+                        const void* w_se_r, const float* b_se_r, const void* w_se_e,
+                        const float* b_se_e, const void* w_proj_kt, const float* s2,
+                        const float* b2, void* d, float* part, float* gate, void* y, int B,
+                        int H, int W, int Cin, int Cmid, int Csq, int Cout, int k,
+                        int has_expand, int has_skip, void* stream) {
+  const Args a{x,  w_exp_kt, w_dw, w_se_r, w_se_e, w_proj_kt, s0, b0, s1, b1, b_se_r, b_se_e,
+               s2, b2,       win,  d,      part,   gate,      y,  B,  H,  W,  Cin,    Cmid,
+               Csq, Cout,    has_skip, (cudaStream_t)stream};
+  return run<bf16>(a, k, has_expand);
 }
 
 }  // extern "C"

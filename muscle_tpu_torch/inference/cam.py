@@ -41,6 +41,8 @@ from muscle_tpu_torch.models.efficientnet import placement_offset
 # stride-2 convs between the input and the CAM-mode stride-16 maps (stem +
 # stages 2-4): the ladder depth for placement_offset
 N_STRIDED_ENC = 4
+# the engines' model dtypes (the JAX package's compute_dtype)
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _scaled_np(orig_sizes, scale: float) -> np.ndarray:
@@ -123,7 +125,10 @@ class CamTTAEngine:
       scales: TTA scales (reference default [0.5, 1, 1.5, 2]).
       out_side: canvas side of the fused output maps (>= max image side).
       max_side: dataset max long side (VOC: 500).
-      compute_dtype: torch.float32 only in this version.
+      compute_dtype: torch.float32 or torch.bfloat16: the model runs in it
+        (the images cast at its input, ``models/layers.py``) and its
+        outputs are cast to float32 straight after it; resizes back,
+        fusion and accumulation stay float32.
       lowres: resize the stride-16 maps with the reference's two-stage
         chain composed into one per-axis matrix (exact); False materialises
         the input-size maps, for cross-checks.
@@ -148,9 +153,8 @@ class CamTTAEngine:
                  return_cam: bool = True, accum_stride: int = 1,
                  download_dtype: str = "float16", tight_upload: bool = False,
                  upload_mode: str = "rgb", device: str | torch.device = "cuda"):
-        if compute_dtype != torch.float32:
-            raise NotImplementedError(
-                f"compute_dtype {compute_dtype} is not supported yet: float32 only")
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {compute_dtype}: float32 or bfloat16")
         if out_side % accum_stride:
             raise ValueError("accum_stride must divide out_side")
         if download_dtype not in ("float16", "uint8"):
@@ -159,6 +163,7 @@ class CamTTAEngine:
             raise ValueError(f"unsupported upload_mode {upload_mode!r}")
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
+        self.compute_dtype = compute_dtype
         self.scales = tuple(scales)
         self.num_classes = num_classes
         self.out_side = out_side
@@ -178,13 +183,19 @@ class CamTTAEngine:
     def _put(self, a) -> torch.Tensor:
         return to_device(a, self.device)
 
+    def _model(self, images: torch.Tensor, **kw):
+        """(cams, sgcs, emb, logits) of the model on ``images`` cast to the
+        compute dtype, the maps and logits cast back to float32."""
+        cams, sgcs, emb, logits = self.model(images.to(self.compute_dtype), **kw)
+        return cams.float(), sgcs.float(), emb, logits.float()
+
     def _forward(self, images: torch.Tensor, win: torch.Tensor):
         """Model maps of one scale's (orig, flip) batch: window-exact
         'cam_lowres' (lowres) or masked full-res 'cam'."""
         if self.lowres:
-            return self.model(images, mode="cam_lowres",
-                              valid_window=win.repeat_interleave(2, dim=0))
-        return self.model(images, mode="cam", valid_hw=win[:, 2:].repeat_interleave(2, dim=0))
+            return self._model(images, mode="cam_lowres",
+                               valid_window=win.repeat_interleave(2, dim=0))
+        return self._model(images, mode="cam", valid_hw=win[:, 2:].repeat_interleave(2, dim=0))
 
     def _map_resizers(self, maps_hw, sizes, dst, canvas_hw, grid: int):
         """Per-image (rows, cols, flipped cols) weights taking the model's
@@ -293,7 +304,7 @@ class CamTTAEngine:
                         arr = T.color_norm(np.asarray(img))
                         batch[2 * j] = arr
                         batch[2 * j + 1] = arr[:, ::-1]
-                    cams, sgcs, _, logits = self.model(self._put(batch), mode="cam")
+                    cams, sgcs, _, logits = self._model(self._put(batch), mode="cam")
                     for acc, maps in ((cam_sum, cams), (sgc_sum, sgcs)):
                         maps = resize_bilinear(maps, (h, w), align_corners=False)
                         maps = maps.reshape(g, 2, *maps.shape[1:])

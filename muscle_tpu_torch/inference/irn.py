@@ -26,6 +26,7 @@ import torch
 
 from muscle_tpu_torch.core.resize import dynamic_window_resize, resize_bilinear
 from muscle_tpu_torch.data import transforms as T
+from muscle_tpu_torch.inference.cam import COMPUTE_DTYPES
 from muscle_tpu_torch.ops.random_walk import propagate_to_edge
 
 
@@ -64,7 +65,9 @@ class RandomWalkRefiner:
       fast_io: the fast IO mode (module docstring).
       max_classes: fast_io per-image class budget floor; a group's budget
         is its largest CAM dict, so no class is ever dropped.
-      compute_dtype: torch.float32 only in this version.
+      compute_dtype: torch.float32 or torch.bfloat16: the edge model runs
+        in it and the edge map is cast to float32 straight after it; the
+        walk stays float32 (its (1 - e)^beta amplifies low-bit noise).
       output: 'scores' or 'labels' (fast_io only).
       device: where the model and the walk run: 'cuda' (default) or 'cpu'.
       walk_kernel: None = the walk's CUDA kernel on a card, its plain
@@ -78,15 +81,15 @@ class RandomWalkRefiner:
                  fast_io: bool = False, max_classes: int = 4, compute_dtype=torch.float32,
                  output: str = "scores", device: str | torch.device = "cuda",
                  walk_kernel: bool | None = None):
-        if compute_dtype != torch.float32:
-            raise NotImplementedError(
-                f"compute_dtype {compute_dtype} is not supported yet: float32 only")
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {compute_dtype}: float32 or bfloat16")
         if output not in ("scores", "labels"):
             raise ValueError(f"unsupported output {output!r}")
         if output == "labels" and not fast_io:
             raise ValueError("output='labels' requires fast_io=True")
         self.device = torch.device(device)
         self.model = irn_model.to(self.device).eval()
+        self.compute_dtype = compute_dtype
         self.beta = beta
         self.exp_times = exp_times
         self.bg_threshold = bg_threshold
@@ -118,7 +121,8 @@ class RandomWalkRefiner:
         canvas resolution (or at the walk grid with ``cams_at_grid``),
         sizes (B, 2) valid (H, W).  Returns (B, 20, grid, grid) walk output."""
         grid = crop // self.stride
-        edge = self.model.edge(pairs, valid_hw=sizes, crop_size=crop)
+        edge = self.model.edge(pairs.to(self.compute_dtype), valid_hw=sizes,
+                               crop_size=crop).float()
         ehw = (sizes - 1) // self.stride + 1
         fvalid = _window(grid, ehw)
         edge = torch.where(fvalid, edge, torch.ones_like(edge))  # walls outside the window

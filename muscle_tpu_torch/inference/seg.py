@@ -24,7 +24,7 @@ import torch
 from muscle_tpu_torch.core.resize import dynamic_window_resize
 from muscle_tpu_torch.data import transforms as T
 from muscle_tpu_torch.data.tta import msf_batch, scaled_size
-from muscle_tpu_torch.inference.cam import _batch_canvas, _valid, scaled_pairs
+from muscle_tpu_torch.inference.cam import COMPUTE_DTYPES, _batch_canvas, _valid, scaled_pairs
 from muscle_tpu_torch.inference.upload import start_download, to_device
 from muscle_tpu_torch.models.efficientnet import advance_window, placement_offset
 
@@ -42,7 +42,9 @@ class SegTTAEngine:
       scales: TTA scales (the reference's six).
       out_side: canvas side of the fused output (>= max image side).
       max_side: dataset max long side (VOC: 500).
-      compute_dtype: torch.float32 only in this version.
+      compute_dtype: torch.float32 or torch.bfloat16: the model runs in it
+        and its logits are cast to float32 straight after it; the
+        upsample, softmax and accumulation stay float32.
       device_tta: see the module docstring.
       accum_stride: 1 accumulates the mean probabilities at the full
         original resolution; N > 1 on an out_side/N grid, upsampled to the
@@ -65,9 +67,8 @@ class SegTTAEngine:
                  download_dtype: str = "float32", tight_upload: bool = True,
                  upload_mode: str = "ycbcr420", mesh=None, shard_spatial: bool = False,
                  output: str = "probs", device: str | torch.device = "cuda"):
-        if compute_dtype != torch.float32:
-            raise NotImplementedError(
-                f"compute_dtype {compute_dtype} is not supported yet: float32 only")
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {compute_dtype}: float32 or bfloat16")
         if mesh is not None or shard_spatial:
             raise NotImplementedError("mesh / shard_spatial (several devices) are not ported")
         if out_side % accum_stride:
@@ -83,6 +84,7 @@ class SegTTAEngine:
                              "(the argmax runs on the device)")
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
+        self.compute_dtype = compute_dtype
         self.scales = tuple(scales)
         self.num_classes = num_classes
         self.out_side = out_side
@@ -115,7 +117,9 @@ class SegTTAEngine:
         place."""
         ch, cw = canvas_hw
         win = torch.cat([off, sizes], dim=-1)
-        seg, _ = self.model(images, mode="seg_lowres", valid_window=win.repeat_interleave(2, dim=0))
+        seg, _ = self.model(images.to(self.compute_dtype), mode="seg_lowres",
+                            valid_window=win.repeat_interleave(2, dim=0))
+        seg = seg.float()
         # stride-8 logits -> input-size logits, the reference's seg_map (exact:
         # the 1x1 head commutes with the bilinear upsample)
         boxes = win

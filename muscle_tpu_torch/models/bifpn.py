@@ -19,6 +19,12 @@ their running variance with the biased batch variance, as the backbone's
 do.  ``up`` is an align_corners=True bilinear resize to the target
 level's size.
 
+Compute dtype: the decoder runs in its inputs' dtype (float32 or
+bfloat16, ``models/layers.py``).  The window resizes and pools take float32
+weights, so at bfloat16 their outputs, and the sums they enter, promote to
+float32 as in the JAX package; each conv's input is cast back to the
+compute dtype, where Flax's ``nn.Conv(dtype=bf16)`` casts it.
+
 Window-exact mode (``windows``): every conv is 1x1, so a padded canvas can
 only leak into the valid windows through the upsamples and the pools.
 Given per-level windows, those become per-image window resizes and window
@@ -44,20 +50,22 @@ from muscle_tpu_torch.core.resize import (
     resize_to,
 )
 from muscle_tpu_torch.models.efficientnet import BatchNorm2d
+from muscle_tpu_torch.models.layers import Conv2d
 from muscle_tpu_torch.ops.mbconv import window_mask
 
 
 class ConvBNSwish(nn.Sequential):
     """1x1 conv (with bias), optional BatchNorm (eps 1e-5), swish;
-    NHWC in and out."""
+    NHWC in and out, computing in ``dtype`` (default: x's)."""
 
     def __init__(self, cin: int, cout: int, use_bn: bool = True):
-        layers = [nn.Conv2d(cin, cout, 1)]
+        layers = [Conv2d(cin, cout, 1)]
         if use_bn:
             layers.append(BatchNorm2d(cout))
         super().__init__(*layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+        x = x if dtype is None else x.to(dtype)
         return F.silu(super().forward(x.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
 
 
@@ -95,21 +103,24 @@ class BiFPNLayer(nn.Module):
             p7_out = self.out7(p7 + p6_out)
             return [p3_out, p4_out, p5_out, p6_out, p7_out]
 
+        # the resizes' outputs are f32 (promoted); each conv computes in dt
+        dt = p3.dtype
         w3, w4, w5, w6, _ = windows
         m3, m4, m5, m6, m7 = masks
         p6_mid = self.convp67(_cat(p6, p7)) * m6
         up65 = batched_window_resize_ac(p6_mid, w6, w5, _hw(p5))
-        p5_mid = self.convp56(_cat(p5, up65)) * m5
+        p5_mid = self.convp56(_cat(p5, up65), dt) * m5
         p4_mid = self.convp45(_cat(p4, p5)) * m4
         up43 = batched_window_resize_ac(p4_mid, w4, w3, _hw(p3))
-        p3_out = self.convp34(_cat(p3, up43)) * m3
+        p3_out = self.convp34(_cat(p3, up43), dt) * m3
         pool3, pw3 = batched_window_avgpool_s2(p3_out, w3, _hw(p4))
-        p4_out = self.out4(p4 + p4_mid + batched_window_resize_ac(pool3, pw3, w4, _hw(p4))) * m4
+        p4_out = self.out4(p4 + p4_mid + batched_window_resize_ac(pool3, pw3, w4, _hw(p4)),
+                           dt) * m4
         p5_out = self.out5(p5 + p5_mid + p4_out) * m5
         if self.last_pooling:
             pool5, pw5 = batched_window_avgpool_s2(p5_out, w5, _hw(p6))
             p6_out = self.out6(
-                p6 + p6_mid + batched_window_resize_ac(pool5, pw5, w6, _hw(p6))) * m6
+                p6 + p6_mid + batched_window_resize_ac(pool5, pw5, w6, _hw(p6)), dt) * m6
         else:
             p6_out = self.out6(p6 + p6_mid + p5_out) * m6
         p7_out = self.out7(p7 + p6_out) * m7

@@ -21,7 +21,11 @@ is the layout cuDNN and the MBConv kernel both want.
   image's window after every BN so a padded canvas computes what the
   reference computes on the unpadded image;
 * ``fuse_max_in_filters`` runs eligible stride-1 blocks in inference
-  (eval mode, no autograd) through the MBConv kernel (ops/mbconv.py).
+  (eval mode, no autograd) through the MBConv kernel (ops/mbconv.py);
+* the forward computes in its input's dtype, float32 or bfloat16, with
+  float32 parameters, as Flax's ``dtype=bf16`` does (``models/layers.py``):
+  convolutions and their outputs in bf16, batch norms in f32 rounded to
+  bf16, masks and the SE mean in bf16.
 """
 
 from __future__ import annotations
@@ -34,7 +38,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from muscle_tpu_torch.ops.mbconv import fold_bn, kernel_operands, mbconv_stride1, window_mask
+from muscle_tpu_torch.models.layers import Conv2d, norm_in_f32
+from muscle_tpu_torch.ops.mbconv import (
+    MATRIX_WEIGHTS,
+    fold_bn,
+    kernel_operands,
+    mbconv_stride1,
+    window_mask,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,9 +163,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train-mode update of ``running_var`` takes
     the biased batch variance, as Flax's ``BatchNorm`` does (torch's takes
     the unbiased one).  Normalisation is unchanged: both normalise with
-    the biased variance."""
+    the biased variance.  A bfloat16 input is normalised in float32 and the
+    output rounded to bfloat16, as Flax's ``BatchNorm(dtype=bf16)``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return norm_in_f32(self._forward_f32, x)
+
+    def _forward_f32(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
         self.num_batches_tracked.add_(1)
@@ -194,10 +209,10 @@ class MBConvBlock(nn.Module):
         self.args = args
         cin, oup = args.input_filters, args.input_filters * args.expand_ratio
         if args.expand_ratio != 1:
-            self._expand_conv = nn.Conv2d(cin, oup, 1, bias=False)
+            self._expand_conv = Conv2d(cin, oup, 1, bias=False)
             self._bn0 = _bn(oup)
         k = args.kernel_size
-        self._depthwise_conv = nn.Conv2d(
+        self._depthwise_conv = Conv2d(
             oup, oup, k, stride=args.stride, groups=oup, bias=False,
             padding=k // 2 if args.stride == 1 else 0,
         )
@@ -205,12 +220,11 @@ class MBConvBlock(nn.Module):
         self.has_se = args.se_ratio is not None and 0 < args.se_ratio <= 1
         if self.has_se:
             squeezed = max(1, int(cin * args.se_ratio))
-            self._se_reduce = nn.Conv2d(oup, squeezed, 1)
-            self._se_expand = nn.Conv2d(squeezed, oup, 1)
-        self._project_conv = nn.Conv2d(oup, args.output_filters, 1, bias=False)
+            self._se_reduce = Conv2d(oup, squeezed, 1)
+            self._se_expand = Conv2d(squeezed, oup, 1)
+        self._project_conv = Conv2d(oup, args.output_filters, 1, bias=False)
         self._bn2 = _bn(args.output_filters)
-        self._fused_key = None
-        self._fused = None
+        self._fused = {}  # dtype -> (key, weights)
 
     def fusable(self) -> bool:
         """Whether the MBConv kernel can run this block: stride 1,
@@ -221,27 +235,29 @@ class MBConvBlock(nn.Module):
                 and self.has_se
                 and (a.id_skip or a.input_filters != a.output_filters))
 
-    def fused_weights(self) -> dict:
-        """The block's weights as ``ops.mbconv.mbconv_stride1`` takes them:
-        1x1 kernels as (in, out) matrices, the depthwise kernel as
-        (k*k, C), the batch norms folded to scale and bias, and on a card
-        the kernel's extra operands (``kernel_operands``).  Cached until
-        a parameter or statistic changes (their version counters move);
-        refolding on every forward costs ~15 small launches per block.
-        Modules built under inference mode keep no version counters and
-        refold every time."""
+    def fused_weights(self, dtype: torch.dtype = torch.float32) -> dict:
+        """The block's weights as ``ops.mbconv.mbconv_stride1`` takes them
+        for a ``dtype`` forward: 1x1 kernels as (in, out) matrices, the
+        depthwise kernel as (k*k, C), the batch norms folded to float32
+        scale and bias, the matrices (``MATRIX_WEIGHTS``) in ``dtype``, and
+        on a card the kernel's extra operands (``kernel_operands``).
+        Cached per dtype until a parameter or statistic changes (their
+        version counters move); refolding on every forward costs ~15 small
+        launches per block.  Modules built under inference mode keep no
+        version counters and refold every time."""
         srcs = [t for _, t in self.named_parameters()] + [
             t for n, t in self.named_buffers() if not n.endswith("num_batches_tracked")]
         key = None
         if not any(t.is_inference() for t in srcs):
             key = tuple((t.data_ptr(), t._version) for t in srcs)
-        if key is None or key != self._fused_key:
-            self._fused = self._fold()
-            self._fused_key = key
-        return self._fused
+        hit = self._fused.get(dtype)
+        if key is None or hit is None or hit[0] != key:
+            hit = (key, self._fold(dtype))
+            self._fused[dtype] = hit
+        return hit[1]
 
     @torch.no_grad()
-    def _fold(self) -> dict:
+    def _fold(self, dtype: torch.dtype) -> dict:
         a = self.args
         cin, cmid, cout = a.input_filters, a.input_filters * a.expand_ratio, a.output_filters
         k = a.kernel_size
@@ -265,8 +281,9 @@ class MBConvBlock(nn.Module):
         wd["b_se_e"] = self._se_expand.bias
         wd["w_proj"] = t(self._project_conv.weight, cmid, cout)
         wd["s2"], wd["b2"] = bn(self._bn2)
-        wd = {n: v.detach().contiguous() for n, v in wd.items()}
-        if wd["w_proj"].is_cuda:  # the kernel's K-major split 1x1 weights
+        wd = {n: v.detach().to(dtype if n in MATRIX_WEIGHTS else torch.float32).contiguous()
+              for n, v in wd.items()}
+        if wd["w_proj"].is_cuda:  # the kernel's K-major 1x1 weights
             wd.update(kernel_operands(wd, a.expand_ratio != 1))
         return wd
 
@@ -275,9 +292,10 @@ class MBConvBlock(nn.Module):
                 se_count: torch.Tensor | None = None, fused: bool = False,
                 window: torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """x: NHWC.  mask_in/mask_out: optional (N, H, W, 1) valid-window
-        indicators at the block's input/output resolution, se_count the
-        per-image valid pixel count (N, 1, 1, 1) for a masked SE mean.
+        """x: NHWC, float32 or bfloat16 (the compute dtype).  mask_in/mask_out:
+        optional (N, H, W, 1) valid-window indicators at the block's
+        input/output resolution, se_count the per-image valid pixel count
+        (N, 1, 1, 1) for a masked SE mean, all in x's dtype.
         fused: run the block through the MBConv kernel when ``fusable``;
         ``window`` is the (N, 4) scalar form of the masks it takes.
         drop_rate, generator: the training-mode drop-connect and where it
@@ -287,7 +305,7 @@ class MBConvBlock(nn.Module):
             if window is not None:
                 window = window.to(torch.int32).contiguous()
             return mbconv_stride1(
-                x.contiguous(), self.fused_weights(), window, k=a.kernel_size,
+                x.contiguous(), self.fused_weights(x.dtype), window, k=a.kernel_size,
                 has_expand=a.expand_ratio != 1,
                 has_skip=a.input_filters == a.output_filters,
             )
@@ -334,13 +352,14 @@ class EfficientNet(nn.Module):
         # through the MBConv kernel in inference (0 disables)
         self.fuse_max_in_filters = fuse_max_in_filters
         stem = round_filters(32, _SCALING[model_name][0])
-        self._conv_stem = nn.Conv2d(3, stem, 3, stride=2, bias=False)
+        self._conv_stem = Conv2d(3, stem, 3, stride=2, bias=False)
         self._bn0 = _bn(stem)
         self._blocks = nn.ModuleList(MBConvBlock(a) for a in self.block_args)
 
     def forward(self, x: torch.Tensor, valid_window: torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> list[torch.Tensor]:
-        """x: (N, H, W, 3).  valid_window: optional (N, 4) int
+        """x: (N, H, W, 3), in the compute dtype (float32 or bfloat16; every
+        block output comes back in it).  valid_window: optional (N, 4) int
         (oy, ox, h, w) per-image windows inside the canvas, with (oy, ox)
         from placement_offset(); features are re-zeroed outside the
         per-stage window after every BN and SE pools over the window, which

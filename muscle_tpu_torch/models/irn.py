@@ -10,6 +10,9 @@ runs the net once, and fuses ``sigmoid(e0/2 + flip(e1)/2)``.
 Keys follow the reference: ``resnet50.*``, ``fc_edge{1..5}.{0,1}``,
 ``fc_edge6.{weight,bias}``, ``fc_dp{1..6}.{0,1}``, ``fc_dp7.{0,1,3}``,
 ``mean_shift.running_mean``.  Heads run NCHW; the wrapper takes NHWC.
+The net computes in its input's dtype, float32 or bfloat16
+(``models/layers.py``): group norms in float32 rounded to it, the heads'
+upsamples with interpolation matrices in it.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from muscle_tpu_torch.core.resize import resize_bilinear
+from muscle_tpu_torch.models.layers import Conv2d, GroupNorm
 from muscle_tpu_torch.models.resnet50 import ResNet50
 
 
@@ -34,7 +38,7 @@ class _ConvGN(nn.Sequential):
     upsample and ReLU."""
 
     def __init__(self, cin: int, cout: int, groups: int, upsample: int = 1):
-        super().__init__(nn.Conv2d(cin, cout, 1, bias=False), nn.GroupNorm(groups, cout, eps=1e-5))
+        super().__init__(Conv2d(cin, cout, 1, bias=False), GroupNorm(groups, cout, eps=1e-5))
         self.upsample = upsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -68,16 +72,16 @@ class IRNNet(nn.Module):
         self.fc_edge3 = _ConvGN(512, 32, 4, upsample=2)
         self.fc_edge4 = _ConvGN(1024, 32, 4, upsample=4)
         self.fc_edge5 = _ConvGN(2048, 32, 4, upsample=4)
-        self.fc_edge6 = nn.Conv2d(160, 1, 1, bias=True)
+        self.fc_edge6 = Conv2d(160, 1, 1, bias=True)
         self.fc_dp1 = _ConvGN(64, 64, 8)
         self.fc_dp2 = _ConvGN(256, 128, 16)
         self.fc_dp3 = _ConvGN(512, 256, 16)
         self.fc_dp4 = _ConvGN(1024, 256, 16, upsample=2)
         self.fc_dp5 = _ConvGN(2048, 256, 16, upsample=2)
         self.fc_dp6 = _ConvGN(768, 256, 16, upsample=2)
-        self.fc_dp7 = nn.Sequential(nn.Conv2d(448, 256, 1, bias=False),
-                                    nn.GroupNorm(16, 256, eps=1e-5), nn.ReLU(),
-                                    nn.Conv2d(256, 2, 1, bias=False))
+        self.fc_dp7 = nn.Sequential(Conv2d(448, 256, 1, bias=False),
+                                    GroupNorm(16, 256, eps=1e-5), nn.ReLU(),
+                                    Conv2d(256, 2, 1, bias=False))
         self.mean_shift = _MeanShift(2)
 
     def head_parameters(self) -> list[nn.Parameter]:

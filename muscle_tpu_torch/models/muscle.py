@@ -16,6 +16,14 @@ and of a 'dec' model:
   'seg'        -> (seg_map, dense_ft)        both at input H x W
   'seg_lowres' -> (logits, p3_dec)           at the stride-8 p3 grid
   'vis'        -> (seg_map, p7)
+
+The model computes in its input's dtype (float32, or bfloat16 as the JAX
+package's ``dtype=jnp.bfloat16``; ``models/layers.py``).  At bfloat16, as
+under jnp's promotion: the CAMs (the bf16 p7 against the f32 classifier
+kernel), the SGC (the f32 CAMs against the bf16 affinity) and the logits
+come out float32; the embedding, the seg maps and the dense features
+bfloat16; the window resizes promote to float32 and the next convolution
+casts back to bfloat16.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from torch import nn
 from muscle_tpu_torch.core.resize import batched_window_resize_ac, resize_bilinear, resize_to
 from muscle_tpu_torch.models.bifpn import BiFPN
 from muscle_tpu_torch.models.efficientnet import EfficientNet, advance_window, window_mask
+from muscle_tpu_torch.models.layers import Conv2d
 
 # Per-variant pyramid: (channels p1..p7, block indices p1..p7)
 ENC_MODES = ("logits", "cam", "pix", "cam_lowres")
@@ -65,13 +74,13 @@ class MuSCLe(nn.Module):
         p1_ch, _, p3_ch, _, p5_ch, _, p7_ch = channels
         if mode == "enc":
             # PCM embedding projection + bias-free classifier
-            self.fuse = nn.Conv2d(p1_ch + p3_ch + p5_ch, 128, 1)
+            self.fuse = Conv2d(p1_ch + p3_ch + p5_ch, 128, 1)
             self.fc = nn.Linear(p7_ch, num_classes, bias=False)
         else:
             self.BIFPN = BiFPN(channels[2:], bifpn_channels, bifpn_layers, last_pooling)
         # defined in both modes by the reference, so checkpoints trained in
         # one mode load in the other
-        self.fuse_dec = nn.Conv2d(bifpn_channels, num_classes, 1)
+        self.fuse_dec = Conv2d(bifpn_channels, num_classes, 1)
 
     def trained_parameters(self) -> list[nn.Parameter]:
         """The parameters the mode's network uses, those the JAX package's
@@ -81,15 +90,22 @@ class MuSCLe(nn.Module):
 
     def _cams(self, p7: torch.Tensor) -> torch.Tensor:
         """Per-class weighted sum of p7 channels by the detached classifier
-        weights, rectified."""
-        return F.relu(torch.einsum("nhwc,kc->nhwk", p7, self.fc.weight.detach()))
+        weights, rectified; float32 (a bf16 p7 promotes to the f32 kernel's
+        dtype)."""
+        return F.relu(torch.einsum("nhwc,kc->nhwk", p7.float(), self.fc.weight.detach()))
+
+    def _logits(self, emb: torch.Tensor) -> torch.Tensor:
+        """The classifier on float32 ``emb`` (a bf16 embedding promotes)."""
+        return self.fc(emb.float())
 
     def pcm(self, cam: torch.Tensor, f: torch.Tensor, mask: torch.Tensor | None = None
             ) -> torch.Tensor:
         """Pixel Correlation Module.  cam: (N, h, w, C) raw CAMs at p7
         resolution; f: (N, h, w, F) detached fused features; mask: optional
         (N, h, w, 1) valid-feature mask that removes pad pixels from the
-        affinity and its normalisation.  Returns the SGC, shaped like cam."""
+        affinity and its normalisation.  Returns the SGC, shaped like cam.
+        The affinity computes in f's dtype (the compute dtype) and the SGC
+        promotes to cam's (float32)."""
         n, h, w, _ = f.shape
         cam = resize_bilinear(cam, (h, w), align_corners=True)
         f = _conv_nhwc(self.fuse, f).reshape(n, h * w, -1)
@@ -98,7 +114,7 @@ class MuSCLe(nn.Module):
             f = f * mask.reshape(n, h * w, 1)
         aff = F.relu(torch.bmm(f, f.transpose(1, 2)))
         aff = aff / (torch.sum(aff, dim=1, keepdim=True) + 1e-5)
-        sgc = torch.bmm(aff.transpose(1, 2), cam.reshape(n, h * w, -1))
+        sgc = torch.bmm(aff.transpose(1, 2).to(cam.dtype), cam.reshape(n, h * w, -1))
         return sgc.reshape(n, h, w, -1)
 
     def _feature_mask(self, p7: torch.Tensor, hh: int, valid_hw: torch.Tensor) -> torch.Tensor:
@@ -134,7 +150,7 @@ class MuSCLe(nn.Module):
 
         if mode == "logits":
             emb = p7.mean(dim=(1, 2))
-            return emb, self.fc(emb)
+            return emb, self._logits(emb)
 
         cams = self._cams(p7)
         hw7 = (p7.shape[1], p7.shape[2])
@@ -148,7 +164,8 @@ class MuSCLe(nn.Module):
         else:
             f1 = F.relu(resize_to(p1, p7, align_corners=True))
             f2 = F.relu(resize_to(p3, p7, align_corners=True))
-        fs = torch.cat([f1, f2, F.relu(p5)], dim=-1).detach()
+        # the window resizes promote to f32; the embedding conv casts back
+        fs = torch.cat([f1, f2, F.relu(p5)], dim=-1).detach().to(p7.dtype)
         if valid_window is not None or valid_hw is not None:
             if valid_window is not None:
                 m = window_mask(hw7, w16, p7.dtype)
@@ -160,12 +177,12 @@ class MuSCLe(nn.Module):
             sgc = self.pcm(cams, fs)
             emb = p7.mean(dim=(1, 2))
         if mode == "cam_lowres":
-            return cams, sgc, emb, self.fc(emb)
+            return cams, sgc, emb, self._logits(emb)
         cams = resize_bilinear(cams, (hh, ww), align_corners=True)
         sgc = resize_bilinear(sgc, (hh, ww), align_corners=True)
         if mode == "pix":
             return cams, sgc
-        return cams, sgc, emb, self.fc(emb)
+        return cams, sgc, emb, self._logits(emb)
 
     def _decode(self, feats5, mode: str, hh: int, ww: int, valid_window):
         """BiFPN + segmentation head over p3..p7.  With ``valid_window``
@@ -194,7 +211,7 @@ class MuSCLe(nn.Module):
             dense_ft = batched_window_resize_ac(p3_dec, windows[0], dst_win, (hh, ww))
         else:
             dense_ft = resize_bilinear(p3_dec, (hh, ww), align_corners=True)
-        seg_map = _conv_nhwc(self.fuse_dec, dense_ft)
+        seg_map = _conv_nhwc(self.fuse_dec, dense_ft.to(p3_dec.dtype))
         if mode == "vis":
             return seg_map, feats5[-1]
         return seg_map, dense_ft

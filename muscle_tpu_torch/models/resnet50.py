@@ -9,6 +9,10 @@ the IRN wrapper (``models/irn.py``) takes NHWC at its boundary.
 
 Keys follow the reference: ``conv1``, ``bn1``, ``layer{1..4}.{i}.conv{1,2,3}``,
 ``bn{1,2,3}``, ``downsample.{0,1}``.
+
+The net computes in its input's dtype, float32 or bfloat16
+(``models/layers.py``): convolutions in it, batch norms in float32 rounded
+to it.
 """
 
 from __future__ import annotations
@@ -19,17 +23,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from muscle_tpu_torch.models.layers import Conv2d, norm_in_f32
+
 
 class FixedBatchNorm(nn.BatchNorm2d):
-    """BatchNorm that always applies its running statistics (eps 1e-5)."""
+    """BatchNorm that always applies its running statistics (eps 1e-5), in
+    float32, its output in the input's dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            training=False, momentum=0.0, eps=self.eps)
+        return norm_in_f32(
+            lambda v: F.batch_norm(v, self.running_mean, self.running_var, self.weight,
+                                   self.bias, training=False, momentum=0.0, eps=self.eps), x)
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+def _conv(cin: int, cout: int, k: int, stride: int = 1) -> Conv2d:
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
 
 
 class Bottleneck(nn.Module):
@@ -60,7 +68,7 @@ class ResNet50(nn.Module):
 
     def __init__(self, strides: Sequence[int] = (2, 2, 2, 1)):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=strides[0], padding=3, bias=False)
+        self.conv1 = Conv2d(3, 64, 7, stride=strides[0], padding=3, bias=False)
         self.bn1 = FixedBatchNorm(64)
         cin = 64
         for i, (planes, blocks, stride) in enumerate(

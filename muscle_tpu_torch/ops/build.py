@@ -50,6 +50,11 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu``'s library is built (for reading its SASS)."""
+    return _target(name)
+
+
 def _start(name: str):
     """Start nvcc for ``csrc/<name>.cu`` unless its library is built;
     returns (target, process or None)."""

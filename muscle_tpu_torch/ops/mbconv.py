@@ -7,20 +7,25 @@ BN1 + swish, squeeze-excite over the valid window, project 1x1 + BN2, the
 window mask after every BN, and the residual iff Cin == Cout.  The kernel
 (``csrc/mbconv.cu``) runs it as three launches: expand + depthwise with SE
 partial sums, the SE gate, and the project with BN2, the mask and the
-residual in its epilogue.  Its 1x1 products run on the tensor cores in the
-3xTF32 split (f32 accuracy).  The depthwise output ``d`` goes to HBM once
+residual in its epilogue.  At float32 its 1x1 products run on the tensor
+cores in the 3xTF32 split (f32 accuracy); at bfloat16 (the Pallas kernel's
+``compute_dtype=bf16`` instantiation) as one bf16 product each, with f32
+accumulation.  The depthwise output ``d`` goes to HBM once, in x's dtype,
 and comes back through a TMA ring into the project's ``wgmma``.
 
 Bounds on an H100 SXM, bytes = x in + y out + the weights (the ideal
 kernel keeps the expanded map on chip): ``bound_ms`` takes every FLOP on
 the f32 pipes (67 TFLOP/s, ``block_work``); ``bound_tc_ms`` takes the 1x1
-products on the tensor cores at 495/3 TFLOP/s (three tf32 products each)
-and the depthwise on the f32 pipes (``block_flops``).  PERF.md holds the
-kernel's times against both.
+products on the tensor cores, at 495/3 TFLOP/s in f32 (three tf32
+products each) or 989 TFLOP/s in bf16, and the depthwise on the f32 pipes
+(``block_flops``).  PERF.md holds the kernel's times against both.
 
-Layout: NHWC float32, like the JAX package.  The BNs arrive folded to
-(scale, bias) pairs (``fold_bn``).  Channel counts that are not multiples
-of 8 are zero-padded for the kernel (exact; TMA wants 16-byte strides).
+Layout: NHWC, like the JAX package; x and y float32 or bfloat16.  The BNs
+arrive folded to float32 (scale, bias) pairs (``fold_bn``); at bfloat16
+the five weight matrices (``MATRIX_WEIGHTS``) are bfloat16 and the scales
+and biases stay float32, as the Pallas kernel takes them.  Channel counts
+are zero-padded for the kernel to multiples of 8 (f32) or 16 (bf16)
+(exact; TMA wants 16-byte strides, bf16 ``wgmma`` 16-deep K steps).
 """
 
 from __future__ import annotations
@@ -40,9 +45,14 @@ WEIGHT_SHAPES = {
     "w_proj": ("Cmid", "Cout"), "s2": ("Cout",), "b2": ("Cout",),
 }
 
+# the weights that take the compute dtype; the scales and biases stay f32
+MATRIX_WEIGHTS = ("w_exp", "w_dw", "w_se_r", "w_se_e", "w_proj")
+DTYPES = (torch.float32, torch.bfloat16)
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12    # H100 SXM data sheet, f32 outside the tensor cores
 TC_3XTF32_FLOPS_PER_S = 495e12 / 3  # H100 SXM dense TF32, three products per f32 one
+TC_BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16
 
 
 def fold_bn(weight, bias, mean, var, eps: float):
@@ -74,7 +84,9 @@ def mbconv_stride1_plain(x, weights, window, *, k: int, has_expand: bool,
                          has_skip: bool) -> torch.Tensor:
     """The block in plain PyTorch ops, with the kernel's folding and
     masking: the CPU path of ``mbconv_stride1`` and its reference on the
-    card."""
+    card.  A bfloat16 ``x`` takes the bf16 version (``_plain_bf16``)."""
+    if x.dtype == torch.bfloat16:
+        return _plain_bf16(x, weights, window, k=k, has_expand=has_expand, has_skip=has_skip)
     b, h, w, _ = x.shape
     win = full_window(x) if window is None else window
     mask = window_mask((h, w), win)
@@ -98,10 +110,50 @@ def mbconv_stride1_plain(x, weights, window, *, k: int, has_expand: bool,
     return y
 
 
+def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w of bf16 operands with f32 accumulation: the bf16 products are
+    exact in f32, so this is the tensor cores' product."""
+    return a.float() @ w.float()
+
+
+def _plain_bf16(x, wd, window, *, k: int, has_expand: bool, has_skip: bool) -> torch.Tensor:
+    """The Pallas kernel's ``compute_dtype=bf16`` instantiation: bf16
+    operands of every product with f32 accumulation, BN / swish / masks in
+    f32, the masked expand output and ``d`` rounded to bf16, each
+    depthwise product rounded to bf16 before the f32 sum, the SE partial
+    sums from f32 ``d``, the SE FCs' inputs and the gated ``d`` rounded to
+    bf16, the residual added in f32 and y rounded once."""
+    bf16 = torch.bfloat16
+    b, h, w, _ = x.shape
+    win = full_window(x) if window is None else window
+    mask = window_mask((h, w), win)
+    if has_expand:
+        e = F.silu(_mm(x, wd["w_exp"]) * wd["s0"] + wd["b0"])
+    else:
+        e = x.float()
+    e = (e * mask).to(bf16)
+    p = k // 2
+    ep = F.pad(e, (0, 0, p, p, p, p))
+    acc = torch.zeros(e.shape, dtype=torch.float32, device=x.device)
+    for ky in range(k):
+        for kx in range(k):
+            acc += ep[:, ky:ky + h, kx:kx + w] * wd["w_dw"][ky * k + kx]
+    d = F.silu(acc * wd["s1"] + wd["b1"]) * mask
+    count = (win[:, 2] * win[:, 3]).to(torch.float32)[:, None]
+    se = d.sum(dim=(1, 2)) / count
+    sq = F.silu(_mm(se.to(bf16), wd["w_se_r"]) + wd["b_se_r"])
+    gate = torch.sigmoid(_mm(sq.to(bf16), wd["w_se_e"]) + wd["b_se_e"])
+    dg = (d.to(bf16).float() * gate[:, None, None, :]).to(bf16)
+    y = (_mm(dg, wd["w_proj"]) * wd["s2"] + wd["b2"]) * mask
+    if has_skip:
+        y = y + x.float()
+    return y.to(bf16)
+
+
 def _check(x: torch.Tensor, weights: dict, window, k: int, has_expand: bool,
            has_skip: bool) -> dict:
-    if x.dtype != torch.float32 or x.ndim != 4 or not x.is_contiguous():
-        raise ValueError("mbconv_stride1 takes a contiguous float32 NHWC tensor, "
+    if x.dtype not in DTYPES or x.ndim != 4 or not x.is_contiguous():
+        raise ValueError("mbconv_stride1 takes a contiguous float32 or bfloat16 NHWC tensor, "
                          f"got {x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
     if k not in (3, 5):
         raise ValueError(f"mbconv_stride1 supports k in (3, 5), got {k}")
@@ -112,9 +164,10 @@ def _check(x: torch.Tensor, weights: dict, window, k: int, has_expand: bool,
     for n in names:
         t = weights[n]
         want = tuple(dims[s] for s in WEIGHT_SHAPES[n])
-        if (t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous()
+        dtype = x.dtype if n in MATRIX_WEIGHTS else torch.float32
+        if (t.device != x.device or t.dtype != dtype or not t.is_contiguous()
                 or tuple(t.shape) != want):
-            raise ValueError(f"weight {n}: want contiguous float32 {want} on {x.device}, "
+            raise ValueError(f"weight {n}: want contiguous {dtype} {want} on {x.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     if not has_expand and dims["Cmid"] != cin:
         raise ValueError("a block without expand has Cmid == Cin")
@@ -133,8 +186,9 @@ def _lib():
     lib = build.load("mbconv")
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.mbconv_stride1_f32.argtypes = [ptr] * 19 + [i32] * 10 + [ptr]
-        lib.mbconv_stride1_f32.restype = i32
+        for fn in (lib.mbconv_stride1_f32, lib.mbconv_stride1_bf16):
+            fn.argtypes = [ptr] * 19 + [i32] * 10 + [ptr]
+            fn.restype = i32
         lib.mbconv_partials_per_image.argtypes = [i32] * 4
         lib.mbconv_partials_per_image.restype = i32
         lib.mbconv_error_string.argtypes = [i32]
@@ -143,10 +197,16 @@ def _lib():
     return lib
 
 
-def _pad_dims(t: torch.Tensor, names, dims: dict) -> torch.Tensor:
+def channel_multiple(dtype: torch.dtype) -> int:
+    """The kernel's channel granularity: 8 at float32 (TMA's 16-byte
+    strides), 16 at bfloat16 (one bf16 ``wgmma`` K step)."""
+    return 16 if dtype == torch.bfloat16 else 8
+
+
+def _pad_dims(t: torch.Tensor, names, dims: dict, multiple: int = 8) -> torch.Tensor:
     """``t`` (axes ``names``) zero-padded so that each axis named in
-    ``dims`` has a multiple of 8 entries."""
-    shape = tuple(-(-t.shape[i] // 8) * 8 if n in dims else t.shape[i]
+    ``dims`` has a multiple of ``multiple`` entries."""
+    shape = tuple(-(-t.shape[i] // multiple) * multiple if n in dims else t.shape[i]
                   for i, n in enumerate(names))
     if shape == tuple(t.shape):
         return t
@@ -155,13 +215,14 @@ def _pad_dims(t: torch.Tensor, names, dims: dict) -> torch.Tensor:
     return out
 
 
-def _pad8(weights: dict, has_expand: bool) -> dict:
-    """The weights zero-padded to channel counts that are multiples of 8:
-    padded input and mid channels stay 0 through every stage (zero weights,
-    scale and bias; swish(0) = 0), padded output channels are dropped by
-    the caller.  Exact."""
+def _pad_channels(weights: dict, has_expand: bool) -> dict:
+    """The weights zero-padded to channel counts that are multiples of
+    ``channel_multiple`` of their dtype: padded input and mid channels stay
+    0 through every stage (zero weights, scale and bias; swish(0) = 0),
+    padded output channels are dropped by the caller.  Exact."""
     dims = {"Cin", "Cmid", "Cout"}
-    return {n: _pad_dims(weights[n], WEIGHT_SHAPES[n], dims) for n in WEIGHT_SHAPES
+    multiple = channel_multiple(weights["w_dw"].dtype)
+    return {n: _pad_dims(weights[n], WEIGHT_SHAPES[n], dims, multiple) for n in WEIGHT_SHAPES
             if has_expand or n not in ("w_exp", "s0", "b0")}
 
 
@@ -180,34 +241,46 @@ def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, tf32_round(t - hi)
 
 
-# the kernel's extra operands: the 1x1 weights K-major, split for 3xTF32,
-# stacked (hi, lo), at channel counts padded to multiples of 8
+# the kernel's extra operands: the 1x1 weights K-major at padded channel
+# counts; at float32 split for 3xTF32 and stacked (hi, lo)
 KERNEL_OPERANDS = ("w_exp_kt", "w_proj_kt")
 
 
+def _kernel_operand_shapes(cin: int, cmid: int, cout: int, dtype: torch.dtype) -> dict:
+    lead = (2,) if dtype == torch.float32 else ()
+    return {"w_exp_kt": lead + (cmid, cin), "w_proj_kt": lead + (cout, cmid)}
+
+
 def kernel_operands(weights: dict, has_expand: bool) -> dict:
-    """``w_exp_kt`` (2, Cmid8, Cin8) and ``w_proj_kt`` (2, Cout8, Cmid8):
-    (hi, lo) of the transposed 1x1 weights, as the kernel's TMA loads
-    them.  ``MBConvBlock.fused_weights`` caches them beside the folded
-    weights; the wrapper makes them when a dict lacks them."""
-    wd = _pad8(weights, has_expand)
-    out = {"w_proj_kt": torch.stack(split_tf32(wd["w_proj"].t().contiguous()))}
-    if has_expand:
-        out["w_exp_kt"] = torch.stack(split_tf32(wd["w_exp"].t().contiguous()))
+    """``w_exp_kt`` (Cmid', Cin') and ``w_proj_kt`` (Cout', Cmid'): the
+    transposed 1x1 weights as the kernel's TMA loads them, at the padded
+    channel counts; at float32 (hi, lo) of the 3xTF32 split stacked in a
+    leading axis of 2, at bfloat16 the weights themselves.
+    ``MBConvBlock.fused_weights`` caches them beside the folded weights;
+    the wrapper makes them when a dict lacks them."""
+    wd = _pad_channels(weights, has_expand)
+    names = {"w_proj_kt": "w_proj"} | ({"w_exp_kt": "w_exp"} if has_expand else {})
+    out = {}
+    for kt, n in names.items():
+        t = wd[n].t().contiguous()
+        out[kt] = torch.stack(split_tf32(t)) if t.dtype == torch.float32 else t
     return out
 
 
 def mbconv_stride1(x: torch.Tensor, weights: dict, window: torch.Tensor | None, *,
                    k: int, has_expand: bool, has_skip: bool) -> torch.Tensor:
-    """Inference stride-1 MBConv block on NHWC float32 ``x`` (B, H, W, Cin).
+    """Inference stride-1 MBConv block on NHWC ``x`` (B, H, W, Cin),
+    float32 or bfloat16; y comes back in x's dtype.
 
     weights: the folded tensors named in ``WEIGHT_SHAPES`` (``w_exp``,
-    ``s0``, ``b0`` only when ``has_expand``).  window: (B, 4) int32
-    (oy, ox, h, w) valid windows, or None for whole images.
+    ``s0``, ``b0`` only when ``has_expand``), the ``MATRIX_WEIGHTS`` in
+    x's dtype and the rest float32.  window: (B, 4) int32 (oy, ox, h, w)
+    valid windows, or None for whole images.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (building it on first use) or raises.  ``mbconv_stride1.launches``
-    counts kernel launches."""
+    counts float32 kernel launches, ``mbconv_stride1.launches_bf16`` the
+    bfloat16 ones."""
     if x.requires_grad:
         raise RuntimeError("mbconv_stride1 is inference-only (the kernel has no "
                            "backward); call it under torch.inference_mode()")
@@ -220,27 +293,30 @@ def mbconv_stride1(x: torch.Tensor, weights: dict, window: torch.Tensor | None, 
     lib = _lib()
     cout = dims["Cout"]
     win = full_window(x) if window is None else window
-    x8, wd = _pad_dims(x, ("B", "H", "W", "Cin"), {"Cin"}), _pad8(weights, has_expand)
+    bf16 = x.dtype == torch.bfloat16
+    x8 = _pad_dims(x, ("B", "H", "W", "Cin"), {"Cin"}, channel_multiple(x.dtype))
+    wd = _pad_channels(weights, has_expand)
     b, h, w, cin8 = x8.shape
     cmid8, cout8, csq = wd["w_dw"].shape[1], wd["w_proj"].shape[1], dims["Csq"]
-    want = {"w_proj_kt": (2, cout8, cmid8), "w_exp_kt": (2, cmid8, cin8)}
+    want = _kernel_operand_shapes(cin8, cmid8, cout8, x.dtype)
     kt = {n: weights.get(n) for n in KERNEL_OPERANDS if has_expand or n != "w_exp_kt"}
     if any(t is None or tuple(t.shape) != want[n] or t.device != x.device
-           for n, t in kt.items()):
+           or t.dtype != x.dtype for n, t in kt.items()):
         kt = kernel_operands(weights, has_expand)
     ntiles = lib.mbconv_partials_per_image(h, w, k, int(has_expand))
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=x.device)
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=x.device)
 
-    d, part = empty(b, h, w, cmid8), empty(b, ntiles, cmid8)
-    gate, y = empty(b, cmid8), empty(b, h, w, cout8)
+    d, part = empty(b, h, w, cmid8, dtype=x.dtype), empty(b, ntiles, cmid8)
+    gate, y = empty(b, cmid8), empty(b, h, w, cout8, dtype=x.dtype)
     none = ctypes.c_void_p(0)
 
     def p(t):
         return ctypes.c_void_p(t.data_ptr()) if t is not None else none
 
-    rc = lib.mbconv_stride1_f32(
+    launch = lib.mbconv_stride1_bf16 if bf16 else lib.mbconv_stride1_f32
+    rc = launch(
         p(x8), p(win), p(kt.get("w_exp_kt")),
         p(wd.get("s0") if has_expand else None), p(wd.get("b0") if has_expand else None),
         p(wd["w_dw"]), p(wd["s1"]), p(wd["b1"]), p(wd["w_se_r"]), p(wd["b_se_r"]),
@@ -251,22 +327,28 @@ def mbconv_stride1(x: torch.Tensor, weights: dict, window: torch.Tensor | None, 
     )
     if rc != 0:
         raise RuntimeError(f"mbconv kernel launch failed: {lib.mbconv_error_string(rc).decode()}")
-    mbconv_stride1.launches += 1
+    if bf16:
+        mbconv_stride1.launches_bf16 += 1
+    else:
+        mbconv_stride1.launches += 1
     return y if cout8 == cout else y[..., :cout].contiguous()
 
 
 mbconv_stride1.launches = 0
+mbconv_stride1.launches_bf16 = 0
 
 
 def block_work(b: int, h: int, w: int, cin: int, cmid: int, csq: int, cout: int, k: int,
-               has_expand: bool) -> tuple[int, int]:
-    """(bytes, FLOPs) of one block call: x read and y written once plus
-    the weights (the expanded map never leaves the chip), and the three
+               has_expand: bool, dtype: torch.dtype = torch.float32) -> tuple[int, int]:
+    """(bytes, FLOPs) of one block call: x read and y written once and the
+    weight matrices read once, in ``dtype``, the f32 scales, biases and
+    windows once (the expanded map never leaves the chip), and the three
     products' multiply-adds."""
     px = b * h * w
-    weights = ((cin + 2) * cmid if has_expand else 0) + (k * k + 2) * cmid \
-        + 2 * cmid * csq + csq + cmid + cmid * cout + 2 * cout
-    nbytes = 4 * (px * (cin + cout) + weights + b * 4)
+    size = torch.finfo(dtype).bits // 8
+    matrices = (cin * cmid if has_expand else 0) + k * k * cmid + 2 * cmid * csq + cmid * cout
+    vectors = (2 * cmid if has_expand else 0) + 2 * cmid + csq + cmid + 2 * cout
+    nbytes = size * (px * (cin + cout) + matrices) + 4 * (vectors + b * 4)
     flops = 2 * px * ((cin * cmid if has_expand else 0) + k * k * cmid + cmid * cout)
     return nbytes, flops
 
@@ -279,13 +361,15 @@ def block_flops(b: int, h: int, w: int, cin: int, cmid: int, cout: int, k: int,
     return 2 * px * ((cin * cmid if has_expand else 0) + cmid * cout), 2 * px * k * k * cmid
 
 
-def bound_tc_ms(nbytes: float, product_flops: float, depthwise_flops: float
-                ) -> tuple[float, str]:
+def bound_tc_ms(nbytes: float, product_flops: float, depthwise_flops: float,
+                dtype: torch.dtype = torch.float32) -> tuple[float, str]:
     """(least time in ms an H100 SXM could take for a block with the 1x1
-    products on the tensor cores in the 3xTF32 split and the depthwise on
-    the f32 pipes, what bounds it: 'bytes' or 'operations')."""
+    products on the tensor cores, in the 3xTF32 split at float32 or as
+    bf16 products at bfloat16, and the depthwise on the f32 pipes, what
+    bounds it: 'bytes' or 'operations')."""
+    rate = TC_BF16_FLOPS_PER_S if dtype == torch.bfloat16 else TC_3XTF32_FLOPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (product_flops / TC_3XTF32_FLOPS_PER_S + depthwise_flops / F32_FLOPS_PER_S) * 1e3
+    t_ops = (product_flops / rate + depthwise_flops / F32_FLOPS_PER_S) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 

@@ -278,8 +278,12 @@ def test_cam_run_stream_propagates_producer_error(models):
 
 def test_cam_engine_rejects_unsupported_options(models):
     _, _, port = models
-    with pytest.raises(NotImplementedError, match="float32"):
-        CamTTAEngine(port(0), compute_dtype=torch.bfloat16, device="cpu")
+    # bf16 is served (test_torch_bf16_engines.py holds it to the JAX
+    # engine); any other compute dtype still raises
+    assert CamTTAEngine(port(0), compute_dtype=torch.bfloat16,
+                        device="cpu").compute_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="bfloat16"):
+        CamTTAEngine(port(0), compute_dtype=torch.float16, device="cpu")
     with pytest.raises(ValueError):
         CamTTAEngine(port(0), download_dtype="float32", device="cpu")
     with pytest.raises(ValueError):

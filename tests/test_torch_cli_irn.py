@@ -98,9 +98,14 @@ def test_infer_irn_soft_npy(mini_voc, tmp_path):
 
 
 def test_infer_irn_rejects_unsupported(mini_voc, tmp_path):
-    root, _, sd = mini_voc
-    with pytest.raises(NotImplementedError, match="bf16"):
-        infer_irn.main(_args(root, tmp_path / "a", "--bf16", "1"))
+    root, names, sd = mini_voc
+    # --bf16 1 runs the edge model in bf16 (test_torch_bf16_engines.py holds
+    # its labels); a float16 refiner still raises
+    infer_irn.main(_args(root, tmp_path / "a", "--bf16", "1"))
+    for n, (h, w) in zip(names, SIZES):
+        assert np.asarray(Image.open(tmp_path / "a_png" / f"{n}.png")).shape == (h, w)
+    with pytest.raises(ValueError, match="bfloat16"):
+        RandomWalkRefiner(EdgeDisplacement(), device="cpu", compute_dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="msgpack"):
         infer_irn.load_irn_weights(str(tmp_path / "irn_0.msgpack"), EdgeDisplacement())
     partial = tmp_path / "partial.pth"

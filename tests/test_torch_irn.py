@@ -96,8 +96,12 @@ def test_refiner_output_contract(setup):
 
 def test_refiner_rejects_unsupported_options(setup):
     _, _, model, _, _ = setup
-    with pytest.raises(NotImplementedError, match="float32"):
-        RandomWalkRefiner(model, device="cpu", compute_dtype=torch.bfloat16)
+    # bf16 edge compute is served (test_torch_bf16_engines.py); any other
+    # compute dtype still raises
+    assert RandomWalkRefiner(model, device="cpu",
+                             compute_dtype=torch.bfloat16).compute_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="bfloat16"):
+        RandomWalkRefiner(model, device="cpu", compute_dtype=torch.float16)
     with pytest.raises(ValueError, match="fast_io"):
         RandomWalkRefiner(model, device="cpu", output="labels")
     with pytest.raises(ValueError, match="output"):

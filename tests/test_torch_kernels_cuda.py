@@ -18,6 +18,12 @@ from muscle_tpu_torch.ops.stencil_walk import stencil_walk, stencil_walk_plain
 
 # f32 kernel against f32 plain version (TF32 off): summation order only
 ATOL, RTOL = 1e-4, 1e-4
+# bf16 kernel against the bf16 plain version, relative to the output's
+# largest value: y is rounded once in both (one bf16 ulp is 2^-8 of the
+# leading power of two), the f32 sums run in another order, and the kernel
+# keeps each depthwise product exact where the plain version (as the
+# Pallas kernel) rounds it to bf16
+BF16_REL = 2.0 ** -7
 # the walks: the JAX package's bounds for its walk kernels, summation order
 # compounded over the steps
 STENCIL_RTOL, STENCIL_ATOL = 2e-4, 1e-6
@@ -96,6 +102,27 @@ def test_mbconv_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_mbconv_bf16_kernel_matches_plain(cuda, case):
+    block, x, win, kw = _case(case, cuda)
+    x = x.to(torch.bfloat16)
+    wd = block.fused_weights(torch.bfloat16)
+    before = (M.mbconv_stride1.launches, M.mbconv_stride1.launches_bf16)
+    with torch.inference_mode():
+        got = M.mbconv_stride1(x, wd, win, **kw)
+        want = M.mbconv_stride1_plain(x, wd, win, **kw)
+        again = M.mbconv_stride1(x, wd, win, **kw)
+    torch.cuda.synchronize()
+    # bf16 launches counted apart from the f32 ones
+    assert (M.mbconv_stride1.launches, M.mbconv_stride1.launches_bf16) == (
+        before[0], before[1] + 2)
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= BF16_REL * float(want.float().abs().max()), err
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
 def test_mbconv_kernel_rejects_bad_input(cuda):
     block = MBConvBlock(BlockArgs(3, 1, 8, 8, 6, 1)).eval().to(cuda)
     wd = block.fused_weights()
@@ -106,6 +133,13 @@ def test_mbconv_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="weight"):
         M.mbconv_stride1(torch.zeros((1, 6, 6, 8), device=cuda),
                          {n: t.cpu() for n, t in wd.items()}, None, **kw)
+    # bf16 x with the f32 weights, and a dtype the kernel has no version of
+    with pytest.raises(ValueError, match="weight"):
+        M.mbconv_stride1(torch.zeros((1, 6, 6, 8), device=cuda, dtype=torch.bfloat16), wd,
+                         None, **kw)
+    with pytest.raises(ValueError, match="bfloat16"):
+        M.mbconv_stride1(torch.zeros((1, 6, 6, 8), device=cuda, dtype=torch.float16),
+                         block.fused_weights(torch.float16), None, **kw)
 
 
 def _stencil_inputs(b, c, h, w, seed, device):

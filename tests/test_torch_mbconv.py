@@ -187,7 +187,7 @@ def test_3xtf32_product_keeps_f32_accuracy(k):
 
 
 def test_channel_padding_is_exact():
-    # the wrapper pads odd channel counts to multiples of 8 for the kernel
+    # the wrapper pads odd channel counts to multiples of 8 (f32) for the kernel
     # (TMA's 16-byte strides); the padded block computes the same outputs
     gen = torch.Generator().manual_seed(0)
     block = TMBConvBlock(TBlockArgs(3, 1, 5, 7, 6, 1)).eval()
@@ -198,7 +198,7 @@ def test_channel_padding_is_exact():
     x = torch.randn((2, 11, 37, 5), generator=gen)
     win = torch.tensor([[0, 0, 11, 30], [0, 0, 5, 37]], dtype=torch.int32)
     kw = dict(k=3, has_expand=True, has_skip=False)
-    wd8 = M._pad8(wd, True)
+    wd8 = M._pad_channels(wd, True)
     assert wd8["w_exp"].shape == (8, 32) and wd8["w_proj"].shape == (32, 8)
     x8 = M._pad_dims(x, ("B", "H", "W", "Cin"), {"Cin"})
     want = M.mbconv_stride1_plain(x, wd, win, **kw)

@@ -149,8 +149,12 @@ def test_seg_run_stream_matches_run_batch(models):
 
 def test_seg_engine_rejects_unsupported_options(models):
     model, _, _ = models
-    with pytest.raises(NotImplementedError, match="float32"):
-        SegTTAEngine(model, compute_dtype=torch.bfloat16, device="cpu")
+    # bf16 is served (test_torch_bf16_engines.py); any other compute dtype
+    # still raises
+    assert SegTTAEngine(model, compute_dtype=torch.bfloat16,
+                        device="cpu").compute_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="bfloat16"):
+        SegTTAEngine(model, compute_dtype=torch.float16, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         SegTTAEngine(model, shard_spatial=True, device="cpu")
     with pytest.raises(ValueError):
