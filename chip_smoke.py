@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's CAM-generation, IRN-refinement,
-segmentation-inference (in float32 and in bfloat16), MCL-training,
-segmentation-training and IRN-training paths on one CUDA card.
+segmentation-inference (in float32 and in bfloat16), MCL-training and
+segmentation-training (each in float32 and in bfloat16) and IRN-training
+paths on one CUDA card.
 
     python3 chip_smoke.py            # every phase, the full check
     python3 chip_smoke.py --phases build,kernels
@@ -11,6 +12,7 @@ segmentation-training and IRN-training paths on one CUDA card.
     python3 chip_smoke.py --phases build,train_seg,train_irn
     python3 chip_smoke.py --phases build,profile        # where the device time goes
     python3 chip_smoke.py --phases build,bf16,profile   # the same for the bf16 paths
+    python3 chip_smoke.py --phases build,train_mcl_bf16,train_seg_bf16
 
 Phases:
   build    compile every CUDA kernel of the paths from the checkout
@@ -111,6 +113,29 @@ Phases:
            images/s, peak memory), the kernels' launches (0), the backbone
            unchanged, and one crop-64 step held to the CPU (loss terms,
            head gradients), and with TF32 on, which must fail it;
+  train_mcl_bf16
+           bf16 MCL training beside f32, in turns in the same run (1
+           warm-up and 3 timed iterations each): MuSCLe-b3 enc at the JAX
+           benches' TrainBench (batch 16, crop 448, 4:2:0 upload, step A
+           with IMC) and CurriculumBench (the same, then step B with
+           PixPro and EMD on views of 224), the bf16 model starting from
+           a bf16 classifier kernel (the JAX package's bf16 init) that its
+           first Adam step promotes to float32: step ms, images/s and peak
+           memory of each dtype, the device time by kernel name and busy
+           share of two bf16 curriculum iterations, no kernel launched,
+           every loss term's gradient norm at bf16, and steps A and B at
+           b1 on the card and on the CPU at bf16, each quantity within 2x
+           (mean; 3x max) the CPU's own bf16-vs-f32 distance;
+  train_seg_bf16
+           bf16 seg training beside f32 in the same way at the
+           train_muscle defaults (b7 dec, BiFPN 3 x 256, batch 6, crop
+           448, k 128; BEACON nonzero on every timed bf16 step), the
+           device time of two bf16 steps, no kernel launched in the
+           steps, the bf16 epoch-end eval (one scale-1 SegTTAEngine batch
+           of 4 images, counts zeroed just before it: 48 launches of the
+           MBConv kernel's bf16 instantiation, labels held to the plain
+           bf16 blocks' by the bf16 phase's rule), both terms' gradient
+           norms, and one b1 step held to the CPU at bf16 as above;
   profile  (not run by default) device time by kernel name over --fast 0
            CAM batches, with and without the MBConv kernel, over IRN
            batches with the stencil kernel, and over one seg batch, and
@@ -263,6 +288,20 @@ SEG_GRAD_TOLS = (1e-4, 1e-5)
 IRN_TRAIN_BATCH, IRN_TRAIN_CROP, IRN_TRAIN_LR, IRN_TRAIN_WD = 8, 512, 0.1, 1e-4
 IRN_CHECK_BATCH, IRN_CHECK_CROP = 2, 64
 IRN_GRAD_TOLS = (1e-4, 1e-5)
+# bf16 training (train_mcl_bf16, train_seg_bf16 phases): each configuration
+# and dtype 1 warm-up and 3 timed iterations, bf16 and f32 in turns.  Card
+# vs CPU at bf16 (the check phases' b1 sizes): cuDNN's and the CPU's bf16
+# convolutions sum in other orders, so each quantity is held to the CPU's
+# own bf16-vs-f32 distance on it: mean |card - cpu16| within 2x mean
+# |cpu16 - cpu32| and max within 3x max, plus 4 bf16 half-ulps (2^-8) of
+# its largest value (gradients: at least 2% of the model's largest); the
+# loss terms over 4 batches (step A, B) or 4 sets of BEACON draws (seg);
+# and the card's step-A (seg: step) gradients at least 0.5x that distance
+# from the CPU's f32 ones (bf16 ran).  tests/test_torch_bf16_train_*.py
+# hold the CPU's bf16 steps to the JAX package's by the same rule
+BF16_TRAIN_WARMUP, BF16_TRAIN_ITERS = 1, 3
+BF16_TRAIN_MEAN, BF16_TRAIN_MAX, BF16_TRAIN_ULPS, BF16_TRAIN_ZERO = 2.0, 3.0, 4.0, 2e-2
+BF16_TRAIN_RAN, BF16_CHECK_BATCHES = 0.5, 4
 
 
 def log(msg: str) -> None:
@@ -2169,10 +2208,435 @@ def phase_train_irn(card: str) -> dict:
     return out
 
 
+# (run, device, compute dtype) of the bf16 card-vs-CPU checks
+BF16_CHECK_RUNS = (("card_bf16", "cuda", "bfloat16"), ("cpu_bf16", "cpu", "bfloat16"),
+                   ("cpu_f32", "cpu", "float32"))
+
+
+def _bf16_excess(card, cpu16, cpu32, floor: float = 0.0) -> float:
+    """The card's bf16 distance from the CPU's bf16 over its limit (<= 1
+    passes): mean |card - cpu16| <= BF16_TRAIN_MEAN x mean |cpu16 - cpu32|
+    and max <= BF16_TRAIN_MAX x max |cpu16 - cpu32|, each plus the floor
+    (BF16_TRAIN_ULPS half-ulps of the largest CPU bf16 value, or
+    ``floor``)."""
+    import numpy as np
+
+    c, a, b = (np.asarray(t.detach().float().cpu().numpy() if hasattr(t, "detach") else t,
+                          np.float64) for t in (card, cpu16, cpu32))
+    d, ref = np.abs(c - a), np.abs(a - b)
+    floor = max(floor, BF16_TRAIN_ULPS * 2.0 ** -8 * float(np.abs(a).max()))
+    if floor == 0.0 and d.max() == 0.0:
+        return 0.0
+    return float(max(d.mean() / (BF16_TRAIN_MEAN * ref.mean() + floor),
+                     d.max() / (BF16_TRAIN_MAX * ref.max() + floor)))
+
+
+def _bf16_readings(runs: dict, grad_keys) -> dict:
+    """The card's bf16 run against the CPU's bf16 one, each quantity over
+    its limit (``_bf16_excess`` against the CPU's own bf16-vs-f32
+    distance): the loss terms as a mean over the batches, every
+    gradient (floor: BF16_TRAIN_ZERO of the model's largest) and every
+    BN statistic of the first batch; and the control that bf16 ran on the
+    card: its gradients of the first step in ``grad_keys`` stand off the
+    CPU's f32 ones by at least BF16_TRAIN_RAN of the CPU's own
+    bf16-vs-f32 distance (printed for every step; step B's, which a
+    random net's maxnorm makes ill-conditioned, read 0.22 in a card run
+    that ran bf16)."""
+    import numpy as np
+
+    card, c16, c32 = runs["card_bf16"], runs["cpu_bf16"], runs["cpu_f32"]
+    loss = {}
+    for k in c16["losses"][0]:
+        p, a, b = (np.asarray([m[k] for m in r["losses"]]) for r in (card, c16, c32))
+        floor = BF16_TRAIN_ULPS * 2.0 ** -8 * float(np.abs(a).max())
+        loss[k] = float(np.abs(p - a).mean() / (BF16_TRAIN_MEAN * np.abs(a - b).mean() + floor))
+    grad = {}
+    for step in grad_keys:
+        zero = BF16_TRAIN_ZERO * max(float(g.abs().max()) for g in c16["grads"][step].values())
+        worst = max((_bf16_excess(card["grads"][step][k], g, c32["grads"][step][k], zero), k)
+                    for k, g in c16["grads"][step].items())
+        far = np.mean([float((card["grads"][step][k] - c32["grads"][step][k]).abs().mean())
+                       for k in c32["grads"][step]])
+        own = np.mean([float((c16["grads"][step][k] - c32["grads"][step][k]).abs().mean())
+                       for k in c32["grads"][step]])
+        grad[step] = {"worst": worst[0], "param": worst[1], "ran_share": float(far / own)}
+    stats = max((_bf16_excess(card["stats"][k] - c16["stats0"][k],
+                              c16["stats"][k] - c16["stats0"][k],
+                              c32["stats"][k] - c16["stats0"][k]), k) for k in c16["stats"])
+    passed = bool(all(v <= 1.0 for v in loss.values()) and stats[0] <= 1.0
+                  and all(g["worst"] <= 1.0 for g in grad.values())
+                  and grad[grad_keys[0]]["ran_share"] >= BF16_TRAIN_RAN)
+    return {"loss_err_over_limit": loss, "grad_err_over_limit": grad,
+            "bn_stat_err_over_limit": {"worst": stats[0], "stat": stats[1]}, "passed": passed}
+
+
+def _check_train_bf16_card_vs_cpu() -> dict:
+    """Step A (IMC on) and step B (PixPro + EMD) at b1, crop 64, views 32,
+    batch 4 at bf16 on the card and on the CPU, and at f32 on the CPU (the
+    yardstick), each step from the same weights (step A from a fresh bf16
+    classifier kernel, step B from the f32 one training reaches it with),
+    batches and EMD crop fractions, drop-connect off: loss terms over
+    BF16_CHECK_BATCHES batches, every gradient of each step and the BN
+    statistics of the first (``_bf16_readings``).  Step B does not start
+    from each device's step A: Adam's first step moves ~10% of the entries
+    the other way on the card than on the CPU at bf16, and step B's
+    maxnormed maps amplify that."""
+    import copy
+
+    import torch
+
+    from muscle_tpu_torch.losses import draw_crop_fractions
+    from muscle_tpu_torch.models import classifier_as
+    from muscle_tpu_torch.training import MCLConfig, make_adam, mcl_train_step, mcl_views_step
+
+    cfg = MCLConfig(True, True, True)
+    base = _train_model(CHECK_BACKBONE, seed=1)
+    base.backbone.drop_connect_rate = 0.0
+    hosts = [{k: v.cpu() for k, v in _live_labels(base, {k: torch.from_numpy(v) for k, v in
+             _train_batch(CHECK_BATCH, CHECK_CROP, CHECK_VIEW, seed=s).items()}).items()}
+             for s in range(1, 1 + BF16_CHECK_BATCHES)]
+    frac = draw_crop_fractions(CHECK_BATCH, torch.Generator().manual_seed(1))
+    runs = {}
+    for name, dev, dtype in BF16_CHECK_RUNS:
+        rec = {"losses": []}
+        for i, host in enumerate(hosts):
+            model = classifier_as(copy.deepcopy(base), torch.bfloat16).to(dev)
+            opt = make_adam(model.trained_parameters(), TRAIN_LR, TRAIN_WD)
+            batch = {k: v.to(dev) for k, v in host.items()}
+            stats0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+                      if k.endswith("running_mean") or k.endswith("running_var")}
+            m = {k: float(v) for k, v in mcl_train_step(
+                model, opt, batch, cfg, compute_dtype=getattr(torch, dtype)).items()}
+            grads = {"step_a": _grads(model)}
+            stats = {k: v.detach().cpu().float() for k, v in model.state_dict().items()
+                     if k in stats0}
+            model = copy.deepcopy(base).to(dev)
+            opt = make_adam(model.trained_parameters(), TRAIN_LR, TRAIN_WD)
+            m.update({k: float(v) for k, v in mcl_views_step(
+                model, opt, batch, cfg, crop_frac=frac.to(dev),
+                compute_dtype=getattr(torch, dtype)).items()})
+            grads["step_b"] = _grads(model)
+            rec["losses"].append(m)
+            if i == 0:
+                rec.update(grads={s: {k: g.float() for k, g in gs.items()}
+                                  for s, gs in grads.items()}, stats=stats, stats0=stats0)
+        runs[name] = rec
+    readings = _bf16_readings(runs, ("step_a", "step_b"))
+    out = {"train_mcl_bf16_card_vs_cpu": CHECK_BACKBONE, "batch": CHECK_BATCH,
+           "crop": CHECK_CROP, "batches": BF16_CHECK_BATCHES,
+           "card_losses": runs["card_bf16"]["losses"][0],
+           "cpu_bf16_losses": runs["cpu_bf16"]["losses"][0],
+           "cpu_f32_losses": runs["cpu_f32"]["losses"][0], **readings}
+    print(json.dumps(out), flush=True)
+    if not readings["passed"]:
+        raise AssertionError(f"train_mcl bf16 card vs CPU failed: {out}")
+    return out
+
+
+def _timed_in_turns(models: dict, step, n_warm: int, n_timed: int) -> dict:
+    """``step(name, it)`` for each model in turns (every name once per
+    iteration), n_warm warm-up then n_timed timed iterations: per name the
+    device ms of each step's segments (``step`` returns its CUDA events),
+    the wall ms of an iteration (host clock to a synchronise) and the peak
+    memory of its iterations."""
+    import torch
+
+    out = {name: {"events": [], "wall": [], "peak": 0} for name in models}
+    for it in range(n_warm + n_timed):
+        for name in models:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            events = step(name, it)
+            torch.cuda.synchronize()
+            if it >= n_warm:
+                out[name]["events"].append(events)
+                out[name]["wall"].append(time.perf_counter() - t0)
+                out[name]["peak"] = max(out[name]["peak"], torch.cuda.max_memory_allocated())
+    return out
+
+
+def _turn_summary(rec: dict, batch: int, segments) -> dict:
+    """ms per timed iteration of each segment (consecutive event pairs),
+    images/s and peak GiB."""
+    n = len(rec["wall"])
+    wall = sum(rec["wall"]) / n
+    out = {f"{s}_ms": sum(e[i].elapsed_time(e[i + 1]) for e in rec["events"]) / n
+           for i, s in enumerate(segments)}
+    out.update(iter_wall_ms=wall * 1e3, images_per_s=batch / wall,
+               peak_memory_gib=rec["peak"] / 2 ** 30)
+    return out
+
+
+def phase_train_mcl_bf16(card: str) -> dict:
+    """bf16 MCL training beside f32 in the same run, in turns, at the JAX
+    benches' configurations: TrainBench (MuSCLe-b3 enc, batch 16, crop
+    448, 4:2:0 upload, step A with IMC) and CurriculumBench (the same,
+    then step B with PixPro and EMD on views of 224); the bf16 model from
+    the f32 one's seeded weights with a fresh bf16 classifier kernel (the
+    JAX package's bf16 init), which its first step promotes to f32.
+    BF16_TRAIN_WARMUP warm-up and BF16_TRAIN_ITERS timed iterations per
+    configuration and dtype: step ms, images/s and peak memory of each;
+    the device time by kernel name and busy share of two bf16 curriculum
+    iterations; no kernel launched; every loss term's gradient norm at
+    bf16; and the b1 card-vs-CPU check at bf16."""
+    import copy
+
+    import torch
+
+    from muscle_tpu_torch.inference.upload import to_device
+    from muscle_tpu_torch.models import classifier_as
+    from muscle_tpu_torch.training import (
+        MCLConfig,
+        make_adam,
+        mcl_term_grad_norms,
+        mcl_train_step,
+        mcl_views_step,
+    )
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    base = _train_model(TRAIN_BACKBONE, seed=0)
+    models = {"f32": copy.deepcopy(base).to(dev),
+              "bf16": classifier_as(copy.deepcopy(base), bf16).to(dev)}
+    dtypes = {"f32": torch.float32, "bf16": bf16}
+    opts = {k: make_adam(m.trained_parameters(), TRAIN_LR, TRAIN_WD) for k, m in models.items()}
+    gens = {k: torch.Generator(device=dev).manual_seed(0) for k in models}
+    hosts = []
+    for seed in range(2):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in
+             _train_batch(TRAIN_BATCH, TRAIN_CROP, TRAIN_VIEW, seed).items()}
+        hosts.append({k: v.cpu().numpy() for k, v in _live_labels(models["f32"], b).items()})
+    out = {"train_mcl_bf16": TRAIN_BACKBONE, "batch": TRAIN_BATCH, "crop": TRAIN_CROP,
+           "view": TRAIN_VIEW, "card": card,
+           "fc_dtype_at_start": str(models["bf16"].fc.weight.dtype)}
+    metrics = {}
+
+    def step(cfg):
+        def run(name, it):
+            m, o, g, dt = models[name], opts[name], gens[name], dtypes[name]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            batch = {k: to_device(v, dev) for k, v in hosts[it % 2].items()}
+            ev[0].record()
+            metrics[name] = mcl_train_step(m, o, batch, cfg, g, compute_dtype=dt)
+            ev[1].record()
+            if cfg.use_pixpro:
+                metrics[name].update(mcl_views_step(m, o, batch, cfg, g, compute_dtype=dt))
+            ev[2].record()
+            return ev
+        return run
+
+    _zero_counts()
+    for bench, cfg in (("train_bench", MCLConfig(use_imc=True)),
+                       ("curriculum_bench", MCLConfig(True, True, True))):
+        turns = _timed_in_turns(models, step(cfg), BF16_TRAIN_WARMUP, BF16_TRAIN_ITERS)
+        rec = {}
+        for name in models:
+            rec[name] = _turn_summary(turns[name], TRAIN_BATCH, ("step_a", "step_b"))
+            if not cfg.use_pixpro:
+                rec[name].pop("step_b_ms")
+            rec[name]["losses"] = {k: float(v) for k, v in metrics[name].items()}
+            if not all(v == v and abs(v) < float("inf") for v in rec[name]["losses"].values()):
+                raise AssertionError(f"train_mcl_bf16 {bench} {name}: losses not finite: {rec}")
+        rec["bf16_over_f32_iter_ms"] = rec["bf16"]["iter_wall_ms"] / rec["f32"]["iter_wall_ms"]
+        out[bench] = rec
+    out["fc_dtype_after"] = str(models["bf16"].fc.weight.dtype)
+    if out["fc_dtype_at_start"] != str(bf16) or out["fc_dtype_after"] != str(torch.float32):
+        raise AssertionError(f"train_mcl_bf16: classifier kernel dtypes {out}")
+    model, opt, gen = models["bf16"], opts["bf16"], gens["bf16"]
+    del models["f32"], opts["f32"]
+    torch.cuda.empty_cache()
+    cfg = MCLConfig(True, True, True)
+    _profile_steps("train_mcl_bf16 curriculum (step A + step B)", lambda it: (
+        mcl_train_step(model, opt, {k: to_device(v, dev) for k, v in hosts[it].items()}, cfg,
+                       gen, compute_dtype=bf16),
+        mcl_views_step(model, opt, {k: to_device(v, dev) for k, v in hosts[it].items()}, cfg,
+                       gen, compute_dtype=bf16)))
+    out["launches"] = _launch_counts()
+    if any(out["launches"].values()):
+        raise AssertionError(f"train_mcl_bf16 launched kernels: {out['launches']}")
+    batch = {k: to_device(v, dev) for k, v in hosts[0].items()}
+    norms = mcl_term_grad_norms(model, batch, gen, views_train_mode=True, compute_dtype=bf16)
+    out["term_grad_norms_views_train"] = norms
+    floor = LIVE_FLOOR * max(norms.values())
+    print(json.dumps(out), flush=True)
+    if sorted(norms) != ["emd", "er", "focal", "imc", "pair", "pixpro", "softmargin"] or \
+            not all(n >= floor for n in norms.values()):
+        raise AssertionError(f"train_mcl_bf16: a loss term's gradient norm is below {floor:.3g}: "
+                             f"{norms}")
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = _check_train_bf16_card_vs_cpu()
+    return out
+
+
+def _check_seg_train_bf16_card_vs_cpu() -> dict:
+    """One seg step at b1 dec (BiFPN 1 x 64, crop 64, batch 2, k 16, step
+    3, drop-connect off) at bf16 on the card and on the CPU and at f32 on
+    the CPU, from the same weights and batch, BF16_CHECK_BATCHES sets of
+    BEACON draws: loss terms and the gradient norm over the draws, every
+    clipped gradient and the BN statistics of the first (``_bf16_readings``)."""
+    import copy
+
+    import torch
+
+    from muscle_tpu_torch.training import SegConfig, make_adam, seg_train_step
+
+    cfg = SegConfig(k=SEG_CHECK_K, step=3)
+    base = _seg_train_model(SEG_CHECK_BACKBONE, 1, 64, 0, seed=1, device="cpu")
+    base.backbone.drop_connect_rate = 0.0
+    host = {k: torch.from_numpy(v) for k, v in
+            _seg_train_batch(base, SEG_CHECK_BATCH, SEG_CHECK_CROP, seed=1,
+                             calibrate=True).items()}
+    gen = torch.Generator().manual_seed(1)
+    draws = [torch.rand((SEG_CHECK_BATCH, 20, SEG_CHECK_CROP, SEG_CHECK_CROP), generator=gen)
+             for _ in range(BF16_CHECK_BATCHES)]
+    runs = {}
+    for name, dev, dtype in BF16_CHECK_RUNS:
+        rec = {"losses": []}
+        for i, d in enumerate(draws):
+            model = copy.deepcopy(base).to(dev)
+            opt = make_adam(model.trained_parameters(), SEG_TRAIN_LR, SEG_TRAIN_WD)
+            stats0 = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+                      if k.endswith("running_mean") or k.endswith("running_var")}
+            rec["losses"].append({k: float(v) for k, v in seg_train_step(
+                model, opt, {k: v.to(dev) for k, v in host.items()}, cfg, draws=d.to(dev),
+                compute_dtype=getattr(torch, dtype)).items()})
+            if i == 0:
+                rec.update(grads={"step": {k: g.float() for k, g in _grads(model).items()}},
+                           stats={k: v.detach().cpu().float() for k, v in
+                                  model.state_dict().items() if k in stats0}, stats0=stats0)
+        runs[name] = rec
+    readings = _bf16_readings(runs, ("step",))
+    out = {"train_seg_bf16_card_vs_cpu": SEG_CHECK_BACKBONE, "batch": SEG_CHECK_BATCH,
+           "crop": SEG_CHECK_CROP, "k": cfg.k, "draws": BF16_CHECK_BATCHES,
+           "card_losses": runs["card_bf16"]["losses"],
+           "cpu_bf16_losses": runs["cpu_bf16"]["losses"],
+           "cpu_f32_losses": runs["cpu_f32"]["losses"], **readings}
+    print(json.dumps(out), flush=True)
+    if not (readings["passed"] and any(m["loss_beacon"] for m in runs["cpu_f32"]["losses"])):
+        raise AssertionError(f"train_seg bf16 card vs CPU failed: {out}")
+    return out
+
+
+def _eval_labels(engine, imgs, names):
+    import numpy as np
+
+    return [np.argmax(r["probs"], axis=-1) for r in engine.run_batch(imgs, names)]
+
+
+def phase_train_seg_bf16(card: str) -> dict:
+    """bf16 segmentation training beside f32 in the same run, in turns, at
+    the train_muscle defaults (MuSCLe-b7 dec, BiFPN 3 x 256, batch 6, crop
+    448, k 128, step 7, 4:2:0 and packed-mask upload, the head calibrated,
+    fuse_mbconv=384): BF16_TRAIN_WARMUP warm-up and BF16_TRAIN_ITERS timed
+    steps per dtype (ms, images/s, peak memory; BEACON nonzero on every
+    timed bf16 step); the device time by kernel name and busy share of two
+    bf16 steps; no kernel launched in the steps; the epoch-end eval at
+    bf16 (one scale-1 SegTTAEngine batch of 4 images, counts zeroed just
+    before it): 48 launches of the MBConv kernel's bf16 instantiation, its
+    labels held to the plain bf16 blocks' by the bf16 phase's rule; both
+    terms' gradient norms at bf16; and the b1 card-vs-CPU check at bf16."""
+    import numpy as np
+    import torch
+
+    from muscle_tpu_torch.inference import SegTTAEngine
+    from muscle_tpu_torch.inference.upload import to_device
+    from muscle_tpu_torch.training import SegConfig, make_adam, seg_term_grad_norms, seg_train_step
+
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    f32_model = _seg_train_model(SEG_TRAIN_BACKBONE, 3, 256, 384, seed=0, device=dev)
+    hosts = [_seg_train_batch(f32_model, SEG_TRAIN_BATCH, SEG_TRAIN_CROP, seed,
+                              calibrate=seed == 0) for seed in range(2)]
+    bf16_model = _seg_train_model(SEG_TRAIN_BACKBONE, 3, 256, 384, seed=0, device=dev)
+    bf16_model.load_state_dict(f32_model.state_dict())  # the calibrated head too
+    models = {"f32": f32_model, "bf16": bf16_model}
+    dtypes = {"f32": torch.float32, "bf16": bf16}
+    opts = {k: make_adam(m.trained_parameters(), SEG_TRAIN_LR, SEG_TRAIN_WD)
+            for k, m in models.items()}
+    gens = {k: torch.Generator(device=dev).manual_seed(0) for k in models}
+    cfg = SegConfig(k=SEG_TRAIN_K, step=SEG_TRAIN_STEP)
+    metrics = {k: [] for k in models}
+
+    def run(name, it):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        batch = {k: to_device(v, dev) for k, v in hosts[it % 2].items()}
+        ev[0].record()
+        metrics[name].append(seg_train_step(models[name], opts[name], batch, cfg, gens[name],
+                                            compute_dtype=dtypes[name]))
+        ev[1].record()
+        return ev
+
+    _zero_counts()
+    turns = _timed_in_turns(models, run, BF16_TRAIN_WARMUP, BF16_TRAIN_ITERS)
+    out = {"train_seg_bf16": SEG_TRAIN_BACKBONE, "bifpn": "3 x 256", "batch": SEG_TRAIN_BATCH,
+           "crop": SEG_TRAIN_CROP, "k": cfg.k, "step": cfg.step, "card": card}
+    for name in models:
+        out[name] = _turn_summary(turns[name], SEG_TRAIN_BATCH, ("step",))
+        out[name]["losses"] = {k: float(v) for k, v in metrics[name][-1].items()}
+    out["bf16_over_f32_step_ms"] = out["bf16"]["step_ms"] / out["f32"]["step_ms"]
+    beacon = [float(m["loss_beacon"]) for m in metrics["bf16"][BF16_TRAIN_WARMUP:]]
+    out["bf16_loss_beacon_timed"] = beacon
+    del models["f32"], opts["f32"], f32_model
+    torch.cuda.empty_cache()
+    model, opt, gen = bf16_model, opts["bf16"], gens["bf16"]
+    _profile_steps("train_seg_bf16 (2 steps)", lambda it: seg_train_step(
+        model, opt, {k: to_device(v, dev) for k, v in hosts[it].items()}, cfg, gen,
+        compute_dtype=bf16))
+    out["step_launches"] = _launch_counts()
+
+    # the epoch-end eval at bf16: the fused blocks, counts zeroed just before
+    imgs, names = _seg_batches(1, seed=3)[0]
+    _zero_counts()
+    got = _eval_labels(SegTTAEngine(model, scales=(1.0,), device=dev, compute_dtype=bf16),
+                       imgs, names)
+    out["launches"] = _launch_counts()
+    plain = _seg_train_model(SEG_TRAIN_BACKBONE, 3, 256, 0, seed=0, device=dev)
+    plain.load_state_dict(model.state_dict())
+    want = _eval_labels(SegTTAEngine(plain, scales=(1.0,), device=dev, compute_dtype=bf16),
+                        imgs, names)
+    f32_probs = [r["probs"] for r in SegTTAEngine(plain, scales=(1.0,), device=dev)
+                 .run_batch(imgs, names)]
+    agree, own = [], []
+    for g, w, p in zip(got, want, f32_probs):
+        top2 = np.sort(p, axis=-1)[..., -2:]
+        clear = (top2[..., 1] - top2[..., 0]) > BF16_MARGIN
+        agree.append(float((g == w)[clear].mean()))
+        own.append(float((w == np.argmax(p, axis=-1))[clear].mean()))
+    floors = [1 - max(1 - BF16_LABEL_AGREE, BF16_SGC_REL * (1 - o)) for o in own]
+    out.update(eval_images=len(imgs), eval_launches_bf16=out["launches"]["mbconv_bf16"],
+               eval_kernel_vs_plain_labels_agreement=agree,
+               eval_plain_bf16_vs_f32_labels_agreement=own)
+    del plain
+    model.train()
+    batch = {k: to_device(v, dev) for k, v in hosts[0].items()}
+    norms, values = seg_term_grad_norms(model, batch, cfg, gen, return_values=True,
+                                        compute_dtype=bf16)
+    out.update(term_grad_norms=norms, term_values=values)
+    print(json.dumps(out), flush=True)
+    if any(out["step_launches"].values()):
+        raise AssertionError(f"train_seg_bf16 launched a kernel in its steps: {out}")
+    if out["launches"]["mbconv_bf16"] != SEG_EVAL_LAUNCHES or out["launches"]["mbconv_stride1"] \
+            or not all(a >= fl for a, fl in zip(agree, floors)):
+        raise AssertionError(f"train_seg_bf16 eval: want {SEG_EVAL_LAUNCHES} bf16 MBConv "
+                             f"launches and labels within the bf16 rule: {out}")
+    if not all(v != 0 and v == v for v in beacon):
+        raise AssertionError(f"train_seg_bf16: BEACON not engaged on every timed step: {out}")
+    if sorted(norms) != ["beacon", "seg"] or not all(
+            v >= LIVE_FLOOR * max(norms.values()) and v > 0 for v in norms.values()):
+        raise AssertionError(f"train_seg_bf16: a loss term's gradient norm is dead: {norms}")
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = _check_seg_train_bf16_card_vs_cpu()
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--phases",
-                   default="build,kernels,main,irn,seg,bf16,train_mcl,train_seg,train_irn")
+                   default="build,kernels,main,irn,seg,bf16,train_mcl,train_seg,train_irn,"
+                           "train_mcl_bf16,train_seg_bf16")
     args = p.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -2212,6 +2676,8 @@ def main(argv=None) -> int:
     train_out = run("train_mcl", phase_train_mcl, card)
     seg_train_out = run("train_seg", phase_train_seg, card)
     irn_train_out = run("train_irn", phase_train_irn, card)
+    mcl_bf16_out = run("train_mcl_bf16", phase_train_mcl_bf16, card)
+    seg_bf16_out = run("train_seg_bf16", phase_train_seg_bf16, card)
     run("profile", phase_profile, 4, "bf16" in phases)
 
     print(card, flush=True)  # again beside the results, for readers of the output's tail
@@ -2238,6 +2704,14 @@ def main(argv=None) -> int:
                                              if seg_train_out else None)
             e["launches_train_irn"] = (irn_train_out["launches"][e["name"]]
                                        if irn_train_out else None)
+            e["launches_train_mcl_bf16"] = (mcl_bf16_out["launches"][e["name"]]
+                                            if mcl_bf16_out else None)
+            e["launches_train_seg_bf16"] = (seg_bf16_out["launches"][e["name"]]
+                                            if seg_bf16_out else None)
+            e["launches_train_seg_bf16_steps"] = (seg_bf16_out["step_launches"][e["name"]]
+                                                  if seg_bf16_out else None)
+        # the bf16 instantiation's seg-training launches: the bf16 trainer's eval
+        entries[1]["launches_train_seg"] = entries[1]["launches_train_seg_bf16"]
         print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

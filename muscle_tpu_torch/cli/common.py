@@ -13,6 +13,19 @@ def add_voc_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--num_workers", default=8, type=int)
 
 
+def train_device(name: str):
+    """``torch.device(name)`` for a trainer: 'cuda' on a machine without a
+    card raises rather than falling back to the CPU (``--device cpu`` asks
+    for it)."""
+    import torch
+
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA card here; pass --device cpu to train "
+                           "on the CPU")
+    return dev
+
+
 def load_lists(args, list_path: str):
     from muscle_tpu_torch.data.voc12 import load_img_name_list, load_label_dict
 
@@ -42,23 +55,28 @@ def fetch_weights(path_or_url: str, cache_dir: str | None = None) -> str:
 
 def load_model_state(weights: str | None, model) -> None:
     """Load a checkpoint into ``model`` with strict=False semantics: keys
-    the model has are overwritten (their shapes must match), the rest keep
-    their initialisation.  ``weights``: a reference ``.pth``/``.ckpt``
-    state dict (local path or URL), or None to keep the initialisation."""
+    the model has are overwritten (their shapes must match), each in its
+    own dtype (``convert.load_into``), the rest keep their initialisation.
+    ``weights``: a reference ``.pth``/``.ckpt`` state dict (local path or
+    URL), the JAX package's ``model_<epoch>.msgpack``, or None to keep the
+    initialisation."""
     if not weights:
         return
+    from muscle_tpu_torch.convert import (
+        load_into,
+        load_reference_state_dict,
+        read_flax_msgpack,
+        state_dict_from_jax,
+    )
+
     weights = fetch_weights(weights)
     if weights.endswith(".pth") or weights.endswith(".ckpt"):
-        from muscle_tpu_torch.convert import load_reference_state_dict
-
         loaded = load_reference_state_dict(weights)
     elif weights.endswith(".msgpack"):
-        raise NotImplementedError(
-            f"{weights!r}: Flax .msgpack checkpoints are not readable by the PyTorch "
-            "port yet; convert them to a .pth state dict with "
-            "muscle_tpu_torch.convert.state_dict_from_jax")
+        loaded = state_dict_from_jax(read_flax_msgpack(weights))
     else:
-        raise ValueError(f"unrecognised checkpoint {weights!r}: expected a torch .pth/.ckpt")
+        raise ValueError(f"unrecognised checkpoint {weights!r}: expected a torch .pth/.ckpt "
+                         "or the JAX package's model_<epoch>.msgpack")
     own = model.state_dict()
     keep = {}
     for k, v in loaded.items():
@@ -67,7 +85,7 @@ def load_model_state(weights: str | None, model) -> None:
                 raise ValueError(f"shape mismatch for {k}: {tuple(own[k].shape)} vs "
                                  f"{tuple(v.shape)}")
             keep[k] = v
-    model.load_state_dict(keep, strict=False)
+    load_into(model, keep)
 
 
 def sort_by_orientation(names: list[str], voc12_root: str) -> list[str]:

@@ -19,19 +19,22 @@ from muscle_tpu_torch.data.voc12 import get_img_path
 
 
 def load_irn_weights(weights: str, model) -> None:
-    """Load a reference IRN ``.pth`` (local path or URL) into ``model``.
-    Every key of the model must be in the file, except the running-batch
-    counters and the MeanShift buffer (zero when absent, as in the JAX
-    package's converter); other keys of the file are ignored."""
+    """Load a reference IRN ``.pth`` (local path or URL), or the JAX
+    package's ``train_irn`` checkpoint ``model_<epoch>.msgpack``, into
+    ``model``.  Every key of the model must be in the file, except the
+    running-batch counters and the MeanShift buffer (zero when absent, as
+    in the JAX package's converter); other keys of the file are ignored."""
+    from muscle_tpu_torch.convert import (
+        irn_state_dict_from_jax,
+        load_reference_state_dict,
+        read_flax_msgpack,
+    )
+
     weights = fetch_weights(weights)
     if weights.endswith(".msgpack"):
-        raise NotImplementedError(
-            f"{weights!r}: Flax .msgpack checkpoints are not readable by the PyTorch port yet; "
-            "convert them to a .pth state dict with muscle_tpu_torch.convert."
-            "irn_state_dict_from_jax")
-    from muscle_tpu_torch.convert import load_reference_state_dict
-
-    sd = load_reference_state_dict(weights)
+        sd = irn_state_dict_from_jax(read_flax_msgpack(weights))
+    else:
+        sd = load_reference_state_dict(weights)
     own = model.state_dict()
     optional = ("num_batches_tracked", "mean_shift.running_mean")
     missing = [k for k in own if k not in sd and not k.endswith(optional)]

@@ -7,7 +7,12 @@ epoch 12.  At each epoch's end: a checkpoint (``model_<ep>.pth`` and the
 full state ``step_<ep>.pt``), the rapid CAM eval over background
 thresholds 0.20-0.50, and ReduceLROnPlateau on its best mIoU.  The model
 trains with the plain MBConv blocks under autograd (``fuse_mbconv=0``, as
-the JAX trainer does) and float32 with TF32 off.
+the JAX trainer does), in float32 with TF32 off, or with --bf16 1 in
+bfloat16 on float32 parameters as the JAX package's
+``MuSCLe(dtype=jnp.bfloat16)`` does: a fresh classifier kernel starts in
+bf16 (``models.classifier_as``; a checkpoint's ``fc.weight`` replaces it
+in its own dtype) and the first Adam step promotes it to float32
+(``training/state.py``); the epoch-end eval runs the CAM engine in bf16.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import os
 
 import numpy as np
 
-from muscle_tpu_torch.cli.common import add_voc_args, load_lists, load_model_state
+from muscle_tpu_torch.cli.common import add_voc_args, load_lists, load_model_state, train_device
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -43,7 +48,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--upload", default="ycbcr420", choices=["rgb", "ycbcr420"],
                    help="with --device_norm 1: 'ycbcr420' ships luma + 2x2-subsampled "
                         "chroma (half the bytes), 'rgb' uint8 RGB")
-    p.add_argument("--bf16", default=0, type=int, help="bf16 compute: not supported yet")
+    p.add_argument("--bf16", default=0, type=int,
+                   help="1 = bfloat16 compute on float32 parameters and Adam state (the "
+                        "classifier kernel bf16 until its first step), 0 = float32")
     p.add_argument("--vis_every", default=25, type=int,
                    help="CAM/SGC overlay PNGs under <log_dir>/vis every N iterations; "
                         "0 disables")
@@ -60,15 +67,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.bf16:
-        raise NotImplementedError("--bf16 1 is not supported yet: float32 only")
 
     import torch
 
     from muscle_tpu_torch.data.loader import PrefetchLoader
     from muscle_tpu_torch.data.voc12 import VOC12ClsPixDataset
     from muscle_tpu_torch.inference.upload import to_device
-    from muscle_tpu_torch.models import MuSCLe
+    from muscle_tpu_torch.models import MuSCLe, classifier_as
     from muscle_tpu_torch.training import (
         MCLConfig,
         ReduceLROnPlateau,
@@ -82,7 +87,8 @@ def main(argv=None) -> None:
     from muscle_tpu_torch.utils import MetricLogger, Timer, TrainVisualizer
     from muscle_tpu_torch.utils.tb_events import EventWriter
 
-    device = torch.device(args.device)
+    device = train_device(args.device)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     names, labels = load_lists(args, args.train_list)
@@ -96,6 +102,7 @@ def main(argv=None) -> None:
 
     model = MuSCLe(num_classes=args.num_classes, backbone_name=args.backbone,
                    bifpn_layers=3, mode="enc", last_pooling=False, fuse_mbconv=0)
+    classifier_as(model, dtype)
     load_model_state(args.weights, model)
     model.to(device)
     opt = make_adam(model.trained_parameters(), args.lr, args.wt_dec)
@@ -109,7 +116,7 @@ def main(argv=None) -> None:
     mlog = MetricLogger(os.path.join(args.log_dir, "metrics.jsonl"))
     tb = EventWriter(os.path.join(args.log_dir, "tb")) if args.tb else None
     vis = TrainVisualizer(model, os.path.join(args.log_dir, "vis"), mode="cam",
-                          every=args.vis_every, tb=tb)
+                          every=args.vis_every, tb=tb, compute_dtype=dtype)
     timer = Timer()
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
@@ -127,10 +134,10 @@ def main(argv=None) -> None:
             if prof is not None and it == 14:
                 prof = _stop_trace(prof, args.profile_dir)
             dev = {k: to_device(v, device) for k, v in batch.items()}
-            metrics = mcl_train_step(model, opt, dev, cfg, gen)
+            metrics = mcl_train_step(model, opt, dev, cfg, gen, compute_dtype=dtype)
             step += 1
             if cfg.use_pixpro:
-                metrics.update(mcl_views_step(model, opt, dev, cfg, gen))
+                metrics.update(mcl_views_step(model, opt, dev, cfg, gen, compute_dtype=dtype))
                 step += 1
             if it % args.log_every == 0:
                 vals = {k: float(v) for k, v in metrics.items()}
@@ -148,7 +155,7 @@ def main(argv=None) -> None:
         if prof is not None:  # an epoch of fewer than 14 iterations
             prof = _stop_trace(prof, args.profile_dir)
         save_checkpoint(args.session_name, model, opt, step, ep)
-        miou = _rapid_eval(args, model, device)
+        miou = _rapid_eval(args, model, device, dtype)
         model.train()  # the engine left it in eval mode
         print(f"epoch {ep} best train-CAM mIoU {miou:.3f}", flush=True)
         if tb is not None:
@@ -167,10 +174,11 @@ def _stop_trace(prof, profile_dir: str) -> None:
     prof.export_chrome_trace(os.path.join(profile_dir, "train_mcl_trace.json"))
 
 
-def _rapid_eval(args, model, device) -> float:
+def _rapid_eval(args, model, device, dtype) -> float:
     """Epoch-end CAM eval: single-scale SGC maps over the eval list through
-    the TTA engine (DEVIATIONS #11), best mIoU over background thresholds
-    0.20..0.50 step 0.02."""
+    the TTA engine (DEVIATIONS #11) in the training's compute dtype (the
+    JAX package's bf16 model computes in bf16 inside its engine), best
+    mIoU over background thresholds 0.20..0.50 step 0.02."""
     from PIL import Image
 
     from muscle_tpu_torch.data.voc12 import get_img_path
@@ -179,7 +187,7 @@ def _rapid_eval(args, model, device) -> float:
 
     names, labels = load_lists(args, args.eval_list)
     engine = CamTTAEngine(model, scales=(1.0,), num_classes=args.num_classes,
-                          return_cam=False, device=device)
+                          return_cam=False, device=device, compute_dtype=dtype)
     outdir = os.path.join(args.session_name, "training_eval")
     os.makedirs(outdir, exist_ok=True)
     bs = 8

@@ -9,7 +9,10 @@ min 5e-6).
 The training step runs the plain MBConv blocks under autograd; the
 epoch-end eval runs ``SegTTAEngine`` at scale 1 with the stride-1 blocks
 through the MBConv kernel (``--fuse_mbconv``), and with ``--crf 1`` one
-mean-field CRF step.  float32 with TF32 off.
+mean-field CRF step on its float32 probabilities.  float32 with TF32 off,
+or with --bf16 1 bfloat16 on float32 parameters, as the JAX package's
+``MuSCLe(dtype=jnp.bfloat16)`` trains; the eval then runs in bf16, its
+fused blocks through the MBConv kernel's bf16 instantiation.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import os
 
 import numpy as np
 
-from muscle_tpu_torch.cli.common import add_voc_args, load_lists, load_model_state
+from muscle_tpu_torch.cli.common import add_voc_args, load_lists, load_model_state, train_device
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -45,7 +48,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--resume_epoch", default=None, type=int,
                    help="resume the full train state (model, Adam, step) from "
                         "<session_name>/step_<epoch>.pt")
-    p.add_argument("--bf16", default=0, type=int, help="bf16 compute: not supported yet")
+    p.add_argument("--bf16", default=0, type=int,
+                   help="1 = bfloat16 compute on float32 parameters and Adam state, the "
+                        "epoch-end eval too; 0 = float32")
     p.add_argument("--device_norm", default=1, type=int,
                    help="1 = uint8 images and x255-quantised uint8 soft masks, decoded on "
                         "the device; 0 = host float32 (the reference's exact inputs)")
@@ -74,8 +79,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.bf16:
-        raise NotImplementedError("--bf16 1 is not supported yet: float32 only")
 
     import torch
 
@@ -95,7 +98,8 @@ def main(argv=None) -> None:
     from muscle_tpu_torch.utils import MetricLogger, Timer, TrainVisualizer
     from muscle_tpu_torch.utils.tb_events import EventWriter
 
-    device = torch.device(args.device)
+    device = train_device(args.device)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     names, labels = load_lists(args, args.train_list)
@@ -124,7 +128,7 @@ def main(argv=None) -> None:
     mlog = MetricLogger(os.path.join(args.log_dir, "metrics.jsonl"))
     tb = EventWriter(os.path.join(args.log_dir, "tb")) if args.tb else None
     vis = TrainVisualizer(model, os.path.join(args.log_dir, "vis"), mode="seg",
-                          every=args.vis_every, tb=tb)
+                          every=args.vis_every, tb=tb, compute_dtype=dtype)
     timer = Timer()
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
@@ -132,7 +136,7 @@ def main(argv=None) -> None:
     for ep in range(start_epoch, args.max_epoches):
         for it, batch in enumerate(loader.epoch(ep)):
             dev = {k: to_device(v, device) for k, v in batch.items()}
-            metrics = seg_train_step(model, opt, dev, cfg, gen)
+            metrics = seg_train_step(model, opt, dev, cfg, gen, compute_dtype=dtype)
             step += 1
             if it % args.log_every == 0:
                 vals = {k: float(v) for k, v in metrics.items()}
@@ -147,7 +151,7 @@ def main(argv=None) -> None:
             vis.maybe_dump(step, batch)
 
         save_checkpoint(args.session_name, model, opt, step, ep)
-        miou = _val_eval(args, model, device)
+        miou = _val_eval(args, model, device, dtype)
         model.train()  # the engine left it in eval mode
         print(f"epoch {ep} val mIoU {miou:.3f}", flush=True)
         if tb is not None:
@@ -160,10 +164,11 @@ def main(argv=None) -> None:
         tb.close()
 
 
-def _val_eval(args, model, device) -> float:
+def _val_eval(args, model, device, dtype) -> float:
     """Single-scale val mIoU through ``SegTTAEngine(scales=(1.0,))`` (the
-    fused blocks); with --crf, one mean-field step on each prediction
-    before its argmax."""
+    fused blocks) in the training's compute dtype; with --crf, one
+    mean-field step on each prediction's float32 probabilities before its
+    argmax."""
     import torch
     from PIL import Image
 
@@ -173,7 +178,8 @@ def _val_eval(args, model, device) -> float:
     from muscle_tpu_torch.ops.crf import mean_field_crf
 
     names, _ = load_lists(args, args.eval_list)
-    engine = SegTTAEngine(model, scales=(1.0,), num_classes=args.num_classes, device=device)
+    engine = SegTTAEngine(model, scales=(1.0,), num_classes=args.num_classes, device=device,
+                          compute_dtype=dtype)
     conf = np.zeros((args.num_classes, args.num_classes), np.int64)
     bs = 4
     for i in range(0, len(names), bs):
@@ -184,7 +190,7 @@ def _val_eval(args, model, device) -> float:
                                                   rec["name"] + ".png")))
             probs = rec["probs"]
             if args.crf:
-                probs = mean_field_crf(torch.from_numpy(probs).to(device),
+                probs = mean_field_crf(torch.from_numpy(probs).to(device, torch.float32),
                                        torch.from_numpy(np.array(img)).to(device),
                                        t=1).cpu().numpy()
             conf += confusion_matrix(np.argmax(probs, axis=-1), gt, args.num_classes)

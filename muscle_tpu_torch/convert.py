@@ -9,11 +9,19 @@ converter: the backbone, ``fuse``, ``fc``, ``fuse_dec`` and the BiFPN).
 
 Layouts: conv (kh, kw, I, O) -> (O, I, kh, kw) (the depthwise (k, k, 1, C)
 included); dense (in, out) -> (out, in); BatchNorm scale/bias and
-mean/var -> weight/bias and running_mean/running_var.
+mean/var -> weight/bias and running_mean/running_var.  Each leaf keeps
+its dtype where it is bfloat16 (a bf16 model's fresh classifier kernel,
+its Adam moments) and is float32 otherwise.
+
+The JAX package's ``model_<epoch>.msgpack`` (Flax's ``to_bytes`` of
+``{params, batch_stats}``) reads without the ``msgpack`` package
+(``read_flax_msgpack``), and ``load_into`` loads a state dict with each
+tensor in its own dtype.
 """
 
 from __future__ import annotations
 
+import struct
 from typing import Any, Mapping
 
 import numpy as np
@@ -31,11 +39,23 @@ def load_reference_state_dict(path: str) -> dict[str, torch.Tensor]:
     return {k: v.detach() for k, v in obj.items() if isinstance(v, torch.Tensor)}
 
 
-def _get(tree: Mapping[str, Any], path: tuple[str, ...]) -> np.ndarray:
+def _tensor(a) -> torch.Tensor:
+    """A leaf as a torch tensor: bfloat16 (a torch tensor, or numpy's
+    ``ml_dtypes.bfloat16`` from JAX) stays bfloat16, the rest is float32."""
+    if isinstance(a, torch.Tensor):
+        return a if a.dtype == torch.bfloat16 else a.to(torch.float32)
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.tensor(np.asarray(a, np.float32))
+
+
+def _get(tree: Mapping[str, Any], path: tuple[str, ...]) -> torch.Tensor:
     node = tree
     for p in path:
         node = node[p]
-    return np.asarray(node)
+    return _tensor(node)
 
 
 def _has(tree: Mapping[str, Any], path: tuple[str, ...]) -> bool:
@@ -47,7 +67,7 @@ def _has(tree: Mapping[str, Any], path: tuple[str, ...]) -> bool:
     return True
 
 
-def _writers(variables: Mapping[str, Any], sd: dict[str, np.ndarray]):
+def _writers(variables: Mapping[str, Any], sd: dict[str, torch.Tensor]):
     """(conv, norm) functions copying a Flax conv / norm at ``path`` into
     ``sd`` under the torch ``key``; a norm with running statistics in
     ``batch_stats`` (BatchNorm) gets them too."""
@@ -55,7 +75,7 @@ def _writers(variables: Mapping[str, Any], sd: dict[str, np.ndarray]):
     stats = variables.get("batch_stats", {})
 
     def conv(path, key, bias=False):
-        sd[key + ".weight"] = _get(params, path + ("kernel",)).transpose(3, 2, 0, 1)
+        sd[key + ".weight"] = _get(params, path + ("kernel",)).permute(3, 2, 0, 1)
         if bias:
             sd[key + ".bias"] = _get(params, path + ("bias",))
 
@@ -69,8 +89,8 @@ def _writers(variables: Mapping[str, Any], sd: dict[str, np.ndarray]):
     return conv, norm
 
 
-def _tensors(sd: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in sd.items()}
+def _tensors(sd: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    return {k: v.contiguous() for k, v in sd.items()}
 
 
 def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
@@ -81,7 +101,7 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]
     ``params`` (gradients, Adam moments) given as ``{'params': tree}``
     maps onto the parameters' names the same way."""
     params = variables["params"]
-    sd: dict[str, np.ndarray] = {}
+    sd: dict[str, torch.Tensor] = {}
     conv, bn = _writers(variables, sd)
 
     bb = ("backbone",)
@@ -106,7 +126,7 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]
     if _has(params, ("fuse",)):
         conv(("fuse",), "fuse", bias=True)
     if _has(params, ("fc",)):
-        sd["fc.weight"] = _get(params, ("fc", "kernel")).T
+        sd["fc.weight"] = _get(params, ("fc", "kernel")).t()
     if _has(params, ("fuse_dec",)):
         conv(("fuse_dec",), "fuse_dec", bias=True)
     if _has(params, ("BIFPN",)):
@@ -130,7 +150,7 @@ def irn_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Ten
     ``EdgeDisplacement`` variable tree ``{'params': ..., 'batch_stats': ...}``
     of numpy arrays: the inverse of the JAX package's
     ``convert_irn_state_dict``."""
-    sd: dict[str, np.ndarray] = {}
+    sd: dict[str, torch.Tensor] = {}
     conv, norm = _writers(variables, sd)
     net = ("net",)
     rn = net + ("resnet50",)
@@ -159,3 +179,108 @@ def irn_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Ten
     if _has(stats, net + ("mean_shift",)):
         sd["mean_shift.running_mean"] = _get(stats, net + ("mean_shift",))
     return _tensors(sd)
+
+
+def load_into(model: torch.nn.Module, sd: Mapping[str, torch.Tensor], strict: bool = False):
+    """``model.load_state_dict(sd, strict)`` with each float32 or bfloat16
+    tensor loaded in its own dtype: a parameter or buffer of another
+    dtype is converted first (its object kept, so an optimizer built on
+    it stays valid), where ``load_state_dict`` would round the tensor to
+    the parameter's dtype.  The JAX package's loaders keep each leaf's
+    dtype the same way."""
+    own = dict(model.named_parameters())
+    own.update(model.named_buffers())
+    with torch.no_grad():
+        for k, v in sd.items():
+            t = own.get(k)
+            if (t is not None and v.dtype in (torch.float32, torch.bfloat16)
+                    and t.dtype != v.dtype and t.is_floating_point()):
+                t.data = t.data.to(v.dtype)
+    return model.load_state_dict(sd, strict=strict)
+
+
+# Flax's msgpack serialisation: ``flax.serialization.to_bytes`` packs a
+# nested dict with each array as msgpack ext type 1 (type 3: a numpy
+# scalar) holding the msgpack of (shape, dtype name, C-order bytes).  (It
+# splits arrays over 2**30 bytes into chunks; no MuSCLe tensor comes near.)
+_EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
+_FIXED = {0xca: ">f", 0xcb: ">d", 0xcc: ">B", 0xcd: ">H", 0xce: ">I", 0xcf: ">Q",
+          0xd0: ">b", 0xd1: ">h", 0xd2: ">i", 0xd3: ">q"}
+# marker -> (length format, kind)
+_SIZED = {0xc4: (">B", "bin"), 0xc5: (">H", "bin"), 0xc6: (">I", "bin"),
+          0xc7: (">B", "ext"), 0xc8: (">H", "ext"), 0xc9: (">I", "ext"),
+          0xd9: (">B", "str"), 0xda: (">H", "str"), 0xdb: (">I", "str"),
+          0xdc: (">H", "array"), 0xdd: (">I", "array"), 0xde: (">H", "map"),
+          0xdf: (">I", "map")}
+_FIXEXT = {0xd4: 1, 0xd5: 2, 0xd6: 4, 0xd7: 8, 0xd8: 16}
+
+
+def _msgpack_array(data: bytes):
+    """Flax's array encoding: bfloat16 as a torch tensor (numpy has no
+    bfloat16 of its own), other dtypes as numpy arrays."""
+    (shape, name, buf), _ = _unpack(data, 0)
+    name = name.decode() if isinstance(name, bytes) else name
+    if name == "bfloat16":
+        bits = np.frombuffer(buf, dtype=np.int16).reshape(shape)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape)
+
+
+def _unpack(buf: bytes, pos: int):
+    """The msgpack object at ``buf[pos:]`` and the position after it."""
+    b = buf[pos]
+    pos += 1
+    if b <= 0x7f:
+        return b, pos
+    if b >= 0xe0:
+        return b - 0x100, pos
+    if b in (0xc0, 0xc2, 0xc3):
+        return {0xc0: None, 0xc2: False, 0xc3: True}[b], pos
+    if b in _FIXED:
+        return struct.unpack_from(_FIXED[b], buf, pos)[0], pos + struct.calcsize(_FIXED[b])
+    if 0xa0 <= b <= 0xbf:
+        kind, n = "str", b & 0x1f
+    elif 0x90 <= b <= 0x9f:
+        kind, n = "array", b & 0x0f
+    elif 0x80 <= b <= 0x8f:
+        kind, n = "map", b & 0x0f
+    elif b in _FIXEXT:
+        kind, n = "ext", _FIXEXT[b]
+    elif b in _SIZED:
+        fmt, kind = _SIZED[b]
+        n = struct.unpack_from(fmt, buf, pos)[0]
+        pos += struct.calcsize(fmt)
+    else:
+        raise ValueError(f"msgpack: unsupported marker 0x{b:02x} at byte {pos - 1}")
+    if kind in ("str", "bin"):
+        raw = bytes(buf[pos:pos + n])
+        return (raw.decode() if kind == "str" else raw), pos + n
+    if kind == "ext":
+        code = struct.unpack_from(">b", buf, pos)[0]
+        data = bytes(buf[pos + 1:pos + 1 + n])
+        if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            raise ValueError(f"msgpack: unsupported ext type {code}")
+        return _msgpack_array(data), pos + 1 + n
+    out = [] if kind == "array" else {}
+    for _ in range(n):
+        if kind == "array":
+            item, pos = _unpack(buf, pos)
+            out.append(item)
+        else:
+            key, pos = _unpack(buf, pos)
+            out[key], pos = _unpack(buf, pos)
+    return out, pos
+
+
+def read_flax_msgpack(path: str) -> dict:
+    """The nested dict that ``flax.serialization.to_bytes`` wrote to
+    ``path`` (the JAX package's ``model_<epoch>.msgpack``: ``{'params':
+    ..., 'batch_stats': ...}``), each array in its own dtype (bfloat16 ones
+    as torch tensors), for ``state_dict_from_jax`` or
+    ``irn_state_dict_from_jax``."""
+    with open(path, "rb") as f:
+        data = f.read()
+    tree, end = _unpack(data, 0)
+    if end != len(data):
+        raise ValueError(f"{path!r}: {len(data) - end} bytes after the msgpack object")
+    return tree

@@ -56,7 +56,7 @@ def _class_edges(seg_map: torch.Tensor, label_with_bg: torch.Tensor, cfg: FieldL
     probs = torch.softmax(seg_map * cfg.beta, dim=-1)[..., 1:].permute(0, 3, 1, 2)
     g = torch.nn.functional.conv2d(probs, sobel_weight(cfg.sobel_size, nfg, probs),
                                    padding=cfg.sobel_size // 2, groups=nfg)
-    lab = label_with_bg[:, 1:, None, None].to(g.dtype)
+    lab = label_with_bg[:, 1:, None, None]  # float32: a bf16 map's gradients promote
     return g[:, 0::2] * lab, g[:, 1::2] * lab
 
 
@@ -117,7 +117,9 @@ def boundary_samples(seg_map: torch.Tensor, label_with_bg: torch.Tensor, cfg: Fi
 
         valid = (pos & inb(out_r, out_c) & inb(in_r, in_c)).flatten(2).flatten(0, 1)  # (P, HW)
         count = valid.sum(dim=-1)
-        scores = torch.where(valid, draws.to(mag.dtype).flatten(2).flatten(0, 1), -1.0)
+        # float32 scores whatever the map's dtype, as the JAX package draws
+        # them: bf16 draws would tie by the hundreds and top-k pick others
+        scores = torch.where(valid, draws.to(torch.float32).flatten(2).flatten(0, 1), -1.0)
         # (P, k), in ascending pixel order: the same order on every device
         idx = torch.topk(scores, cfg.k, dim=-1, sorted=False).indices.sort(dim=-1).values
         sel_valid = torch.gather(valid, 1, idx)

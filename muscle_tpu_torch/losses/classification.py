@@ -52,7 +52,7 @@ def er_topk_loss(cams: torch.Tensor, sgcs: torch.Tensor, valid_channels: torch.T
     k = (frac * valid_channels.to(torch.float32) * h * w).to(torch.int32)
     kf = torch.clamp(k, 1, diff.shape[-1]).to(torch.float32)
     with torch.no_grad():
-        d = diff.detach()
+        d = diff.detach().to(torch.float32)  # the search in f32 at any dtype
         lo = torch.zeros((n,), dtype=torch.float32, device=d.device)
         hi = d.amax(dim=-1)
         for _ in range(iters):

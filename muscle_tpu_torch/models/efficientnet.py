@@ -164,25 +164,69 @@ class BatchNorm2d(nn.BatchNorm2d):
     the biased batch variance, as Flax's ``BatchNorm`` does (torch's takes
     the unbiased one).  Normalisation is unchanged: both normalise with
     the biased variance.  A bfloat16 input is normalised in float32 and the
-    output rounded to bfloat16, as Flax's ``BatchNorm(dtype=bf16)``."""
+    output rounded to bfloat16, as Flax's ``BatchNorm(dtype=bf16)``; on
+    batch statistics with JAX's input gradient (``_LowpBatchStatsNorm``;
+    one float32 batch norm under ``torch.func`` transforms, which take no
+    autograd Function without a forward-mode rule)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return norm_in_f32(self._forward_f32, x)
+        if not self.training and self.track_running_stats:  # running statistics
+            return norm_in_f32(super().forward, x)
+        if x.dtype == torch.float32 or torch._C._functorch.is_functorch_wrapped_tensor(x):
+            return norm_in_f32(lambda t: self._on_batch_stats(t, F.batch_norm), x)
+        return self._on_batch_stats(x, _LowpBatchStatsNorm.apply)
 
-    def _forward_f32(self, x: torch.Tensor) -> torch.Tensor:
-        if not (self.training and self.track_running_stats):
-            return super().forward(x)
+    def _on_batch_stats(self, x: torch.Tensor, norm) -> torch.Tensor:
+        """``norm`` (``F.batch_norm``'s signature) on x's batch statistics,
+        then Flax's update of the running statistics when they are
+        tracked: ``norm`` updates running_mean as Flax does, and a copy of
+        running_var (autograd keeps that copy as it was after the call),
+        from which the biased update follows."""
+        if not self.track_running_stats:
+            return norm(x, None, None, self.weight, self.bias, True, self.momentum, self.eps)
         self.num_batches_tracked.add_(1)
-        n = x.numel() // x.shape[1]
         m = self.momentum
-        # F.batch_norm updates running_mean as Flax does, and the copy of
-        # running_var, which autograd keeps unchanged after the call
         var = self.running_var.clone()
-        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias, True, m, self.eps)
+        y = norm(x, self.running_mean, var, self.weight, self.bias, True, m, self.eps)
+        n = x.numel() // x.shape[1]
         with torch.no_grad():
             # var = (1 - m) old + m v n / (n - 1); keep (1 - m) old + m v
             self.running_var.mul_((1.0 - m) / n).add_(var, alpha=(n - 1) / n)
         return y
+
+
+class _LowpBatchStatsNorm(torch.autograd.Function):
+    """Flax's batch norm on batch statistics for a bfloat16 ``x``: float32
+    math on a float32 copy of x, the output rounded once.  Its input
+    gradient is JAX's: autodiff of Flax's ``BatchNorm`` casts x to float32
+    twice (once for the statistics, once for the normalisation) and each
+    cast's transpose rounds its path's cotangent to bf16 before the two
+    are summed in bf16.  So the backward splits torch's float32 input
+    gradient into the normalisation's path, g * scale * rsqrt(var + eps),
+    and the rest (the statistics'), and rounds each: one float32 batch
+    norm rounds their sum once and puts 28% of the input gradient's
+    entries one bf16 ulp from JAX's.  Takes ``F.batch_norm``'s arguments
+    (training only) and updates the running statistics as it does."""
+
+    @staticmethod
+    def forward(ctx, x, running_mean, running_var, weight, bias, training, momentum, eps):
+        y, mean, invstd = torch.ops.aten.native_batch_norm(
+            x.to(torch.float32), weight, bias, running_mean, running_var, training, momentum,
+            eps)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.eps = eps
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, weight, mean, invstd = ctx.saved_tensors
+        g = gy.to(torch.float32)
+        dx, dw, db = torch.ops.aten.native_batch_norm_backward(
+            g, x.to(torch.float32), weight, None, None, mean, invstd, True, ctx.eps,
+            [True, True, True])
+        direct = g * (invstd * weight)[:, None, None]
+        return (direct.to(x.dtype) + (dx - direct).to(x.dtype), None, None, dw, db, None,
+                None, None)
 
 
 def _bn(c: int) -> BatchNorm2d:

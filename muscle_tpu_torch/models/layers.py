@@ -51,9 +51,11 @@ class Conv2d(nn.Conv2d):
         """(kernel, bias) in ``dtype``.  Outside autograd the copies are
         made once and kept until a parameter changes (its storage or
         version counter moves), so an inference forward casts no weight;
-        under autograd the casts are recorded like any op."""
+        under autograd, and under ``torch.func`` transforms, the casts are
+        recorded like any op."""
         params = (self.weight, self.bias)
-        if torch.is_grad_enabled() or self.weight.is_inference():
+        if (torch.is_grad_enabled() or self.weight.is_inference()
+                or torch._C._functorch.is_functorch_wrapped_tensor(self.weight)):
             return tuple(None if t is None else t.to(dtype) for t in params)
         key = tuple(None if t is None else (t.device, t.data_ptr(), t._version)
                     for t in params)

@@ -19,11 +19,12 @@ and of a 'dec' model:
 
 The model computes in its input's dtype (float32, or bfloat16 as the JAX
 package's ``dtype=jnp.bfloat16``; ``models/layers.py``).  At bfloat16, as
-under jnp's promotion: the CAMs (the bf16 p7 against the f32 classifier
-kernel), the SGC (the f32 CAMs against the bf16 affinity) and the logits
-come out float32; the embedding, the seg maps and the dense features
-bfloat16; the window resizes promote to float32 and the next convolution
-casts back to bfloat16.
+under jnp's promotion: the CAMs, the SGC and the logits come out in the
+promotion of bfloat16 and the classifier kernel's dtype (float32 against
+a checkpoint's float32 kernel, bfloat16 against a bf16 model's fresh
+kernel, ``classifier_as``); the embedding, the seg maps and the dense
+features bfloat16; the window resizes promote to float32 and the next
+convolution casts back to bfloat16.
 """
 
 from __future__ import annotations
@@ -90,13 +91,17 @@ class MuSCLe(nn.Module):
 
     def _cams(self, p7: torch.Tensor) -> torch.Tensor:
         """Per-class weighted sum of p7 channels by the detached classifier
-        weights, rectified; float32 (a bf16 p7 promotes to the f32 kernel's
-        dtype)."""
-        return F.relu(torch.einsum("nhwc,kc->nhwk", p7.float(), self.fc.weight.detach()))
+        weights, rectified, in the promotion of p7's and the kernel's
+        dtypes (jnp's ``einsum``)."""
+        w = self.fc.weight.detach()
+        dt = torch.promote_types(p7.dtype, w.dtype)
+        return F.relu(torch.einsum("nhwc,kc->nhwk", p7.to(dt), w.to(dt)))
 
     def _logits(self, emb: torch.Tensor) -> torch.Tensor:
-        """The classifier on float32 ``emb`` (a bf16 embedding promotes)."""
-        return self.fc(emb.float())
+        """The classifier, in the promotion of emb's and the kernel's dtypes
+        (jnp's ``emb @ kernel``)."""
+        dt = torch.promote_types(emb.dtype, self.fc.weight.dtype)
+        return F.linear(emb.to(dt), self.fc.weight.to(dt))
 
     def pcm(self, cam: torch.Tensor, f: torch.Tensor, mask: torch.Tensor | None = None
             ) -> torch.Tensor:
@@ -215,6 +220,21 @@ class MuSCLe(nn.Module):
         if mode == "vis":
             return seg_map, feats5[-1]
         return seg_map, dense_ft
+
+
+@torch.no_grad()
+def classifier_as(model: MuSCLe, dtype: torch.dtype) -> MuSCLe:
+    """An enc model's classifier kernel cast to ``dtype``, the rest left
+    float32: the JAX package's ``MuSCLe(dtype=jnp.bfloat16)`` initialises
+    its classifier kernel in bfloat16 (its ``_Classifier`` creates the
+    kernel in the model's ``dtype``; Flax's ``Dense`` would take a separate
+    ``param_dtype``), every other parameter in float32.  A checkpoint's
+    ``fc.weight`` then replaces it in its own dtype (``convert.load_into``),
+    as the JAX package's loader does.  The parameter object is kept, so an
+    optimizer built on it stays valid."""
+    if model.mode == "enc":
+        model.fc.weight.data = model.fc.weight.data.to(dtype)
+    return model
 
 
 @torch.no_grad()

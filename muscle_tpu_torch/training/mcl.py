@@ -11,6 +11,15 @@ steps, as the reference does:
 
 Batches are dicts of tensors on the model's device, in any of the
 dataset's upload formats (``decode_image``).
+
+compute_dtype: float32, or bfloat16 as the JAX package's
+``MuSCLe(dtype=jnp.bfloat16)`` trains: the image is decoded in float32
+and cast at the model's input (where Flax's first ``nn.Conv`` casts it),
+the model computes in bf16 on its float32 parameters
+(``models/layers.py``), the losses take the dtypes the model hands them
+(jnp's promotions: the labels and the CAM normalisers' outputs against
+float32 promote to float32), and the float32 parameters receive float32
+gradients through the casts' backward.  Metrics come back float32.
 """
 
 from __future__ import annotations
@@ -109,45 +118,55 @@ def _terms_b(forward, view1: torch.Tensor, view2: torch.Tensor, batch: dict, cfg
     return out
 
 
+def _metrics(terms: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The detached terms as float32 0-d tensors."""
+    return {k: v.detach().to(torch.float32) for k, v in terms.items()}
+
+
 def mcl_train_step(model, opt: torch.optim.Optimizer, batch: dict, cfg: MCLConfig,
-                   generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+                   generator: torch.Generator | None = None,
+                   compute_dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
     """Step A: puts ``model`` in train mode, updates its parameters and BN
     statistics; ``generator`` feeds drop-connect.  Returns the detached
-    metrics (0-d tensors)."""
+    metrics (float32 0-d tensors)."""
     model.train()
-    t = _terms_a(model, decode_image(batch, "img"), batch["label"], cfg, generator)
+    t = _terms_a(model, decode_image(batch, "img").to(compute_dtype), batch["label"], cfg,
+                 generator)
     loss = t["focal"] + t["softmargin"] + t["pair"] + t["er"]
     if cfg.use_imc:
         loss = loss + t["imc"]
     minimize(opt, loss)
     zero = torch.zeros((), device=loss.device)
-    return {"loss": loss.detach(), "loss_focal": t["focal"].detach(),
-            "loss_softmargin": t["softmargin"].detach(), "loss_pair": t["pair"].detach(),
-            "loss_er": t["er"].detach(), "loss_imc": t.get("imc", zero).detach()}
+    return _metrics({"loss": loss, "loss_focal": t["focal"], "loss_softmargin": t["softmargin"],
+                     "loss_pair": t["pair"], "loss_er": t["er"],
+                     "loss_imc": t.get("imc", zero)})
 
 
 def mcl_views_step(model, opt: torch.optim.Optimizer, batch: dict, cfg: MCLConfig,
                    generator: torch.Generator | None = None,
-                   crop_frac: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+                   crop_frac: torch.Tensor | None = None,
+                   compute_dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
     """Step B: puts ``model`` in eval mode (frozen BN statistics, no
     drop-connect, as the reference's model.eval()) and keeps gradients for
     view 1.  ``crop_frac``: EMD's (N, 2) crop fractions, drawn from
     ``generator`` when None."""
     model.eval()
-    t = _terms_b(model, decode_image(batch, "view1"), decode_image(batch, "view2"), batch,
-                 cfg, generator, crop_frac)
+    t = _terms_b(model, decode_image(batch, "view1").to(compute_dtype),
+                 decode_image(batch, "view2").to(compute_dtype), batch, cfg, generator,
+                 crop_frac)
     loss = t["pixpro"]
     if cfg.use_emd:
         loss = loss + t["emd"]
     minimize(opt, loss)
     zero = torch.zeros((), device=loss.device)
-    return {"loss_pixpro": t["pixpro"].detach(), "loss_emd": t.get("emd", zero).detach()}
+    return _metrics({"loss_pixpro": t["pixpro"], "loss_emd": t.get("emd", zero)})
 
 
 def mcl_term_grad_norms(model, batch: dict, generator: torch.Generator | None = None,
                         cfg: MCLConfig = MCLConfig(True, True, True),
                         views_train_mode: bool = False,
-                        method: str = "jacrev") -> dict[str, float]:
+                        method: str = "jacrev",
+                        compute_dtype: torch.dtype = torch.float32) -> dict[str, float]:
     """Per-term liveness over the model's trained parameters
     (``training/liveness.py``): gradient norms ('jacrev') or
     |directional derivatives| along seeded random tangents ('jvp').  EMD's
@@ -162,7 +181,7 @@ def mcl_term_grad_norms(model, batch: dict, generator: torch.Generator | None = 
     show zero gradients that say nothing about the graph."""
     names = {id(p): n for n, p in model.named_parameters()}
     params = {names[id(p)]: p for p in model.trained_parameters()}
-    imgs = {k: decode_image(batch, k) for k in ("img", "view1", "view2")
+    imgs = {k: decode_image(batch, k).to(compute_dtype) for k in ("img", "view1", "view2")
             if k in batch or k + "_y" in batch}
 
     def terms_a(p):

@@ -5,6 +5,12 @@ field loss, the gradients clipped to a global norm of 9, then Adam (lr
 
 The model runs in train mode (batch statistics, drop-connect) with the
 plain MBConv blocks under autograd: the MBConv kernel has no backward.
+
+compute_dtype: float32, or bfloat16 as the JAX package's
+``MuSCLe(dtype=jnp.bfloat16)`` trains (``training/mcl.py`` says how): the
+cross entropy then takes the bf16 seg map, BEACON its bf16 maps with
+float32 draws, and the gradients of the float32 parameters are float32,
+their global-norm clip too.  Metrics come back float32.
 """
 
 from __future__ import annotations
@@ -30,15 +36,17 @@ class SegConfig:
     num_classes: int = 21  # with the background; the model head's and pack_mask's
 
 
-def _dequant_batch(batch: dict, num_classes: int | None = None) -> dict:
+def _dequant_batch(batch: dict, num_classes: int | None = None,
+                   compute_dtype: torch.dtype = torch.float32) -> dict:
     """The batch as the losses take it: the image decoded and normalised
     (any upload format, ``decode_image``), a uint8 mask mapped back to
     [0, 1] (/ 255), and a packed mask (``mask`` (N, H, W, K) +
     ``mask_idx`` (N, K), ``VOC12SegDataset`` pack_mask) added back into the
     dense (N, H, W, num_classes) stack.  Pad slots carry id 0 and zero
     values: the scatter adds, so they leave the background as it is.
-    Float batches pass through."""
-    out = dict(batch, img=decode_image(batch, "img"))
+    Float batches pass through.  The image comes out in ``compute_dtype``
+    (the model's input), the mask float32."""
+    out = dict(batch, img=decode_image(batch, "img").to(compute_dtype))
     out.pop("img_y", None)
     out.pop("img_c", None)
     if batch["mask"].dtype == torch.uint8:
@@ -77,26 +85,30 @@ def _terms(forward, batch: dict, cfg: SegConfig, generator, draws) -> dict[str, 
 
 def seg_train_step(model, opt: torch.optim.Optimizer, batch: dict, cfg: SegConfig = SegConfig(),
                    generator: torch.Generator | None = None,
-                   draws: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+                   draws: torch.Tensor | None = None,
+                   compute_dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
     """One step: puts ``model`` (MuSCLe, mode 'dec') in train mode, updates
     its parameters and BN statistics.  batch: img (or img_y/img_c), mask
     (N, H, W, C) soft (or packed with mask_idx), label (N, 20), on the
     model's device.  ``generator`` feeds drop-connect and BEACON's
     sampling; draws: optional (N, C-1, H, W) BEACON scores in its place.
-    Returns the detached metrics (0-d tensors): loss, loss_seg,
+    Returns the detached metrics (float32 0-d tensors): loss, loss_seg,
     loss_beacon and grad_norm (before clipping)."""
     model.train()
-    t = _terms(model, _dequant_batch(batch, cfg.num_classes), cfg, generator, draws)
+    t = _terms(model, _dequant_batch(batch, cfg.num_classes, compute_dtype), cfg, generator,
+               draws)
     beacon = t.get("beacon", torch.zeros((), device=t["seg"].device))
     loss = t["seg"] + cfg.lamb * beacon
     gnorm = minimize(opt, loss, clip_norm=cfg.clip_norm)
-    return {"loss": loss.detach(), "loss_seg": t["seg"].detach(),
-            "loss_beacon": beacon.detach(), "grad_norm": gnorm.detach()}
+    return {k: v.detach().to(torch.float32) for k, v in
+            (("loss", loss), ("loss_seg", t["seg"]), ("loss_beacon", beacon),
+             ("grad_norm", gnorm))}
 
 
 def seg_term_grad_norms(model, batch: dict, cfg: SegConfig = SegConfig(),
                         generator: torch.Generator | None = None,
-                        draws: torch.Tensor | None = None, return_values: bool = False):
+                        draws: torch.Tensor | None = None, return_values: bool = False,
+                        compute_dtype: torch.dtype = torch.float32):
     """Per-term gradient norms of 'seg' (CE) and 'beacon' over the model's
     trained parameters (``training/liveness.py``), from one train-mode
     forward whose BN statistics are not updated.
@@ -106,7 +118,7 @@ def seg_term_grad_norms(model, batch: dict, cfg: SegConfig = SegConfig(),
     statistics and the mode are left as they were."""
     names = {id(p): n for n, p in model.named_parameters()}
     params = {names[id(p)]: p for p in model.trained_parameters()}
-    batch = _dequant_batch(batch, cfg.num_classes)
+    batch = _dequant_batch(batch, cfg.num_classes, compute_dtype)
     keys = ["beacon", "seg"] if cfg.lamb > 0 else ["seg"]
 
     def stacked(p):

@@ -8,7 +8,16 @@ Checkpoints per epoch ``<ep>``, in ``ckpt_dir``:
 * ``step_<ep>.pt``: the full train state (model, Adam moments and learning
   rate, step, epoch) for ``--resume_epoch``.
 
-The JAX package's ``.msgpack``/Orbax formats are not written.
+Each tensor is saved and restored in its own dtype.  The JAX package's
+``.msgpack``/Orbax formats are not written (``convert.read_flax_msgpack``
+reads its ``.msgpack``).
+
+Parameters stored below float32 (a bf16 model's fresh classifier kernel,
+``models.classifier_as``) step as optax steps them: the moments are kept
+and updated in the parameter's dtype, and the float32 learning rate
+promotes the update, and with it the parameter, to float32 at its first
+step; the next step's float32 gradient promotes the moments
+(``minimize``).
 """
 
 from __future__ import annotations
@@ -67,8 +76,37 @@ def minimize(opt: torch.optim.Optimizer, loss: torch.Tensor,
     gnorm = None
     if clip_norm is not None:
         gnorm = torch.nn.utils.clip_grad_norm_(params, clip_norm)
-    opt.step()
+    _promoting_step(opt)
     return gnorm
+
+
+@torch.no_grad()
+def _promoting_step(opt: torch.optim.Optimizer) -> None:
+    """``opt.step()`` (Adam) with jnp's promotions for parameters stored
+    below float32, as optax's chain (decay, ``scale_by_adam``, the injected
+    float32 learning rate) and ``p + u`` compute them: moments in the
+    parameter's dtype, ``u = (mu / bc1) / (sqrt(nu / bc2) + eps)`` with the
+    bias corrections cast to it, then ``p + (-lr) * u`` in float32, which
+    leaves the parameter float32.  Moments left below their parameter's
+    dtype by that promotion are promoted first (the next step's float32
+    gradient does so in optax)."""
+    low = []
+    for group in opt.param_groups:
+        for p in group["params"]:
+            st = opt.state.get(p, {})
+            for key in ("exp_avg", "exp_avg_sq"):
+                if key in st and st[key].dtype != p.dtype:
+                    st[key] = st[key].to(p.dtype)
+            if p.dtype != torch.float32:
+                low.append((group, p, p.detach().clone()))
+    opt.step()  # a low-precision parameter's own update rounds away here
+    for group, p, before in low:
+        st = opt.state[p]
+        (b1, b2), t = group["betas"], float(st["step"])
+        bc1 = torch.tensor(1.0 - b1 ** t, dtype=p.dtype)
+        bc2 = torch.tensor(1.0 - b2 ** t, dtype=p.dtype)
+        u = (st["exp_avg"] / bc1) / ((st["exp_avg_sq"] / bc2).sqrt() + group["eps"])
+        p.data = before.to(torch.float32) - group["lr"] * u.to(torch.float32)
 
 
 def save_checkpoint(ckpt_dir: str, model: torch.nn.Module, opt: torch.optim.Optimizer,
@@ -89,8 +127,10 @@ def restore_checkpoint(ckpt_dir: str, epoch: int, model: torch.nn.Module,
     """Load ``step_<epoch>.pt`` into ``model`` and ``opt``; returns the
     step count."""
     dev = next(model.parameters()).device
+    from muscle_tpu_torch.convert import load_into
+
     full = torch.load(os.path.join(ckpt_dir, f"step_{epoch}.pt"), map_location=dev,
                       weights_only=True)
-    model.load_state_dict(full["model"])
-    opt.load_state_dict(full["optimizer"])
+    load_into(model, full["model"], strict=True)
+    opt.load_state_dict(full["optimizer"])  # moments cast to their parameters' dtypes
     return int(full["step"])

@@ -41,14 +41,18 @@ def _first_image_u8(batch: dict) -> np.ndarray:
 class TrainVisualizer:
     """Args: model (MuSCLe), out_dir (created on the first dump), mode 'cam'
     (MCL training) or 'seg', every (period in iterations; <= 0 disables),
-    tb (optional ``utils.tb_events.EventWriter``)."""
+    tb (optional ``utils.tb_events.EventWriter``), compute_dtype (the
+    training's: the forward runs in it, as the JAX package's bf16 model
+    computes in bf16 whatever its input's dtype)."""
 
-    def __init__(self, model, out_dir: str, mode: str = "cam", every: int = 25, tb=None):
+    def __init__(self, model, out_dir: str, mode: str = "cam", every: int = 25, tb=None,
+                 compute_dtype: torch.dtype = torch.float32):
         self.model = model
         self.out_dir = out_dir
         self.mode = mode
         self.every = every
         self.tb = tb
+        self.compute_dtype = compute_dtype
 
     def maybe_dump(self, step: int, batch: dict) -> None:
         if self.every <= 0 or (step % self.every and step != 1):
@@ -61,15 +65,15 @@ class TrainVisualizer:
         if self.tb is not None:
             self.tb.add_image("vis/input", img8, step)
         dev = next(self.model.parameters()).device
-        x = torch.from_numpy(color_norm(img8)[None]).to(dev)
+        x = torch.from_numpy(color_norm(img8)[None]).to(dev, self.compute_dtype)
         was_training = self.model.training
         self.model.eval()
         try:
             with torch.no_grad():
                 if self.mode == "cam":
                     cams, sgcs, _, _ = self.model(x, mode="cam")
-                    cam = cam_maxnorm(cams)[0].cpu().numpy()
-                    sgc = cam_maxnorm(sgcs)[0].cpu().numpy()
+                    cam = cam_maxnorm(cams)[0].float().cpu().numpy()
+                    sgc = cam_maxnorm(sgcs)[0].float().cpu().numpy()
                 else:
                     seg_map, _ = self.model(x, mode="seg")
                     mask = seg_map[0].argmax(dim=-1).cpu().numpy()

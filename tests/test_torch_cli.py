@@ -153,7 +153,17 @@ def test_load_model_state_rules(checkpoint, tmp_path):
     torch.save({"fc.weight": torch.zeros(3, 3)}, bad)
     with pytest.raises(ValueError, match="shape mismatch"):
         load_model_state(str(bad), model)
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        load_model_state(str(tmp_path / "model_0.msgpack"), model)
+    # the JAX package's model_<epoch>.msgpack: Flax's to_bytes of the same weights
+    import flax.serialization
+
+    from muscle_tpu.convert import convert_muscle_state_dict
+
+    tree = convert_muscle_state_dict({k: v.numpy() for k, v in sd.items()})
+    (tmp_path / "model_0.msgpack").write_bytes(flax.serialization.to_bytes(tree))
+    fresh = MuSCLe(backbone_name="efficientnet-b1", mode="enc", last_pooling=False)
+    load_model_state(str(tmp_path / "model_0.msgpack"), fresh)
+    for k, v in fresh.state_dict().items():
+        if k in sd:
+            assert torch.equal(v, sd[k]), k
     with pytest.raises(ValueError, match="unrecognised"):
         load_model_state(str(tmp_path / "model.bin"), model)

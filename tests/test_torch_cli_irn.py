@@ -106,8 +106,18 @@ def test_infer_irn_rejects_unsupported(mini_voc, tmp_path):
         assert np.asarray(Image.open(tmp_path / "a_png" / f"{n}.png")).shape == (h, w)
     with pytest.raises(ValueError, match="bfloat16"):
         RandomWalkRefiner(EdgeDisplacement(), device="cpu", compute_dtype=torch.float16)
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        infer_irn.load_irn_weights(str(tmp_path / "irn_0.msgpack"), EdgeDisplacement())
+    # the JAX package's train_irn checkpoint: Flax's to_bytes of the same weights
+    import flax.serialization
+
+    from muscle_tpu.convert import convert_irn_state_dict
+
+    tree = convert_irn_state_dict({k: v.numpy() for k, v in sd.items()})
+    (tmp_path / "irn_0.msgpack").write_bytes(flax.serialization.to_bytes(tree))
+    model = EdgeDisplacement()
+    infer_irn.load_irn_weights(str(tmp_path / "irn_0.msgpack"), model)
+    for k, v in model.state_dict().items():
+        if k in sd:
+            assert torch.equal(v, sd[k]), k
     partial = tmp_path / "partial.pth"
     torch.save({k: v for k, v in sd.items() if not k.startswith("fc_edge6")}, partial)
     with pytest.raises(KeyError, match="fc_edge6"):

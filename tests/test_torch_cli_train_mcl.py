@@ -97,6 +97,51 @@ def test_train_mcl_epoch_resume_and_infer(mini_voc, tmp_path):
 
 
 def test_train_mcl_refuses_bf16(mini_voc, tmp_path):
+    """--bf16 1 on the card (the default device) where there is none
+    raises: no fallback to the CPU unless --device cpu asks for it."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is here: --device cuda would train on it")
     root, _ = mini_voc
-    with pytest.raises(NotImplementedError, match="bf16"):
-        train_mcl.main(_args(root, tmp_path / "s", tmp_path / "l", "--bf16", "1"))
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train_mcl.main(_args(root, tmp_path / "s", tmp_path / "l", "--bf16", "1",
+                             "--device", "cuda"))
+
+
+def test_train_mcl_bf16_epoch_and_resume(mini_voc, tmp_path, monkeypatch):
+    """--bf16 1: an epoch from a fresh bf16 classifier kernel, whose first
+    Adam step leaves it float32 (as optax's does), with the epoch-end CAM
+    engine in bf16; checkpoints of float32 tensors; a resume into epoch 12
+    (steps A and B at bf16)."""
+    import muscle_tpu_torch.inference as inference
+
+    dtypes = []
+    engine = inference.CamTTAEngine
+
+    def recording(*a, **kw):
+        dtypes.append(kw.get("compute_dtype"))
+        return engine(*a, **kw)
+
+    monkeypatch.setattr(inference, "CamTTAEngine", recording)
+    root, names = mini_voc
+    session, logs = tmp_path / "session", tmp_path / "logs"
+    train_mcl.main(_args(root, session, logs, "--max_epoches", "1", "--bf16", "1"))
+    recs = _log(logs)
+    assert [r["step"] for r in recs] == [1, 2]
+    assert all(np.isfinite(r["loss"]) and r["loss_focal"] > 0 for r in recs)
+    assert len(list((session / "training_eval").glob("*.npy"))) == len(names)
+    state0 = torch.load(session / "step_0.pt", weights_only=True)
+    assert {t.dtype for t in state0["model"].values() if t.is_floating_point()} == {
+        torch.float32}
+    moments = [t for st in state0["optimizer"]["state"].values()
+               for k, t in st.items() if k.startswith("exp_avg")]
+    assert moments and all(t.dtype == torch.float32 for t in moments)
+
+    shutil.copy(session / "step_0.pt", session / "step_11.pt")
+    train_mcl.main(_args(root, session, logs, "--max_epoches", "13", "--resume_epoch", "11",
+                         "--bf16", "1"))
+    recs = _log(logs)[2:]
+    assert [r["step"] for r in recs] == [4, 6]
+    assert all(r["loss_pixpro"] > 0 and np.isfinite(r["loss_emd"]) for r in recs)
+    sd = torch.load(session / "model_12.pth", weights_only=True)
+    assert not torch.equal(sd["fc.weight"], state0["model"]["fc.weight"])
+    assert dtypes == [torch.bfloat16, torch.bfloat16]

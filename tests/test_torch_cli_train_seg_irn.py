@@ -95,9 +95,49 @@ def test_train_muscle_epoch_and_resume(mini_voc, tmp_path):
 
 
 def test_train_muscle_refuses_bf16(mini_voc, tmp_path):
+    """--bf16 1 on the card (the default device) where there is none
+    raises: no fallback to the CPU unless --device cpu asks for it."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is here: --device cuda would train on it")
     root, _ = mini_voc
-    with pytest.raises(NotImplementedError, match="bf16"):
-        train_muscle.main(_seg_args(root, tmp_path / "s", tmp_path / "l", "--bf16", "1"))
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        train_muscle.main(_seg_args(root, tmp_path / "s", tmp_path / "l", "--bf16", "1",
+                                    "--device", "cuda"))
+
+
+def test_train_muscle_bf16_epoch(mini_voc, tmp_path, monkeypatch):
+    """--bf16 1: an epoch at bf16 with its epoch-end eval, the seg engine
+    in bf16 and the CRF on float32 probabilities; the checkpoint holds
+    float32 tensors."""
+    import muscle_tpu_torch.inference as inference
+    import muscle_tpu_torch.ops.crf as crf
+
+    seen = []
+    engine, mean_field = inference.SegTTAEngine, crf.mean_field_crf
+
+    def recording_engine(*a, **kw):
+        seen.append(("engine", kw.get("compute_dtype")))
+        return engine(*a, **kw)
+
+    def recording_crf(probs, *a, **kw):
+        seen.append(("crf", probs.dtype))
+        return mean_field(probs, *a, **kw)
+
+    monkeypatch.setattr(inference, "SegTTAEngine", recording_engine)
+    monkeypatch.setattr(crf, "mean_field_crf", recording_crf)
+    root, _ = mini_voc
+    session, logs = tmp_path / "session", tmp_path / "logs"
+    train_muscle.main(_seg_args(root, session, logs, "--max_epoches", "1", "--bf16", "1"))
+    recs = _log(logs)
+    assert [r["step"] for r in recs] == [1, 2]
+    for r in recs:
+        assert r["loss_seg"] > 0 and np.isfinite(r["loss_beacon"]) and r["grad_norm"] > 0
+    state0 = torch.load(session / "step_0.pt", weights_only=True)
+    assert state0["step"] == 2
+    assert {t.dtype for t in state0["model"].values() if t.is_floating_point()} == {
+        torch.float32}
+    assert seen[0] == ("engine", torch.bfloat16)
+    assert seen[1:] and all(s == ("crf", torch.float32) for s in seen[1:])
 
 
 def test_train_irn_epoch_loads_into_the_refiner_net(mini_voc, tmp_path, capsys):
