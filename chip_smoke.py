@@ -2,7 +2,7 @@
 """Drive the PyTorch port's CAM-generation, IRN-refinement,
 segmentation-inference (in float32 and in bfloat16), MCL-training and
 segmentation-training (each in float32 and in bfloat16) and IRN-training
-paths on one CUDA card.
+paths on one CUDA card, and their data-parallel runs over several ranks.
 
     python3 chip_smoke.py            # every phase, the full check
     python3 chip_smoke.py --phases build,kernels
@@ -13,6 +13,7 @@ paths on one CUDA card.
     python3 chip_smoke.py --phases build,profile        # where the device time goes
     python3 chip_smoke.py --phases build,bf16,profile   # the same for the bf16 paths
     python3 chip_smoke.py --phases build,train_mcl_bf16,train_seg_bf16
+    python3 chip_smoke.py --phases build,dp              # data parallelism alone
 
 Phases:
   build    compile every CUDA kernel of the paths from the checkout
@@ -136,6 +137,26 @@ Phases:
            MBConv kernel's bf16 instantiation, labels held to the plain
            bf16 blocks' by the bf16 phase's rule), both terms' gradient
            norms, and one b1 step held to the CPU at bf16 as above;
+  dp       data parallelism over torch.distributed (parallel/mesh.py): 2
+           ranks sharing card 0 over gloo (two ranks on one card give no
+           scaling number) and, where torch.cuda.device_count() >= 2, also
+           min(cards, 4) ranks one a card over NCCL, each a spawned process;
+           every W-rank result is held to the one-process run on card 0 on
+           the same global batch: steps A (IMC, ER) and B, the seg step and
+           the IRN step at b1, crop 64, global batch 4, f32 (TF32 off: the
+           card-vs-CPU rule) and bf16 (the train_*_bf16 rule; IRN f32
+           only), every rank's parameters bit-identical after the step; MCL
+           b3 at batch 16, crop 448 (step A) and seg b7 + BiFPN 3 x 256 at
+           3 images a rank, crop 448: 1 warm-up step (loss terms within
+           1e-4 relative) and 2 timed, the step ms, the gradient all-reduce
+           alone (ms, bytes) and the peak memory of each rank; the CAM
+           engine (b3, --fast 0) over 2 batches of 8 and the seg engine
+           (b7) over 1 batch of 4, each rank on its rows of every batch,
+           collected and held to the one-process engine (the main and seg
+           phases' rules), the MBConv launches of each rank; and
+           propagate_to_edge_sharded at grid 128 (V 16384, T 1 GiB, V / W
+           columns a rank), 64 steps, against the one-card dense walk
+           (1e-5 of its largest value);
   profile  (not run by default) device time by kernel name over --fast 0
            CAM batches, with and without the MBConv kernel, over IRN
            batches with the stencil kernel, and over one seg batch, and
@@ -302,6 +323,27 @@ IRN_GRAD_TOLS = (1e-4, 1e-5)
 BF16_TRAIN_WARMUP, BF16_TRAIN_ITERS = 1, 3
 BF16_TRAIN_MEAN, BF16_TRAIN_MAX, BF16_TRAIN_ULPS, BF16_TRAIN_ZERO = 2.0, 3.0, 4.0, 2e-2
 BF16_TRAIN_RAN, BF16_CHECK_BATCHES = 0.5, 4
+# data parallelism (dp phase): DP_SHARED_RANKS ranks share card 0 over gloo;
+# with several cards, min(cards, DP_MAX_RANKS) ranks one a card over NCCL.
+# Parity at b1 (the check phases' sizes at a global batch of DP_CHECK_BATCH,
+# which 2 and 4 ranks divide; BF16_CHECK_BATCHES batches, the bf16 rule's
+# loss terms a mean over them); full width: MCL b3 at the train_mcl default
+# (batch 16, crop 448, step A with IMC) and seg b7 + BiFPN 3 x 256 at
+# DP_SEG_PER_RANK images a rank (the train_muscle default's 6 on 2 ranks),
+# 1 warm-up step (held to the one-process step: the loss within
+# DP_LOSS_RTOL, each term within DP_LOSS_RTOL of the loss: BEACON is a
+# near-cancelling sum, ~1e-5 at random weights, whose boundary samples
+# rounding can move) and DP_ITERS timed; serving: the CAM engine (b3,
+# fused, --fast 0) over DP_CAM_BATCHES batches of 8, the seg engine (b7)
+# over DP_SEG_BATCHES of 4, each rank on its rows of every batch; the
+# sharded walk at grid 128 against the float64 dense walk: within
+# DP_WALK_RTOL of its largest value, or within twice the one-card f32
+# dense walk's own distance from it (cuBLAS sums a column block in
+# another order than the whole: 1.3e-5 of the largest apart, first run)
+DP_SHARED_RANKS, DP_MAX_RANKS = 2, 4
+DP_CHECK_BATCH, DP_MCL_BATCH, DP_SEG_PER_RANK, DP_ITERS = 4, 16, 3, 2
+DP_CAM_BATCHES, DP_SEG_BATCHES, DP_WALK_GRID = 2, 1, 128
+DP_LOSS_RTOL, DP_WALK_RTOL = 1e-4, 1e-5
 
 
 def log(msg: str) -> None:
@@ -2632,11 +2674,531 @@ def phase_train_seg_bf16(card: str) -> dict:
     return out
 
 
+# ---- data parallelism (dp phase) -----------------------------------------------------------
+
+
+def _dp_arch(kind: str):
+    """The model of a dp case, freshly built on the CPU: 'b1_enc', 'b1_dec'
+    (BiFPN 1 x 64), 'irn', 'b3_enc' and 'b7_dec' (BiFPN 3 x 256) as the
+    trainers build them, 'b3_cam' and 'b7_seg' with the fused blocks as the
+    engines run them."""
+    from muscle_tpu_torch.models import IRNNet, MuSCLe
+
+    if kind == "irn":
+        return IRNNet()
+    name, mode, layers, ch, fuse = {
+        "b1_enc": (CHECK_BACKBONE, "enc", 3, 256, 0),
+        "b1_dec": (SEG_CHECK_BACKBONE, "dec", 1, 64, 0),
+        "b3_enc": (TRAIN_BACKBONE, "enc", 3, 256, 0),
+        "b7_dec": (SEG_TRAIN_BACKBONE, "dec", 3, 256, 0),
+        "b3_cam": ("efficientnet-b3", "enc", 3, 256, 384),
+        "b7_seg": ("efficientnet-b7", "dec", 3, 256, 384)}[kind]
+    return MuSCLe(backbone_name=name, mode=mode, bifpn_layers=layers, bifpn_channels=ch,
+                  last_pooling=mode == "dec", fuse_mbconv=fuse)
+
+
+def _dp_model(kind: str, state: dict):
+    """``_dp_arch(kind)`` loaded from ``state`` (every rank builds the same)."""
+    m = _dp_arch(kind)
+    m.load_state_dict(state)
+    return m
+
+
+def _dp_rows(batch: dict, group) -> dict:
+    """This rank's rows of a global host batch (all of it for one process)."""
+    import torch
+
+    from muscle_tpu_torch import parallel
+
+    return {k: torch.as_tensor(v[parallel.rank_rows(len(v), group)]) for k, v in batch.items()}
+
+
+def _dp_step(case: dict, group, dev, timed: int = 0) -> dict:
+    """One step of ``case`` (step 'a' or 'b' of MCL, 'seg', 'irn'; 'dtype')
+    from its weights on this rank's rows of its global batch, its
+    generator seeded alike on every rank, then ``timed`` more steps on the
+    same batch, each timed (CUDA events), and the gradient all-reduce
+    alone on the step's gradients.  Returns the first step's metrics,
+    gradients, BN statistics and parameters after the update (on the CPU),
+    the timings and the peak memory."""
+    import torch
+
+    from muscle_tpu_torch import parallel
+    from muscle_tpu_torch.inference.upload import to_device
+    from muscle_tpu_torch.models import classifier_as
+    from muscle_tpu_torch.training import (
+        IRNTrainConfig,
+        MCLConfig,
+        SegConfig,
+        irn_train_step,
+        make_adam,
+        make_irn_sgd,
+        mcl_train_step,
+        mcl_views_step,
+        seg_train_step,
+    )
+
+    dtype = getattr(torch, case["dtype"])
+    model = _dp_model(case["model"], case["state"])
+    if case["step"] == "a" and dtype == torch.bfloat16:
+        classifier_as(model, dtype)  # the bf16 init's classifier kernel
+    model = parallel.replicate(model.to(dev), group)
+    batch = {k: to_device(v, dev) for k, v in _dp_rows(case["batch"], group).items()}
+    gen = torch.Generator(device=dev).manual_seed(case["seed"])
+    if case["step"] == "irn":
+        opt = make_irn_sgd(model, case["lr"], case["wd"])
+        step = lambda: irn_train_step(model, opt, batch, IRNTrainConfig(  # noqa: E731
+            crop_size=case["crop"]), group)
+    else:
+        opt = make_adam(model.trained_parameters(), case["lr"], case["wd"])
+        kw = dict(compute_dtype=dtype, group=group)
+        step = {"a": lambda: mcl_train_step(model, opt, batch, MCLConfig(use_imc=True), gen,
+                                            **kw),
+                "b": lambda: mcl_views_step(model, opt, batch, MCLConfig(True, True, True), gen,
+                                            **kw),
+                "seg": lambda: seg_train_step(model, opt, batch, SegConfig(k=case.get("k", 16)),
+                                              gen, **kw)}[case["step"]]
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    metrics = {k: float(v) for k, v in step().items()}
+    names = {id(p): n for n, p in model.named_parameters()}
+    params = [p for g in opt.param_groups for p in g["params"]]
+    out = {"metrics": metrics,
+           "grads": {names[id(p)]: p.grad.detach().float().cpu() for p in params},
+           "params": {names[id(p)]: p.detach().float().cpu() for p in params},
+           "stats": {k: v.detach().float().cpu() for k, v in model.state_dict().items()
+                     if k.endswith("running_mean") or k.endswith("running_var")}}
+    flat = torch.cat([p.detach().float().reshape(-1) for p in params])
+    ref = flat.clone()
+    if group is not None:  # every rank holds rank 0's parameters, bit for bit
+        torch.distributed.broadcast(ref, torch.distributed.get_global_rank(group, 0),
+                                    group=group)
+    out["rank_param_diff"] = float((flat - ref).abs().max())
+    if timed:
+        ms = []
+        for _ in range(timed):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            step()
+            ev[1].record()
+            torch.cuda.synchronize(dev)
+            ms.append(ev[0].elapsed_time(ev[1]))
+        grads = [p.grad for p in params]
+        ar = []
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            parallel.all_reduce_flat(grads, group)
+            ev[1].record()
+            torch.cuda.synchronize(dev)
+            ar.append(ev[0].elapsed_time(ev[1]))
+        out.update(step_ms=ms, allreduce_ms=ar,
+                   allreduce_bytes=sum(g.numel() * g.element_size() for g in grads),
+                   peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_parity_runs(case: dict, group, dev, every: bool = True) -> dict:
+    """``_dp_step`` of a parity case from the same weights on each of its
+    batches (only the first for an f32 case unless ``every``: the f32
+    rule reads one batch, the bf16 rule the loss terms over all, against
+    the one-process f32 step's): the first batch's tensors and every
+    batch's metrics."""
+    batches = case["batches"] if every or case["dtype"] != "float32" else case["batches"][:1]
+    runs = [_dp_step(dict(case, batch=b), group, dev) for b in batches]
+    return dict(runs[0], metrics_per_batch=[r["metrics"] for r in runs])
+
+
+def _dp_serve(spec: dict, group, dev) -> dict:
+    """This rank's engines on its rows of every batch: CamTTAEngine (b3,
+    fused, scales 0.5-2, --fast 0) and SegTTAEngine (b7, fused, six scales
+    x flip, --fast 0); every kernel's launches in each (counts zeroed just
+    before it), the records and the wall seconds."""
+    import torch
+
+    from muscle_tpu_torch import parallel
+    from muscle_tpu_torch.inference import CamTTAEngine, SegTTAEngine
+
+    def rows(batches):
+        out = []
+        for b in batches:
+            sl = parallel.rank_rows(len(b[0]), group)
+            out.append(tuple(part[sl] for part in b))
+        return out
+
+    out = {}
+    engines = {
+        "cam": (CamTTAEngine(_dp_model("b3_cam", spec["cam_state"]), scales=(0.5, 1.0, 1.5, 2.0),
+                             return_cam=False, device=dev), spec["cam_batches"]),
+        "seg": (SegTTAEngine(_dp_model("b7_seg", spec["seg_state"]), scales=SEG_SCALES,
+                             device=dev), spec["seg_batches"]),
+    }
+    for name, (engine, batches) in engines.items():
+        mine = rows(batches)
+        list(engine.run_stream(iter(mine[:1])))  # warm-up (cuDNN, allocator)
+        _zero_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        recs = [r for rs in engine.run_stream(iter(mine)) for r in rs]
+        torch.cuda.synchronize(dev)
+        out[name] = {"records": recs, "seconds": time.perf_counter() - t0,
+                     "counts": _launch_counts(), "images": sum(len(b[0]) for b in mine)}
+    return out
+
+
+def _dp_walk(spec: dict, group, dev) -> dict:
+    """``propagate_to_edge_sharded`` of the grid-128 image over the ranks
+    (each building its V / W columns of T), timed by CUDA events."""
+    import torch
+
+    from muscle_tpu_torch.ops.random_walk import propagate_to_edge_sharded
+
+    cam, edge = (torch.as_tensor(spec["walk"][k]).to(dev) for k in ("cam", "edge"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    rw = propagate_to_edge_sharded(cam, edge, group)
+    ev[1].record()
+    torch.cuda.synchronize(dev)
+    return {"walk": rw.cpu(), "ms": ev[0].elapsed_time(ev[1]),
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+
+
+def _dp_collective_us(group, dev) -> dict:
+    """Mean µs of one all-reduce and one all-gather of a batch norm's
+    statistics (1 + 2 x 384 floats, a wide b3 layer) on the device: what
+    each train-mode BN pays twice a step."""
+    import torch
+
+    from muscle_tpu_torch import parallel
+
+    x = torch.ones(1 + 2 * 384, device=dev)
+    out = {}
+    for name, op in (("all_reduce", lambda: parallel.all_reduce_sum(x, group)),
+                     ("all_gather", lambda: parallel.all_gather(x[None], group))):
+        op()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            op()
+        torch.cuda.synchronize(dev)
+        out[name] = (time.perf_counter() - t0) / 50 * 1e6
+    return out
+
+
+def _dp_rank(rank: int, world: int, backend: str, tmp: str) -> None:
+    """One rank of the dp phase: joins the group (gloo: every rank on card
+    0; nccl: rank r on card r), runs every parity case, the full-width
+    steps, the engines and the sharded walk, and saves what it measured
+    (rank 0 the tensors, the others their agreement with rank 0)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from muscle_tpu_torch import parallel
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0 if backend == "gloo" else rank)
+    group = parallel.init(rank, world, f"file://{tmp}/store_{backend}", dev, backend)
+    spec = torch.load(os.path.join(tmp, "spec.pt"), weights_only=False)
+    marks = [time.perf_counter()]
+    out = {"parity": {name: _dp_parity_runs(case, group, dev, every=False)
+                      for name, case in spec["parity"].items()}, "full": {}}
+    marks.append(time.perf_counter())
+    for name, case in spec["full"].items():
+        out["full"][name] = _dp_step(dict(case, batch=case["batches"][world]), group, dev,
+                                     timed=DP_ITERS)
+    marks.append(time.perf_counter())
+    out["serve"] = _dp_serve(spec, group, dev)
+    marks.append(time.perf_counter())
+    out["walk"] = _dp_walk(spec, group, dev)
+    marks.append(time.perf_counter())
+    out["collective_us"] = _dp_collective_us(group, dev)
+    out["seconds"] = dict(zip(("parity", "full", "serve", "walk"), np.diff(marks).tolist()))
+    if rank:
+        for res in list(out["parity"].values()) + list(out["full"].values()):
+            for k in ("grads", "params", "stats"):
+                res.pop(k)
+    torch.save(out, os.path.join(tmp, f"{backend}_rank{rank}.pt"))
+    parallel.barrier(group)
+    parallel.shutdown(group)
+
+
+def _dp_spec(worlds) -> dict:
+    """Weights, batches and inputs of every dp case, made in this process
+    (the seg heads calibrated on the card) and handed to the ranks; the
+    full-width seg batch for each world size (DP_SEG_PER_RANK a rank)."""
+    import numpy as np
+    import torch
+
+    from muscle_tpu_torch.models import init_weights
+
+    def cpu(m):
+        return {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+
+    def host(batch):
+        return {k: v.cpu().numpy() for k, v in batch.items()}
+
+    dev = torch.device("cuda")
+    spec = {"parity": {}, "full": {}}
+    seeds = range(1, 1 + BF16_CHECK_BATCHES)
+    b1 = _train_model(CHECK_BACKBONE, seed=1).to(dev)
+    mcl = [host(_live_labels(b1, {k: torch.from_numpy(v).to(dev) for k, v in _train_batch(
+        DP_CHECK_BATCH, CHECK_CROP, CHECK_VIEW, seed=s).items()})) for s in seeds]
+    dec = _seg_train_model(SEG_CHECK_BACKBONE, 1, 64, 0, seed=1, device=dev)
+    seg = [_seg_train_batch(dec, DP_CHECK_BATCH, SEG_CHECK_CROP, seed=s, calibrate=s == 1)
+           for s in seeds]
+    irn = init_weights(_dp_arch("irn"), torch.Generator().manual_seed(0))
+    cases = {"a": dict(model="b1_enc", state=cpu(b1), batches=mcl, lr=TRAIN_LR, wd=TRAIN_WD),
+             "seg": dict(model="b1_dec", state=cpu(dec), batches=seg, lr=SEG_TRAIN_LR,
+                         wd=SEG_TRAIN_WD, k=SEG_CHECK_K),
+             "irn": dict(model="irn", state=cpu(irn),
+                         batches=[_irn_train_batch(DP_CHECK_BATCH, IRN_CHECK_CROP, seed=1)],
+                         crop=IRN_CHECK_CROP, lr=IRN_TRAIN_LR, wd=IRN_TRAIN_WD)}
+    cases["b"] = cases["a"]
+    for dtype in ("float32", "bfloat16"):
+        for step in ("a", "b", "seg", "irn"):
+            if step != "irn" or dtype == "float32":  # IRN trains in f32 only
+                spec["parity"][f"{step}_{dtype}"] = dict(cases[step], step=step, dtype=dtype,
+                                                         seed=3)
+    del b1, dec
+    b3 = _train_model(TRAIN_BACKBONE, seed=0).to(dev)
+    batch = host(_live_labels(b3, {k: torch.from_numpy(v).to(dev) for k, v in _train_batch(
+        DP_MCL_BATCH, TRAIN_CROP, TRAIN_VIEW, seed=2).items()}))
+    spec["full"]["mcl_b3"] = dict(model="b3_enc", state=cpu(b3), step="a", dtype="float32",
+                                  seed=4, lr=TRAIN_LR, wd=TRAIN_WD,
+                                  batches={w: batch for w in worlds})
+    del b3
+    b7 = _seg_train_model(SEG_TRAIN_BACKBONE, 3, 256, 0, seed=0, device=dev)
+    batch = _seg_train_batch(b7, DP_SEG_PER_RANK * max(worlds), SEG_TRAIN_CROP, seed=2,
+                             calibrate=True)
+    spec["full"]["seg_b7"] = dict(model="b7_dec", state=cpu(b7), step="seg", dtype="float32",
+                                  seed=5, lr=SEG_TRAIN_LR, wd=SEG_TRAIN_WD, k=SEG_TRAIN_K,
+                                  batches={w: {k: v[:DP_SEG_PER_RANK * w] for k, v in
+                                               batch.items()} for w in worlds})
+    del b7
+    spec["cam_state"] = cpu(init_weights(_dp_arch("b3_cam"), torch.Generator().manual_seed(0)))
+    spec["cam_batches"] = _images(DP_CAM_BATCHES, seed=2)
+    spec["seg_state"] = cpu(_seg_model(384))
+    spec["seg_batches"] = _seg_batches(DP_SEG_BATCHES, seed=3)
+    g = DP_WALK_GRID
+    spec["walk"] = {"cam": np.random.default_rng(6).uniform(0, 1, (WALK_C, g, g)).astype(
+                        np.float32),
+                    "edge": _smooth_edges(1, g, g, torch.Generator(device=dev).manual_seed(6),
+                                          dev)[0].cpu().numpy()}
+    torch.cuda.empty_cache()
+    return spec
+
+
+def _dp_one_process(spec: dict, worlds) -> dict:
+    """Every dp case in this process on card 0 without a group: the
+    references (the full-width steps on each world size's global batch,
+    timed as the ranks time theirs, and the engines' images/s)."""
+    import torch
+
+    from muscle_tpu_torch.ops.random_walk import propagate_to_edge
+
+    dev = torch.device("cuda")
+    ref = {"parity": {n: _dp_parity_runs(c, None, dev) for n, c in spec["parity"].items()},
+           "full": {(n, w): _dp_step(dict(c, batch=c["batches"][w]), None, dev, timed=DP_ITERS)
+                    for n, c in spec["full"].items() for w in worlds}}
+    ref["serve"] = _dp_serve(spec, None, dev)
+    walk = spec["walk"]
+    ref["walk"], ref["walk64"] = (
+        propagate_to_edge(torch.as_tensor(walk["cam"]).to(dev, dt),
+                          torch.as_tensor(walk["edge"]).to(dev, dt), method="vector").cpu()
+        for dt in (torch.float32, torch.float64))
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _dp_parity(name: str, spec: dict, ref: dict, got: dict) -> dict:
+    """A W-rank b1 step against the one-process step on the card, each from
+    the same weights on the same batches.  f32: the card-vs-CPU rule (loss
+    terms 1e-4 relative; gradients within GRAD_TOLS-style limits; BN
+    statistics 1e-4 of each tensor's largest; the parameters after the
+    update within 1e-4 of each tensor's largest but for Adam's sign flips
+    where a gradient is rounding noise, at most 0.1% of the entries, each
+    within 2 lr), on the first batch.  bf16: the train_*_bf16 rule against
+    the one-process step's own bf16-vs-f32 distance (``_bf16_excess``;
+    the loss terms as means over the BF16_CHECK_BATCHES batches)."""
+    import numpy as np
+
+    step, dtype = name.rsplit("_", 1)
+    one, case = ref["parity"][name], spec["parity"][name]
+    if dtype == "float32":
+        tol, zero = {"a": GRAD_TOLS["step_a"], "b": GRAD_TOLS["step_b"], "seg": SEG_GRAD_TOLS,
+                     "irn": IRN_GRAD_TOLS}[step]
+        loss = max(abs(got["metrics"][k] - v) / (TRAIN_RTOL * abs(v) + TRAIN_ATOL)
+                   for k, v in one["metrics"].items())
+        grad = _grad_err(got["grads"], one["grads"], tol, zero)
+        stats = max([float((got["stats"][k] - v).abs().max())
+                     / max(1e-4 * float(v.abs().max()), 1e-12)
+                     for k, v in one["stats"].items()] or [0.0])
+        off = total = 0
+        worst_off = 0.0
+        for k, v in one["params"].items():
+            err = (got["params"][k] - v).abs()
+            far = err > 1e-4 * float(v.abs().max())
+            off, total = off + int(far.sum()), total + v.numel()
+            worst_off = max(worst_off, float(err[far].max()) if bool(far.any()) else 0.0)
+        passed = (loss <= 1.0 and grad[0] <= 1.0 and stats <= 1.0 and off <= 1e-3 * total
+                  and worst_off <= 2 * case["lr"] * 1.01)
+        return {"loss_err_over_tol": loss, "grad_err_over_tol": grad[0], "grad_param": grad[1],
+                "bn_stat_err_over_tol": stats, "param_off_share": off / total,
+                "param_off_max": worst_off, "passed": passed}
+    f32 = ref["parity"][f"{step}_float32"]
+    losses = {}
+    for k in one["metrics"]:  # _bf16_readings' rule: means over the batches
+        d, a, r = (np.asarray([m[k] for m in run["metrics_per_batch"]])
+                   for run in (got, one, f32))
+        floor = BF16_TRAIN_ULPS * 2.0 ** -8 * float(np.abs(a).max())
+        losses[k] = float(np.abs(d - a).mean() / (BF16_TRAIN_MEAN * np.abs(a - r).mean() + floor))
+    loss = max(losses.values())
+    zero = BF16_TRAIN_ZERO * max(float(g.abs().max()) for g in one["grads"].values())
+    grad = max((_bf16_excess(got["grads"][k], g, f32["grads"][k], zero), k)
+               for k, g in one["grads"].items())
+    s0 = {k: v.float() for k, v in case["state"].items()}
+    stats = max([_bf16_excess(got["stats"][k] - s0[k], v - s0[k], f32["stats"][k] - s0[k])
+                 for k, v in one["stats"].items()] or [0.0])
+    return {"loss_err_over_limit": losses, "grad_err_over_limit": grad[0],
+            "grad_param": grad[1], "bn_stat_err_over_limit": stats,
+            "passed": loss <= 1.0 and grad[0] <= 1.0 and stats <= 1.0}
+
+
+def _dp_readings(spec: dict, ref: dict, outs: list, world: int, backend: str) -> dict:
+    """Every check of one W-rank run against the one-process references,
+    and what the ranks measured."""
+    import numpy as np
+
+    got = outs[0]
+    rec = {"backend": backend, "ranks": world,
+           "cards": 1 if backend == "gloo" else world,
+           "scaling": ("none: the ranks share card 0, whose work both do" if backend == "gloo"
+                       else "one card a rank"),
+           "parity": {}, "full": {}, "serve": {}}
+    agree = True
+    for name in spec["parity"]:
+        rec["parity"][name] = _dp_parity(name, spec, ref, got["parity"][name])
+        agree &= all(o["parity"][name]["rank_param_diff"] == 0.0 for o in outs)
+    for name in spec["full"]:
+        one_run = ref["full"][(name, world)]
+        one = one_run["metrics"]
+        # the loss within DP_LOSS_RTOL, each term within DP_LOSS_RTOL of the loss (BEACON
+        # is a near-cancelling sum whose boundary samples rounding can move)
+        scale = DP_LOSS_RTOL * abs(one["loss"])
+        loss = max(abs(got["full"][name]["metrics"][k] - v) / scale
+                   for k, v in one.items() if k != "grad_norm")
+        agree &= all(o["full"][name]["rank_param_diff"] == 0.0 for o in outs)
+        rec["full"][name] = {
+            "global_batch": len(next(iter(spec["full"][name]["batches"][world].values()))),
+            "loss": got["full"][name]["metrics"], "one_process_loss": one,
+            "loss_err_over_tol": loss,
+            "step_ms_per_rank": [o["full"][name]["step_ms"] for o in outs],
+            "allreduce_ms_per_rank": [o["full"][name]["allreduce_ms"] for o in outs],
+            "allreduce_bytes": got["full"][name]["allreduce_bytes"],
+            "peak_gib_per_rank": [o["full"][name]["peak_gib"] for o in outs],
+            "one_process_step_ms": one_run["step_ms"],
+            "one_process_peak_gib": one_run["peak_gib"],
+            # the global batch's step: the slowest rank against one process on card 0
+            "speedup": (float(np.mean(one_run["step_ms"]))
+                        / max(float(np.mean(o["full"][name]["step_ms"])) for o in outs)),
+            "passed": loss <= 1.0}
+    for name in ("cam", "seg"):
+        want = ref["serve"][name]["records"]
+        by_name = {r["name"]: r for o in outs for r in o["serve"][name]["records"]}
+        assert sorted(by_name) == sorted(r["name"] for r in want), name
+        mine = [by_name[r["name"]] for r in want]
+        counts = [o["serve"][name]["counts"] for o in outs]
+        launches = [cnt["mbconv_stride1"] for cnt in counts]
+        # per forward, whatever a rank's share of the batch
+        expect = ref["serve"][name]["counts"]["mbconv_stride1"]
+        entry = {"images_per_rank": [o["serve"][name]["images"] for o in outs],
+                 "images_per_s_per_rank": [o["serve"][name]["images"] / o["serve"][name]["seconds"]
+                                           for o in outs],
+                 "launches_per_rank": launches, "one_process_launches": expect,
+                 "counts_per_rank": counts,
+                 # the node: every image over the slowest rank's seconds
+                 "node_images_per_s": len(want) / max(o["serve"][name]["seconds"] for o in outs),
+                 "one_process_images_per_s": len(want) / ref["serve"][name]["seconds"]}
+        if name == "cam":
+            entry["score_err"], entry["sgc_err"] = _compare(mine, want, f"dp {backend} x {world} "
+                                                            "CAM vs one process")
+            ok = True
+        else:
+            err = max(float(np.abs(g["probs"] - w["probs"]).max()) for g, w in zip(mine, want))
+            entry["probs_err"] = err
+            ok = err <= SEG_PROBS_TOL
+        entry["passed"] = ok and expect > 0 and all(n == expect for n in launches)
+        rec["serve"][name] = entry
+    exact = ref["walk64"]
+    scale = float(exact.abs().max())
+    walk_err = max(float((o["walk"]["walk"] - ref["walk"]).abs().max()) for o in outs)
+    off64 = max(float((o["walk"]["walk"].double() - exact).abs().max()) for o in outs)
+    dense64 = float((ref["walk"].double() - exact).abs().max())
+    rec["walk"] = {"grid": DP_WALK_GRID, "classes": WALK_C, "steps": 64,
+                   "err_vs_dense_over_scale": walk_err / scale,
+                   "err_vs_f64_over_scale": off64 / scale,
+                   "dense_err_vs_f64_over_scale": dense64 / scale,
+                   "ms_per_rank": [o["walk"]["ms"] for o in outs],
+                   "peak_gib_per_rank": [o["walk"]["peak_gib"] for o in outs],
+                   "passed": off64 <= max(DP_WALK_RTOL * scale, 2.0 * dense64)}
+    rec["ranks_bit_identical"] = agree
+    rec["collective_us_per_rank"] = [o["collective_us"] for o in outs]
+    rec["rank_seconds"] = [o["seconds"] for o in outs]
+    parts = (list(rec["parity"].values()) + list(rec["full"].values())
+             + list(rec["serve"].values()) + [rec["walk"]])
+    rec["passed"] = agree and all(p["passed"] for p in parts)
+    return rec
+
+
+def phase_dp(card: str) -> dict:
+    """Data parallelism (module docstring, phase dp): the one-process
+    references on card 0, then DP_SHARED_RANKS ranks sharing card 0 over
+    gloo and, where there are several cards, one rank a card over NCCL
+    (spawned processes, a FileStore rendezvous in a temporary directory);
+    one {"dp": ...} line; any failed check fails the phase."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    n = torch.cuda.device_count()
+    configs = [("gloo", DP_SHARED_RANKS)]
+    if n >= 2:
+        configs.append(("nccl", min(n, DP_MAX_RANKS)))
+    worlds = sorted({w for _, w in configs})
+    out = {"card": card, "ran": [f"{b} x {w}" for b, w in configs]}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spec = _dp_spec(worlds)
+        torch.save(spec, f"{tmp}/spec.pt")
+        ref = _dp_one_process(spec, worlds)
+        out["one_process_seconds"] = time.perf_counter() - t0
+        for backend, world in configs:
+            t0 = time.perf_counter()
+            mp.spawn(_dp_rank, args=(world, backend, tmp), nprocs=world, join=True)
+            outs = [torch.load(f"{tmp}/{backend}_rank{r}.pt", weights_only=False)
+                    for r in range(world)]
+            rec = _dp_readings(spec, ref, outs, world, backend)
+            rec["seconds"] = time.perf_counter() - t0
+            out[f"{backend}_{world}"] = rec
+    print(json.dumps({"dp": out}), flush=True)
+    failed = [f"{b}_{w}" for b, w in configs if not out[f"{b}_{w}"]["passed"]]
+    if failed:
+        raise AssertionError(f"dp: {failed} failed")
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--phases",
                    default="build,kernels,main,irn,seg,bf16,train_mcl,train_seg,train_irn,"
-                           "train_mcl_bf16,train_seg_bf16")
+                           "train_mcl_bf16,train_seg_bf16,dp")
     args = p.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -2678,6 +3240,7 @@ def main(argv=None) -> int:
     irn_train_out = run("train_irn", phase_train_irn, card)
     mcl_bf16_out = run("train_mcl_bf16", phase_train_mcl_bf16, card)
     seg_bf16_out = run("train_seg_bf16", phase_train_seg_bf16, card)
+    dp_out = run("dp", phase_dp, card)
     run("profile", phase_profile, 4, "bf16" in phases)
 
     print(card, flush=True)  # again beside the results, for readers of the output's tail
@@ -2712,6 +3275,12 @@ def main(argv=None) -> int:
                                                   if seg_bf16_out else None)
         # the bf16 instantiation's seg-training launches: the bf16 trainer's eval
         entries[1]["launches_train_seg"] = entries[1]["launches_train_seg_bf16"]
+        # each rank's MBConv launches in the data-parallel engines (f32)
+        for e in entries:
+            e["launches_dp"] = None if dp_out is None else {
+                run_name: {eng: [cnt[e["name"]] for cnt in r["serve"][eng]["counts_per_rank"]]
+                           for eng in ("cam", "seg")}
+                for run_name, r in dp_out.items() if isinstance(r, dict)}
         print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -37,12 +37,16 @@ ops         CUDA kernel wrappers with their plain versions, the random walk;
 data        VOC12 lists and the MCL training set, transforms, the prefetch
             loader, batched TTA producers
 losses      classification, contrastive (IMC, PixPro) and EMD losses
-training    MCL steps A and B, Adam and checkpoints, schedules, liveness
+training    MCL steps A and B, seg and IRN steps, Adam and checkpoints,
+            schedules, liveness
+parallel    data parallelism over torch.distributed: one process per card
+            (torchrun), the global batch's semantics across the ranks
 utils       timers, metric and tensorboard logs, training overlays
 inference   CamTTAEngine, RandomWalkRefiner, SegTTAEngine, the transfers and
             device-side upload unpackers
 evaluation  vectorised mIoU with threshold sweep
-cli         infer_mcl, evaluate, infer_irn, infer_seg, cam_to_label, train_mcl
+cli         infer_mcl, evaluate, infer_irn, infer_seg, cam_to_label, train_mcl,
+            train_muscle, train_irn
 convert     state dicts from the JAX package's variables or reference .pth
 """
 

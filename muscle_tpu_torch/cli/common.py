@@ -26,6 +26,17 @@ def train_device(name: str):
     return dev
 
 
+def train_ranks(name: str):
+    """(group, device) of a trainer.  Under ``torchrun`` with more than one
+    rank: the rank's process group and device (``parallel.init_from_env``:
+    cuda:<LOCAL_RANK> over NCCL, or the CPU over gloo; raises when a rank
+    has no card of its own).  Alone: (None, ``train_device(name)``)."""
+    from muscle_tpu_torch.parallel import init_from_env
+
+    group, device = init_from_env(name)
+    return (group, device) if group is not None else (None, train_device(name))
+
+
 def load_lists(args, list_path: str):
     from muscle_tpu_torch.data.voc12 import load_img_name_list, load_label_dict
 
@@ -104,14 +115,20 @@ def sort_by_orientation(names: list[str], voc12_root: str) -> list[str]:
     return sorted(names, key=is_portrait)
 
 
-def prefetch_chunks(items: list, batch_size: int, load_fn, depth: int = 2):
+def prefetch_chunks(items: list, batch_size: int, load_fn, depth: int = 2, group=None):
     """Yield (chunk, load_fn(chunk)) over consecutive chunks, loading ahead
-    in one worker thread."""
+    in one worker thread.  group: a data-parallel process group: each chunk
+    is cut to this rank's rows (``parallel.rank_rows``: the JAX engines'
+    batch sharded over 'data'; a last chunk the ranks do not divide is split
+    as evenly as it goes) and a rank's empty chunk is skipped."""
     import collections
     import itertools
     from concurrent.futures import ThreadPoolExecutor
 
+    from muscle_tpu_torch.parallel import rank_rows
+
     chunks = [items[i: i + batch_size] for i in range(0, len(items), batch_size)]
+    chunks = [c for c in (c[rank_rows(len(c), group)] for c in chunks) if c]
     with ThreadPoolExecutor(1) as ex:
         pending = collections.deque()
         it = iter(chunks)

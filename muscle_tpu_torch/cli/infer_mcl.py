@@ -3,6 +3,14 @@ without --spatial, plus --fuse_mbconv and --device).
 
 Writes {class_idx: (H, W) float16} npy dicts of the SGC maps into
 <out_npy>_sgc/ (and the raw CAMs into <out_npy>/ with --save_cam 1).
+
+Data parallel, one rank per card, as the JAX CLI shards each batch over
+all local chips::
+
+    torchrun --nproc_per_node=<cards> -m muscle_tpu_torch.cli.infer_mcl ...
+
+Each rank runs its own engine (and the MBConv kernel on its card) on its
+rows of every --batch_size batch and writes its images' files.
 """
 
 from __future__ import annotations
@@ -48,6 +56,9 @@ def main(argv=None) -> None:
 
     from muscle_tpu_torch.inference import CamTTAEngine
     from muscle_tpu_torch.models import MuSCLe
+    from muscle_tpu_torch.parallel import init_from_env, rank, shutdown
+
+    group, device = init_from_env(args.device)
 
     model = MuSCLe(num_classes=args.num_classes, backbone_name=args.backbone,
                    bifpn_layers=3, mode="enc", last_pooling=False,
@@ -58,7 +69,7 @@ def main(argv=None) -> None:
                 upload_mode="ycbcr420")
     engine = CamTTAEngine(
         model, scales=scales, num_classes=args.num_classes,
-        return_cam=bool(args.save_cam), device=args.device,
+        return_cam=bool(args.save_cam), device=device,
         **(fast if args.fast and not args.exact else {}),
     )
 
@@ -80,21 +91,22 @@ def main(argv=None) -> None:
     def load(chunk):
         return [Image.open(get_img_path(n, args.voc12_root)).convert("RGB") for n in chunk]
 
-    done = 0
+    done, tag = 0, f"rank {rank(group)}: " if group is not None else ""
     if args.exact:
-        for chunk, imgs in prefetch_chunks(names, args.batch_size, load):
+        for chunk, imgs in prefetch_chunks(names, args.batch_size, load, group=group):
             save(engine.run_batch_exact(imgs, chunk, [labels[n] for n in chunk]))
             done += len(chunk)
-            print(f"{done}/{len(names)}")
+            print(f"{tag}{done}/{len(names)}")
     else:
         def batches():
-            for chunk, imgs in prefetch_chunks(names, args.batch_size, load):
+            for chunk, imgs in prefetch_chunks(names, args.batch_size, load, group=group):
                 yield imgs, chunk, [labels[n] for n in chunk]
 
         for records in engine.run_stream(batches()):
             save(records)
             done += len(records)
-            print(f"{done}/{len(names)}")
+            print(f"{tag}{done}/{len(names)}")
+    shutdown(group)
 
 
 if __name__ == "__main__":

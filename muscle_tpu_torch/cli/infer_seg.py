@@ -2,6 +2,12 @@
 flags without --spatial, plus --fuse_mbconv and --device): 6-scale x flip
 TTA with MuSCLe in dec mode, optional class gating and dense CRF, argmax
 PNGs into --out_seg.
+
+Data parallel, one rank per card (``torchrun --nproc_per_node=<cards> -m
+muscle_tpu_torch.cli.infer_seg ...``): each rank runs its own engine (the
+MBConv kernel on its card) on its rows of every --batch_size batch and
+writes its images' PNGs.  --spatial (one image's height over several
+cards) is not ported.
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ def main(argv=None) -> None:
                    help="1 = fast mode (stride-4 prob grid + f16 download + tight ycbcr420 "
                         "upload + overlapped stream); 0 = full-res f32 mode")
     p.add_argument("--spatial", default=0, type=int,
-                   help="sharding image height over several devices: not ported (0 only)")
+                   help="sharding image height over several devices: not ported (0 only; "
+                        "torchrun shards the batch over cards)")
     p.add_argument("--fuse_mbconv", default=384, type=int,
                    help="run stride-1 MBConv blocks with <= N input channels through the "
                         "MBConv CUDA kernel (0 = none; 384 = all of b7's)")
@@ -47,7 +54,8 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
     if args.spatial > 1:
         raise NotImplementedError("--spatial (height sharding over several devices) is not "
-                                  "ported")
+                                  "ported: launch with torchrun --nproc_per_node=<cards> to "
+                                  "shard each batch over the cards (ROADMAP Queue A item 7)")
 
     import torch
     from PIL import Image
@@ -55,6 +63,9 @@ def main(argv=None) -> None:
     from muscle_tpu_torch.inference import SegTTAEngine
     from muscle_tpu_torch.models import MuSCLe
     from muscle_tpu_torch.ops.crf import mean_field_crf
+    from muscle_tpu_torch.parallel import init_from_env, rank, shutdown
+
+    group, device = init_from_env(args.device)
 
     model = MuSCLe(num_classes=args.num_classes, backbone_name="efficientnet-" + args.pretrained,
                    bifpn_layers=args.bifpn, mode="dec", last_pooling=True,
@@ -66,7 +77,7 @@ def main(argv=None) -> None:
     # the engine resizes and takes the argmax on the device and downloads
     # one uint8 label map per image
     labels_out = bool(args.fast) and not args.crf and not args.cls_dir
-    engine = SegTTAEngine(model, num_classes=args.num_classes, device=args.device,
+    engine = SegTTAEngine(model, num_classes=args.num_classes, device=device,
                           output="labels" if labels_out else "probs",
                           **(fast if args.fast else {}))
 
@@ -106,24 +117,26 @@ def main(argv=None) -> None:
                      for n in chunk]
         return imgs, gates
 
-    done = 0
+    done, tag = 0, f"rank {rank(group)}: " if group is not None else ""
     if args.fast:
         img_fifo = []
 
         def batches():
-            for chunk, (imgs, gates) in prefetch_chunks(names, args.batch_size, load):
+            for chunk, (imgs, gates) in prefetch_chunks(names, args.batch_size, load,
+                                                        group=group):
                 img_fifo.append(imgs)
                 yield imgs, chunk, gates
 
         for records in engine.run_stream(batches()):
             postprocess(img_fifo.pop(0), records)
             done += len(records)
-            print(f"{done}/{len(names)}")
+            print(f"{tag}{done}/{len(names)}")
     else:
-        for chunk, (imgs, gates) in prefetch_chunks(names, args.batch_size, load):
+        for chunk, (imgs, gates) in prefetch_chunks(names, args.batch_size, load, group=group):
             postprocess(imgs, engine.run_batch(imgs, chunk, gates))
             done += len(chunk)
-            print(f"{done}/{len(names)}")
+            print(f"{tag}{done}/{len(names)}")
+    shutdown(group)
 
 
 if __name__ == "__main__":

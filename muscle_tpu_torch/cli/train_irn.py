@@ -13,6 +13,11 @@ with TF32 off.  Randomly initialised from --seed by ``init_weights``
 (batch norms with random statistics), not by the JAX CLI's Flax defaults
 (identity norms); like the JAX CLI it loads no pretrained backbone, so
 the heads train on a random frozen ResNet-50 (ROADMAP Queue C).
+
+Data parallel, one rank per card (``torchrun --nproc_per_node=<cards> -m
+muscle_tpu_torch.cli.train_irn ...``): ``--batch_size`` is the global
+batch, W ranks compute the one-process step on it (the mask sums over the
+global batch), and rank 0 writes the checkpoints and the log.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from muscle_tpu_torch.cli.common import add_voc_args, load_lists
+from muscle_tpu_torch.cli.common import add_voc_args, load_lists, train_ranks
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -58,6 +63,7 @@ def main(argv=None) -> None:
     from muscle_tpu_torch.data.voc12 import VOC12AffinityDataset
     from muscle_tpu_torch.inference.upload import to_device
     from muscle_tpu_torch.models import IRNNet, init_weights
+    from muscle_tpu_torch.parallel import per_rank_batch, rank, replicate, shutdown, world
     from muscle_tpu_torch.training import (
         IRNTrainConfig,
         irn_train_step,
@@ -68,7 +74,9 @@ def main(argv=None) -> None:
     )
     from muscle_tpu_torch.utils import Timer
 
-    device = torch.device(args.device)
+    group, device = train_ranks(args.device)
+    per_rank_batch(args.batch_size, group)
+    lead = rank(group) == 0
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     names, labels = load_lists(args, args.train_list)
@@ -78,9 +86,10 @@ def main(argv=None) -> None:
         upload=args.upload if args.device_norm else "rgb",
         pack_bits=bool(args.pack_bits and args.device_norm))
     loader = PrefetchLoader(dataset, args.batch_size, seed=args.seed,
-                            num_threads=args.num_workers, shard=(0, 1))
+                            num_threads=args.num_workers, rank=(rank(group), world(group)))
 
     model = init_weights(IRNNet(), torch.Generator().manual_seed(args.seed)).to(device)
+    replicate(model, group)
     opt = make_irn_sgd(model, args.lr, args.wt_dec)
     steps_total = max(len(names) // args.batch_size, 1) * args.max_epoches
     lr_at = poly_schedule(args.lr, steps_total, power=0.9)
@@ -93,15 +102,17 @@ def main(argv=None) -> None:
         for it, batch in enumerate(loader.epoch(ep)):
             set_learning_rate(opt, lr_at(step))
             metrics = irn_train_step(model, opt, {k: to_device(v, device)
-                                                  for k, v in batch.items()}, cfg)
+                                                  for k, v in batch.items()}, cfg, group)
             step += 1
-            if it % 25 == 0:
+            if lead and it % 25 == 0:
                 vals = {k: float(v) for k, v in metrics.items()}
                 ips = (it + 1) * args.batch_size / timer.stage_elapsed()
                 print(f"ep {ep} it {it} " + " ".join(f"{k}:{v:.4f}" for k, v in vals.items())
                       + f" imps:{ips:.1f} lr:{opt.param_groups[0]['lr']:.6f}", flush=True)
-        save_checkpoint(args.session_name, model, opt, step, ep)
+        if lead:
+            save_checkpoint(args.session_name, model, opt, step, ep)
         timer.reset_stage()
+    shutdown(group)
 
 
 if __name__ == "__main__":

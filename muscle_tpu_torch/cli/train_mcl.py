@@ -13,6 +13,17 @@ bfloat16 on float32 parameters as the JAX package's
 bf16 (``models.classifier_as``; a checkpoint's ``fc.weight`` replaces it
 in its own dtype) and the first Adam step promotes it to float32
 (``training/state.py``); the epoch-end eval runs the CAM engine in bf16.
+
+Data parallel, one rank per card, as the JAX CLI trains over all local
+chips::
+
+    torchrun --nproc_per_node=<cards> -m muscle_tpu_torch.cli.train_mcl ...
+
+``--batch_size`` stays the global batch (each rank loads and trains on its
+slice: ``parallel/mesh.py``), and W ranks compute the one-process step on
+that batch.  Rank 0 writes the checkpoints, logs, TB events and overlays
+and runs the epoch-end eval while the others wait for its mIoU;
+``--weights`` and ``--resume_epoch`` load on every rank.
 """
 
 from __future__ import annotations
@@ -22,7 +33,7 @@ import os
 
 import numpy as np
 
-from muscle_tpu_torch.cli.common import add_voc_args, load_lists, load_model_state, train_device
+from muscle_tpu_torch.cli.common import add_voc_args, load_lists, load_model_state, train_ranks
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -74,6 +85,14 @@ def main(argv=None) -> None:
     from muscle_tpu_torch.data.voc12 import VOC12ClsPixDataset
     from muscle_tpu_torch.inference.upload import to_device
     from muscle_tpu_torch.models import MuSCLe, classifier_as
+    from muscle_tpu_torch.parallel import (
+        broadcast_object,
+        per_rank_batch,
+        rank,
+        replicate,
+        shutdown,
+        world,
+    )
     from muscle_tpu_torch.training import (
         MCLConfig,
         ReduceLROnPlateau,
@@ -87,7 +106,9 @@ def main(argv=None) -> None:
     from muscle_tpu_torch.utils import MetricLogger, Timer, TrainVisualizer
     from muscle_tpu_torch.utils.tb_events import EventWriter
 
-    device = train_device(args.device)
+    group, device = train_ranks(args.device)
+    per_rank_batch(args.batch_size, group)
+    lead = rank(group) == 0
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -96,9 +117,9 @@ def main(argv=None) -> None:
         names, args.voc12_root, labels, crop_size=args.crop_size,
         device_norm=bool(args.device_norm),
         upload=args.upload if args.device_norm else "rgb")
-    # one process until the data-parallel slice: the whole index stream
+    # every rank walks the one-process stream and loads its rows of each batch
     loader = PrefetchLoader(dataset, args.batch_size, seed=args.seed,
-                            num_threads=args.num_workers, shard=(0, 1))
+                            num_threads=args.num_workers, rank=(rank(group), world(group)))
 
     model = MuSCLe(num_classes=args.num_classes, backbone_name=args.backbone,
                    bifpn_layers=3, mode="enc", last_pooling=False, fuse_mbconv=0)
@@ -110,13 +131,14 @@ def main(argv=None) -> None:
     if args.resume_epoch is not None:
         step = restore_checkpoint(args.session_name, args.resume_epoch, model, opt)
         start_epoch = args.resume_epoch + 1
+    replicate(model, group)
 
     sched = ReduceLROnPlateau(args.lr, factor=0.5, patience=0, min_lr=1e-5)
     os.makedirs(args.session_name, exist_ok=True)
-    mlog = MetricLogger(os.path.join(args.log_dir, "metrics.jsonl"))
-    tb = EventWriter(os.path.join(args.log_dir, "tb")) if args.tb else None
+    mlog = MetricLogger(os.path.join(args.log_dir, "metrics.jsonl")) if lead else None
+    tb = EventWriter(os.path.join(args.log_dir, "tb")) if args.tb and lead else None
     vis = TrainVisualizer(model, os.path.join(args.log_dir, "vis"), mode="cam",
-                          every=args.vis_every, tb=tb, compute_dtype=dtype)
+                          every=args.vis_every if lead else 0, tb=tb, compute_dtype=dtype)
     timer = Timer()
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
@@ -125,7 +147,7 @@ def main(argv=None) -> None:
     for ep in range(start_epoch, args.max_epoches):
         cfg = MCLConfig(use_imc=ep >= 4, use_pixpro=ep >= 8, use_emd=ep >= 12)
         for it, batch in enumerate(loader.epoch(ep)):
-            if args.profile_dir and ep == 0 and it == 10:
+            if args.profile_dir and lead and ep == 0 and it == 10:
                 acts = [torch.profiler.ProfilerActivity.CPU]
                 if device.type == "cuda":
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -134,12 +156,14 @@ def main(argv=None) -> None:
             if prof is not None and it == 14:
                 prof = _stop_trace(prof, args.profile_dir)
             dev = {k: to_device(v, device) for k, v in batch.items()}
-            metrics = mcl_train_step(model, opt, dev, cfg, gen, compute_dtype=dtype)
+            metrics = mcl_train_step(model, opt, dev, cfg, gen, compute_dtype=dtype,
+                                     group=group)
             step += 1
             if cfg.use_pixpro:
-                metrics.update(mcl_views_step(model, opt, dev, cfg, gen, compute_dtype=dtype))
+                metrics.update(mcl_views_step(model, opt, dev, cfg, gen, compute_dtype=dtype,
+                                              group=group))
                 step += 1
-            if it % args.log_every == 0:
+            if lead and it % args.log_every == 0:
                 vals = {k: float(v) for k, v in metrics.items()}
                 ips = (it + 1) * args.batch_size / timer.stage_elapsed()
                 lr = opt.param_groups[0]["lr"]
@@ -154,18 +178,23 @@ def main(argv=None) -> None:
 
         if prof is not None:  # an epoch of fewer than 14 iterations
             prof = _stop_trace(prof, args.profile_dir)
-        save_checkpoint(args.session_name, model, opt, step, ep)
-        miou = _rapid_eval(args, model, device, dtype)
-        model.train()  # the engine left it in eval mode
-        print(f"epoch {ep} best train-CAM mIoU {miou:.3f}", flush=True)
-        if tb is not None:
-            tb.add_scalar("eval/cam_miou", miou, ep)
-            tb.flush()
+        miou = None
+        if lead:
+            save_checkpoint(args.session_name, model, opt, step, ep)
+            miou = _rapid_eval(args, model, device, dtype)
+            model.train()  # the engine left it in eval mode
+            print(f"epoch {ep} best train-CAM mIoU {miou:.3f}", flush=True)
+            if tb is not None:
+                tb.add_scalar("eval/cam_miou", miou, ep)
+                tb.flush()
+        miou = broadcast_object(miou, group)  # the other ranks wait here
         set_learning_rate(opt, sched.step(miou))
         timer.reset_stage()
-    mlog.close()
+    if mlog is not None:
+        mlog.close()
     if tb is not None:
         tb.close()
+    shutdown(group)
 
 
 def _stop_trace(prof, profile_dir: str) -> None:

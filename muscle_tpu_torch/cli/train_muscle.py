@@ -13,6 +13,13 @@ mean-field CRF step on its float32 probabilities.  float32 with TF32 off,
 or with --bf16 1 bfloat16 on float32 parameters, as the JAX package's
 ``MuSCLe(dtype=jnp.bfloat16)`` trains; the eval then runs in bf16, its
 fused blocks through the MBConv kernel's bf16 instantiation.
+
+Data parallel, one rank per card (``torchrun --nproc_per_node=<cards> -m
+muscle_tpu_torch.cli.train_muscle ...``), as ``cli/train_mcl.py`` says:
+``--batch_size`` is the global batch, W ranks compute the one-process
+step on it (global BN statistics, BEACON's draws and counts, the clip on
+the global gradient), and rank 0 checkpoints, logs and runs the eval
+(the MBConv kernel on its card) while the others wait for its mIoU.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ import os
 
 import numpy as np
 
-from muscle_tpu_torch.cli.common import add_voc_args, load_lists, load_model_state, train_device
+from muscle_tpu_torch.cli.common import add_voc_args, load_lists, load_model_state, train_ranks
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -86,6 +93,14 @@ def main(argv=None) -> None:
     from muscle_tpu_torch.data.voc12 import VOC12SegDataset
     from muscle_tpu_torch.inference.upload import to_device
     from muscle_tpu_torch.models import MuSCLe
+    from muscle_tpu_torch.parallel import (
+        broadcast_object,
+        per_rank_batch,
+        rank,
+        replicate,
+        shutdown,
+        world,
+    )
     from muscle_tpu_torch.training import (
         ReduceLROnPlateau,
         SegConfig,
@@ -98,7 +113,9 @@ def main(argv=None) -> None:
     from muscle_tpu_torch.utils import MetricLogger, Timer, TrainVisualizer
     from muscle_tpu_torch.utils.tb_events import EventWriter
 
-    device = train_device(args.device)
+    group, device = train_ranks(args.device)
+    per_rank_batch(args.batch_size, group)
+    lead = rank(group) == 0
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -107,9 +124,9 @@ def main(argv=None) -> None:
         names, args.voc12_root, labels, args.mask_root, min_scale=0.5, max_scale=1.75,
         crop_size=args.crop_size, device_norm=bool(args.device_norm), pack_mask=args.pack_mask,
         upload=args.upload if args.device_norm else "rgb")
-    # one process until the data-parallel slice: the whole index stream
+    # every rank walks the one-process stream and loads its rows of each batch
     loader = PrefetchLoader(dataset, args.batch_size, seed=args.seed,
-                            num_threads=args.num_workers, shard=(0, 1))
+                            num_threads=args.num_workers, rank=(rank(group), world(group)))
 
     model = MuSCLe(num_classes=args.num_classes, backbone_name="efficientnet-" + args.pretrained,
                    bifpn_layers=args.bifpn, mode="dec", last_pooling=True,
@@ -121,14 +138,15 @@ def main(argv=None) -> None:
     if args.resume_epoch is not None:
         step = restore_checkpoint(args.session_name, args.resume_epoch, model, opt)
         start_epoch = args.resume_epoch + 1
+    replicate(model, group)
 
     sched = ReduceLROnPlateau(args.lr, factor=0.5, patience=0, min_lr=5e-6)
     cfg = SegConfig(lamb=args.lamb, step=args.step, k=args.k, num_classes=args.num_classes)
     os.makedirs(args.session_name, exist_ok=True)
-    mlog = MetricLogger(os.path.join(args.log_dir, "metrics.jsonl"))
-    tb = EventWriter(os.path.join(args.log_dir, "tb")) if args.tb else None
+    mlog = MetricLogger(os.path.join(args.log_dir, "metrics.jsonl")) if lead else None
+    tb = EventWriter(os.path.join(args.log_dir, "tb")) if args.tb and lead else None
     vis = TrainVisualizer(model, os.path.join(args.log_dir, "vis"), mode="seg",
-                          every=args.vis_every, tb=tb, compute_dtype=dtype)
+                          every=args.vis_every if lead else 0, tb=tb, compute_dtype=dtype)
     timer = Timer()
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
@@ -136,9 +154,10 @@ def main(argv=None) -> None:
     for ep in range(start_epoch, args.max_epoches):
         for it, batch in enumerate(loader.epoch(ep)):
             dev = {k: to_device(v, device) for k, v in batch.items()}
-            metrics = seg_train_step(model, opt, dev, cfg, gen, compute_dtype=dtype)
+            metrics = seg_train_step(model, opt, dev, cfg, gen, compute_dtype=dtype,
+                                     group=group)
             step += 1
-            if it % args.log_every == 0:
+            if lead and it % args.log_every == 0:
                 vals = {k: float(v) for k, v in metrics.items()}
                 ips = (it + 1) * args.batch_size / timer.stage_elapsed()
                 lr = opt.param_groups[0]["lr"]
@@ -150,18 +169,23 @@ def main(argv=None) -> None:
                         tb.add_scalar(f"train/{k}", v, step)
             vis.maybe_dump(step, batch)
 
-        save_checkpoint(args.session_name, model, opt, step, ep)
-        miou = _val_eval(args, model, device, dtype)
-        model.train()  # the engine left it in eval mode
-        print(f"epoch {ep} val mIoU {miou:.3f}", flush=True)
-        if tb is not None:
-            tb.add_scalar("eval/seg_miou", miou, ep)
-            tb.flush()
+        miou = None
+        if lead:
+            save_checkpoint(args.session_name, model, opt, step, ep)
+            miou = _val_eval(args, model, device, dtype)
+            model.train()  # the engine left it in eval mode
+            print(f"epoch {ep} val mIoU {miou:.3f}", flush=True)
+            if tb is not None:
+                tb.add_scalar("eval/seg_miou", miou, ep)
+                tb.flush()
+        miou = broadcast_object(miou, group)  # the other ranks wait here
         set_learning_rate(opt, sched.step(miou))
         timer.reset_stage()
-    mlog.close()
+    if mlog is not None:
+        mlog.close()
     if tb is not None:
         tb.close()
+    shutdown(group)
 
 
 def _val_eval(args, model, device, dtype) -> float:

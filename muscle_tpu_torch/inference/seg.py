@@ -57,7 +57,9 @@ class SegTTAEngine:
         (device_tta only) resizes to the original size and takes the
         argmax on the device and downloads one uint8 map per image (argmax
         commutes with the mean; class gating needs 'probs').
-      mesh, shard_spatial: sharding over several devices is not ported.
+      mesh, shard_spatial: sharding one engine over several devices is not
+        ported: launch one engine per card with torchrun, each on its rows
+        of every batch (``cli/infer_seg.py``; ROADMAP Queue A item 7).
       device: where the model runs: 'cuda' (default) or 'cpu'.
     """
 
@@ -70,7 +72,9 @@ class SegTTAEngine:
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype}: float32 or bfloat16")
         if mesh is not None or shard_spatial:
-            raise NotImplementedError("mesh / shard_spatial (several devices) are not ported")
+            raise NotImplementedError(
+                "mesh / shard_spatial (one engine over several devices) are not ported: run "
+                "one engine per card under torchrun (cli/infer_seg.py), ROADMAP Queue A item 7")
         if out_side % accum_stride:
             raise ValueError("accum_stride must divide out_side")
         if download_dtype not in ("float32", "float16"):

@@ -31,6 +31,7 @@ import dataclasses
 import torch
 
 from muscle_tpu_torch.core.sobel import orient_quantize_xy, sobel_weight
+from muscle_tpu_torch.parallel.mesh import draw_rows, world
 
 # bin -> (dy, dx) unit walk along the gradient direction for the 8 sectors
 # of orient_quantize (y points down)
@@ -161,20 +162,24 @@ def pair_similarities(seg_map: torch.Tensor, dense_ft: torch.Tensor, mask: torch
 def field_loss(seg_map: torch.Tensor, dense_ft: torch.Tensor, mask: torch.Tensor,
                label_with_bg: torch.Tensor, cfg: FieldLossConfig = FieldLossConfig(),
                generator: torch.Generator | None = None,
-               draws: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+               draws: torch.Tensor | None = None,
+               group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """BEACON loss.
 
     seg_map (N, H, W, C) raw logits; dense_ft (N, H, W, F) dense decoder
     features; mask (N, H, W, C) soft pseudo-label; label_with_bg (N, C)
     image labels with the background channel.  draws: optional
     (N, C-1, H, W) uniform scores of the boundary-pixel sampling, drawn
-    from ``generator`` when None.  Returns (loss, mag_fg): the scalar loss
-    and the summed foreground gradient magnitude (N, H, W)."""
+    from ``generator`` when None.  group: a data-parallel group: the draws
+    are this rank's rows of the global batch's and the sum over pairs is
+    divided by the global N (this rank's share).  Returns (loss, mag_fg):
+    the scalar loss and the summed foreground gradient magnitude
+    (N, H, W)."""
     n, h, w, c = seg_map.shape
     if draws is None:
-        draws = torch.rand((n, c - 1, h, w), generator=generator, device=seg_map.device)
+        draws = draw_rows((n, c - 1, h, w), generator, group, device=seg_map.device)
     sim, sim_mask, count, mag_fg = pair_similarities(seg_map, dense_ft, mask, label_with_bg,
                                                      cfg, draws)
     per_pair = _pair_loss(sim, sim_mask, axis=1) + _pair_loss(sim, sim_mask, axis=0)
     per_pair = torch.where(count > cfg.k, per_pair, 0.0)
-    return per_pair.sum() / n, mag_fg
+    return per_pair.sum() / (n * world(group)), mag_fg

@@ -1,20 +1,24 @@
 """Multi-label classification losses (port of
 ``muscle_tpu/losses/classification.py``).  (N, C) and NHWC tensors;
-scalars unless noted."""
+scalars unless noted.  ``group``: a data-parallel process group; a mean
+over the batch is then this rank's share of the global batch's
+(``parallel.batch_mean``)."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from muscle_tpu_torch.parallel.mesh import batch_mean
+
 
 def focal_loss(probs: torch.Tensor, target: torch.Tensor, gamma: float = 2.0,
-               alpha: float = 0.5) -> torch.Tensor:
+               alpha: float = 0.5, group=None) -> torch.Tensor:
     """Multi-label focal loss on sigmoid probabilities (N, C): summed over
     classes, averaged over the batch."""
     pt = target * probs + (1.0 - target) * (1.0 - probs)
     focal = -alpha * (1.0 - pt) ** gamma * torch.log(pt + 1e-9)
-    return focal.sum(dim=1).mean()
+    return batch_mean(focal.sum(dim=1), group)
 
 
 def lsep_loss(pred: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -28,24 +32,24 @@ def lsep_loss(pred: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.log(1.0 + exp_sum)
 
 
-def soft_margin_loss(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def soft_margin_loss(logits: torch.Tensor, target: torch.Tensor, group=None) -> torch.Tensor:
     """MultiLabelSoftMarginLoss: per-class BCE with logits, averaged over
     classes and then over the batch."""
     per_class = -(target * F.logsigmoid(logits) + (1.0 - target) * F.logsigmoid(-logits))
-    return per_class.mean(dim=-1).mean()
+    return batch_mean(per_class.mean(dim=-1), group)
 
 
 def er_topk_loss(cams: torch.Tensor, sgcs: torch.Tensor, valid_channels: torch.Tensor,
-                 frac: float = 0.2, iters: int = 22) -> torch.Tensor:
+                 frac: float = 0.2, iters: int = 22, group=None) -> torch.Tensor:
     """Equivariant-regularisation top-k loss: the mean of the top
     ``k = int(frac * valid_channels * h * w)`` values of |cams - sgcs| per
     sample, averaged over the batch.
 
     cams: (N, H, W, C) detached; sgcs: (N, H, W, C) with gradient;
-    valid_channels: the label sum over the whole batch (a 0-d tensor).  k
-    is ~10^6 at crop 448, where a top-k is a sort, so the per-sample
-    threshold is found by ``iters`` halvings of [0, max] (masked counts,
-    no gradient), and the top-k sum is sum(x * [x > t]) + (k - count) * t,
+    valid_channels: the label sum over the whole (global) batch (a 0-d
+    tensor).  k is ~10^6 at crop 448, where a top-k is a sort, so the
+    per-sample threshold is found by ``iters`` halvings of [0, max] (masked
+    counts, no gradient), and the top-k sum is sum(x * [x > t]) + (k - count) * t,
     boundary ties resolved at the threshold, as in the JAX package."""
     n, h, w, _ = cams.shape
     diff = torch.abs(cams.detach() - sgcs).reshape(n, -1)
@@ -65,4 +69,4 @@ def er_topk_loss(cams: torch.Tensor, sgcs: torch.Tensor, valid_channels: torch.T
         n_above = above_mask.sum(dim=-1).to(torch.float32)
     top_sum = torch.where(above_mask, diff, torch.zeros_like(diff)).sum(dim=-1)
     top_sum = top_sum + (kf - n_above) * hi
-    return (top_sum / kf).mean()
+    return batch_mean(top_sum / kf, group)

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from muscle_tpu_torch.parallel.mesh import all_gather, batch_mean, rank
+
 
 def info_nce(query: torch.Tensor, positive_keys: torch.Tensor, negative_keys: torch.Tensor,
              temperature: float = 0.1) -> torch.Tensor:
@@ -19,20 +21,28 @@ def info_nce(query: torch.Tensor, positive_keys: torch.Tensor, negative_keys: to
 
 
 def image_level_contrast(emb: torch.Tensor, label: torch.Tensor,
-                         temperature: float = 0.1) -> torch.Tensor:
+                         temperature: float = 0.1, group=None) -> torch.Tensor:
     """IMC loss.  Pairs (i, j > i) are positives when their label sets are
     equal and negatives when disjoint; sample i adds
     -log(sim_pos / (sim_pos + sim_neg)) (with the reference's 1e-6
     accumulator seeds) only with >= 1 positive, >= 1 negative and more
     negatives than positives.  Summed and divided by the batch size: 0
-    when no sample qualifies."""
-    norm = torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
-    emb = emb / torch.clamp(norm, min=1e-6)
-    sim = torch.exp(emb @ emb.T / temperature)
-    eq = torch.all(label[:, None, :] == label[None, :, :], dim=-1)
-    disjoint = (label[:, None, :] * label[None, :, :]).sum(dim=-1) == 0
-    b = emb.shape[0]
-    upper = torch.triu(torch.ones((b, b), dtype=torch.bool, device=emb.device), diagonal=1)
+    when no sample qualifies.  With a data-parallel ``group`` the
+    embeddings and labels are gathered (with gradient) and this rank adds
+    the rows of its own samples against every j > i by global index over
+    the global batch size: its share of the global loss."""
+    n = emb.shape[0]
+    keys, key_label = all_gather(emb, group), all_gather(label, group)
+    norm = torch.linalg.vector_norm(keys, dim=-1, keepdim=True)
+    keys = keys / torch.clamp(norm, min=1e-6)
+    rows = slice(rank(group) * n, (rank(group) + 1) * n)
+    emb, label = keys[rows], key_label[rows]
+    sim = torch.exp(emb @ keys.T / temperature)
+    eq = torch.all(label[:, None, :] == key_label[None, :, :], dim=-1)
+    disjoint = (label[:, None, :] * key_label[None, :, :]).sum(dim=-1) == 0
+    b = keys.shape[0]
+    upper = torch.triu(torch.ones((b, b), dtype=torch.bool, device=emb.device),
+                       diagonal=1)[rows]
     pos_mask = (upper & eq).to(sim.dtype)
     neg_mask = (upper & disjoint).to(sim.dtype)
     pos_count, neg_count = pos_mask.sum(dim=1), neg_mask.sum(dim=1)
@@ -58,13 +68,14 @@ def _overlap_windows(fm: torch.Tensor, coord: torch.Tensor) -> torch.Tensor:
 
 
 def pixpro_loss(fm1: torch.Tensor, fm2: torch.Tensor, coord1: torch.Tensor,
-                coord2: torch.Tensor) -> torch.Tensor:
+                coord2: torch.Tensor, group=None) -> torch.Tensor:
     """PixPro cross-view pixel consistency: 1 - the mean over samples of
     the mean cosine between the views' maps over their overlap.
 
     fm1: (N, H, W, C) view 1 (with gradient); fm2: view 2 (detached here);
     coord1/coord2: (N, 4) int (row, col, h_inter, w_inter) of the overlap
-    in each view."""
+    in each view.  group: a data-parallel group (this rank's share of the
+    global batch's loss)."""
     f1 = _overlap_windows(fm1, coord1)
     f2 = _overlap_windows(fm2.detach(), coord2)
     _, hv, wv, _ = fm1.shape
@@ -76,4 +87,4 @@ def pixpro_loss(fm1: torch.Tensor, fm2: torch.Tensor, coord1: torch.Tensor,
     cos = dot / torch.clamp(n12, min=1e-8)
     count = torch.clamp(valid.sum(dim=(1, 2)), min=1)
     per = torch.where(valid, cos, torch.zeros_like(cos)).sum(dim=(1, 2)) / count
-    return 1.0 - per.mean()
+    return batch_mean(1.0 - per, group)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from muscle_tpu_torch.core.resize import dynamic_window_resize
+from muscle_tpu_torch.parallel.mesh import draw_rows, reduced
 
 
 def sinkhorn_emd(cost: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, reg: float = 0.1,
@@ -71,17 +72,18 @@ def static_matching_emd(vw1: torch.Tensor, vw2: torch.Tensor, coord1: torch.Tens
 
 
 def draw_crop_fractions(n: int, generator: torch.Generator | None = None,
-                        device=None) -> torch.Tensor:
+                        device=None, group=None) -> torch.Tensor:
     """(n, 2) crop-size fractions of the overlap's (h, w), uniform in
-    [1/3, 1/2)."""
-    u = torch.rand((n, 2), generator=generator, device=device)
+    [1/3, 1/2); with a data-parallel ``group``, this rank's rows of the
+    global batch's draw."""
+    u = draw_rows((n, 2), generator, group, device=device)
     return u * (1 / 2 - 1 / 3) + 1 / 3
 
 
 def dynamic_matching_emd(vw1: torch.Tensor, vw2: torch.Tensor, coord1: torch.Tensor,
                          coord2: torch.Tensor, crop_frac: torch.Tensor | None = None,
                          generator: torch.Generator | None = None, grid: int = 3,
-                         crop_px: int = 7, maxiter: int = 10) -> torch.Tensor:
+                         crop_px: int = 7, maxiter: int = 10, group=None) -> torch.Tensor:
     """Cross-view EMD with dynamic crop matching.
 
     vw1: (N, Hv, Wv, C) view with gradient (normalised softmax CAMs); vw2:
@@ -92,11 +94,12 @@ def dynamic_matching_emd(vw1: torch.Tensor, vw2: torch.Tensor, coord1: torch.Ten
     half-size quadrants of its own; every pair is scored without gradient
     and the best pair carries it.  Samples whose overlap is under 15
     pixels a side or more elongated than 5:1 add 0; the mean is over the
-    others."""
+    others (of the global batch with a data-parallel ``group``: this rank's
+    sum over the global count, its share)."""
     n = vw1.shape[0]
     dev = vw1.device
     if crop_frac is None:
-        crop_frac = draw_crop_fractions(n, generator, dev)
+        crop_frac = draw_crop_fractions(n, generator, dev, group)
     c1, c2 = coord1.to(dev).long(), coord2.to(dev).long()
     h, w = c1[:, 2], c1[:, 3]
     hf, wf = h.to(torch.float32), w.to(torch.float32)
@@ -130,4 +133,4 @@ def dynamic_matching_emd(vw1: torch.Tensor, vw2: torch.Tensor, coord1: torch.Ten
     x = _crops(vw1, boxes1[rows, best // 4][:, None], crop_px)[:, 0]
     top1 = _pair_emd(x, crops2[rows, best % 4], maxiter)
     losses = torch.where(valid, top1, torch.zeros_like(top1))
-    return losses.sum() / torch.clamp(valid.sum(), min=1)
+    return losses.sum() / torch.clamp(reduced(valid.sum(), group), min=1)

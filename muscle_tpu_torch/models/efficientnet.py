@@ -46,6 +46,7 @@ from muscle_tpu_torch.ops.mbconv import (
     mbconv_stride1,
     window_mask,
 )
+from muscle_tpu_torch.parallel.mesh import all_gather, all_reduce_sum, draw_rows, world
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,14 +168,37 @@ class BatchNorm2d(nn.BatchNorm2d):
     output rounded to bfloat16, as Flax's ``BatchNorm(dtype=bf16)``; on
     batch statistics with JAX's input gradient (``_LowpBatchStatsNorm``;
     one float32 batch norm under ``torch.func`` transforms, which take no
-    autograd Function without a forward-mode rule)."""
+    autograd Function without a forward-mode rule).
+
+    ``dp_group`` (set by ``parallel.replicate``): with more than one rank,
+    train-mode statistics are those of the global batch, as Flax's under a
+    sharded batch (``_SyncBatchStatsNorm``); ``torch.func`` transforms (the
+    liveness probes) stay rank-local."""
+
+    dp_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training and self.track_running_stats:  # running statistics
             return norm_in_f32(super().forward, x)
-        if x.dtype == torch.float32 or torch._C._functorch.is_functorch_wrapped_tensor(x):
+        wrapped = torch._C._functorch.is_functorch_wrapped_tensor(x)
+        if world(self.dp_group) > 1 and not wrapped:
+            return self._synced(x)
+        if x.dtype == torch.float32 or wrapped:
             return norm_in_f32(lambda t: self._on_batch_stats(t, F.batch_norm), x)
         return self._on_batch_stats(x, _LowpBatchStatsNorm.apply)
+
+    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+        """Batch statistics over every rank's batch, then Flax's update of
+        the running statistics (biased variance) when they are tracked."""
+        y, mean, var = _SyncBatchStatsNorm.apply(x, self.weight, self.bias, self.eps,
+                                                 self.dp_group)
+        if self.track_running_stats:
+            m = self.momentum
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        return y
 
     def _on_batch_stats(self, x: torch.Tensor, norm) -> torch.Tensor:
         """``norm`` (``F.batch_norm``'s signature) on x's batch statistics,
@@ -229,24 +253,78 @@ class _LowpBatchStatsNorm(torch.autograd.Function):
                 None, None)
 
 
+class _SyncBatchStatsNorm(torch.autograd.Function):
+    """Batch norm on the statistics of the global batch, split over the
+    ranks of ``group``: float32 math on a float32 copy of x, the output in
+    x's dtype.  Forward: each rank's per-channel count, mean and sum of
+    squared deviations are gathered and combined (Chan's parallel update:
+    the variance never takes E[x^2] - mean^2); backward: sum(dy) and
+    sum(dy * x_hat) are summed over the ranks, so the input gradient is the
+    global batch's (the affine's gradients stay this rank's share, summed
+    with every other gradient in ``training/state.py`` ``minimize``).  At
+    bfloat16 the input gradient is rounded on the two paths JAX's autodiff
+    rounds (``_LowpBatchStatsNorm``).  Returns (y, mean, biased var)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        xf = x.to(torch.float32)
+        c = xf.shape[1]
+        dims = (0, 2, 3)
+        mean_l = xf.mean(dims)
+        m2_l = torch.square(xf - mean_l[:, None, None]).sum(dims)
+        count = torch.full((1,), xf.numel() // c, dtype=torch.float32, device=xf.device)
+        stats = all_gather(torch.cat([count, mean_l, m2_l])[None], group)  # (W, 1 + 2C)
+        counts, means, m2s = stats[:, :1], stats[:, 1: 1 + c], stats[:, 1 + c:]
+        n = counts.sum()
+        mean = (counts * means).sum(0) / n
+        var = (m2s.sum(0) + (counts * torch.square(means - mean)).sum(0)) / n
+        invstd = torch.rsqrt(var + eps)
+        y = (xf - mean[:, None, None]) * (invstd * weight)[:, None, None] + bias[:, None, None]
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.n, ctx.group = n, group
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        g = gy.to(torch.float32)
+        c = g.shape[1]
+        dims = (0, 2, 3)
+        xhat = (x.to(torch.float32) - mean[:, None, None]) * invstd[:, None, None]
+        sum_dy, sum_dy_xhat = g.sum(dims), (g * xhat).sum(dims)
+        red = all_reduce_sum(torch.cat([sum_dy, sum_dy_xhat]), ctx.group) / ctx.n
+        scale = (invstd * weight)[:, None, None]
+        direct = g * scale
+        dx = direct - scale * (red[:c, None, None] + xhat * red[c:, None, None])
+        if x.dtype != torch.float32:
+            dx = direct.to(x.dtype) + (dx - direct).to(x.dtype)
+        return dx, sum_dy_xhat, sum_dy, None, None
+
+
 def _bn(c: int) -> BatchNorm2d:
     return BatchNorm2d(c, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 def drop_connect(x: torch.Tensor, rate: float,
-                 generator: torch.Generator | None = None) -> torch.Tensor:
+                 generator: torch.Generator | None = None, group=None) -> torch.Tensor:
     """Per-sample stochastic depth: each sample of ``x`` is kept with
-    probability 1 - rate (floor(keep + U)) and scaled by 1 / keep."""
+    probability 1 - rate (floor(keep + U)) and scaled by 1 / keep.  With a
+    data-parallel ``group``, U is this rank's rows of the global batch's
+    draw (``parallel.draw_rows``)."""
     keep = 1.0 - rate
-    u = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), dtype=x.dtype, device=x.device,
-                   generator=generator)
+    u = draw_rows((x.shape[0],) + (1,) * (x.ndim - 1), generator, group, dtype=x.dtype,
+                  device=x.device)
     return x / keep * torch.floor(keep + u)
 
 
 class MBConvBlock(nn.Module):
     """Mobile inverted bottleneck: expand 1x1 -> BN -> swish -> depthwise
     k x k -> BN -> swish -> squeeze-excite -> project 1x1 -> BN
-    (+ identity)."""
+    (+ identity).  ``dp_group`` (``parallel.replicate``): drop-connect
+    draws the global batch's mask and keeps this rank's rows."""
+
+    dp_group = None
 
     def __init__(self, args: BlockArgs):
         super().__init__()
@@ -378,7 +456,7 @@ class MBConvBlock(nn.Module):
         out = _nhwc(h)
         if a.id_skip and a.stride == 1 and a.input_filters == a.output_filters:
             if self.training and drop_rate > 0.0:
-                out = drop_connect(out, drop_rate, generator)
+                out = drop_connect(out, drop_rate, generator, self.dp_group)
             out = out + inputs
         return out
 

@@ -10,11 +10,18 @@ reused.  ``cuTensorMapEncodeTiled`` (TMA) is found through the runtime's
 driver entry point, so nothing links against libcuda.  Nothing is built
 when a module is imported: the first launch builds, or ``build_all``
 builds every source in parallel.
+
+Processes that build at once (the ranks of a data-parallel launch) build
+each library once: a process holds an exclusive ``flock`` on
+``build/kernels/<name>.lock`` while its nvcc runs, and the others wait on
+it and then load what it built.  The kernel releases the lock if the
+builder dies, so no stale lock is left behind.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -56,27 +63,38 @@ def library_path(name: str) -> Path:
 
 
 def _start(name: str):
-    """Start nvcc for ``csrc/<name>.cu`` unless its library is built;
-    returns (target, process or None)."""
+    """Start nvcc for ``csrc/<name>.cu`` unless its library is built (by
+    this process or by another that held the lock); returns (target,
+    (process, tmp, lock) or None)."""
     target = _target(name)
     if target.exists():
         return target, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lock = open(BUILD_DIR / f"{name}.lock", "w")
+    fcntl.flock(lock, fcntl.LOCK_EX)  # waits while another process builds it
+    if target.exists():
+        lock.close()
+        return target, None
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return target, (proc, tmp)
+    try:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    except BaseException:
+        lock.close()
+        raise
+    return target, (proc, tmp, lock)
 
 
 def _finish(name: str, target: Path, pending) -> None:
     if pending is None:
         return
-    proc, tmp = pending
-    out, _ = proc.communicate()
-    target.with_suffix(".log").write_text(out)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
-    os.replace(tmp, target)
+    proc, tmp, lock = pending
+    with lock:  # closing the file releases the flock
+        out, _ = proc.communicate()
+        target.with_suffix(".log").write_text(out)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
+        os.replace(tmp, target)
 
 
 def build_all(names) -> dict[str, str]:

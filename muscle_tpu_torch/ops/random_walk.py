@@ -21,6 +21,10 @@ Methods of ``propagate_to_edge``:
 ``kernel`` (stencil and banded): None launches the CUDA kernel for CUDA
 tensors and runs its plain version for CPU tensors; False runs the plain
 version on any device (for comparisons on the card).
+
+``propagate_to_edge_sharded`` walks with T column-sharded over the ranks
+of a process group (the V x V matrix is the only memory-quadratic
+operand).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch.nn.functional as F
 
 from muscle_tpu_torch.ops.banded_walk import banded_walk, banded_walk_plain, walk_band
 from muscle_tpu_torch.ops.stencil_walk import shift2d, stencil_walk, stencil_walk_plain
+from muscle_tpu_torch.parallel.mesh import all_gather, rank, world
 
 
 def _directions(radius: int) -> list[tuple[int, int]]:
@@ -224,6 +229,50 @@ def propagate_to_edge(cam: torch.Tensor, edge: torch.Tensor, radius: int = 5, be
         raise ValueError(f"unknown method {method!r}")
     rw = rw.reshape(b, c, h, w)
     return rw[0] if single else rw
+
+
+def transition_columns(edge: torch.Tensor, cols: slice, radius: int = 5,
+                       beta: int = 8) -> torch.Tensor:
+    """Columns ``cols`` (V, len) of one (h, w) edge map's transition
+    matrix: each column is normalised by its own sum, so a column block
+    needs no other block."""
+    h, w = edge.shape
+    v = h * w
+    rows, pair_cols, vals_b, colsum = _pair_weights(edge[None], radius, beta)
+    c0, c1 = cols.start, cols.stop
+    keep = (pair_cols >= c0) & (pair_cols < c1)
+    block = torch.zeros((v, c1 - c0), dtype=vals_b.dtype, device=edge.device)
+    block.index_put_((rows[keep], pair_cols[keep] - c0),
+                     vals_b[0, keep] / colsum[0, pair_cols[keep]], accumulate=True)
+    idx = torch.arange(c0, c1, device=edge.device)
+    block[idx, idx - c0] += 1.0 / colsum[0, c0:c1]
+    return block
+
+
+def propagate_to_edge_sharded(cam: torch.Tensor, edge: torch.Tensor, group, radius: int = 5,
+                              beta: int = 8, exp_times: int = 6) -> torch.Tensor:
+    """The random walk of one image with its (V, V) transition matrix
+    column-sharded over the ranks of ``group`` (port of the JAX package's
+    ``propagate_to_edge_sharded`` over a mesh axis).  Each rank builds
+    only its V / W columns of the beta-powered, column-normalised T (the
+    column norm is local), and each of the 2^exp_times steps computes this
+    rank's columns of x @ T and all-gathers the small (C, V) iterate.
+
+    cam (C, h, w), edge (h, w), on this rank's device; every rank passes
+    the same.  Returns the (C, h, w) walk, the same on every rank.  Raises
+    ValueError unless W divides V = h * w."""
+    c, h, w = cam.shape
+    v, n = h * w, world(group)
+    if v % n:
+        raise ValueError(f"V={v} not divisible by the {n} ranks")
+    per = v // n
+    trans = transition_columns(edge, slice(rank(group) * per, (rank(group) + 1) * per),
+                               radius, beta)
+    x = (cam * (1.0 - edge)[None]).reshape(c, v)
+    for _ in range(2 ** exp_times):
+        # the gather concatenates rows: gather x @ T_block's transpose
+        x = all_gather((x @ trans).T.contiguous(), group).T
+    return x.reshape(c, h, w)
 
 
 @functools.lru_cache(maxsize=8)

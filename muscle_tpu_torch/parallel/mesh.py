@@ -1,0 +1,264 @@
+"""Data parallelism over ``torch.distributed`` (port of
+``muscle_tpu/parallel/mesh.py``).
+
+The JAX package runs its trainers and engines under a ('data',) mesh: the
+batch is sharded over the chips and GSPMD computes exactly what one device
+computes on the global batch.  The port runs one process per card (launched
+by ``torchrun``), each process ("rank") on its slice of every global batch,
+and makes each place where the step couples the batch global explicitly:
+
+* train-mode batch norms reduce their statistics and the statistics'
+  gradients over the ranks (``models/efficientnet.py`` ``BatchNorm2d``,
+  given its group by ``replicate``);
+* random draws over the batch draw the global batch's shape from a
+  generator seeded alike on every rank and keep this rank's rows
+  (``draw_rows``);
+* a loss's mean over the batch is this rank's sum over the global count
+  (``batch_mean``), and every count a loss divides by is the global one
+  (``reduced``); IMC gathers the embeddings (``all_gather``);
+* each rank's loss is its share of the global loss, so the sum of the
+  ranks' gradients (``training/state.py`` ``minimize``) is the global
+  gradient, clipped and applied identically on every rank.
+
+A group of ``None`` means one process: every helper then computes what it
+computed before this module existed (no collective, the same launches).
+
+Backends: ``nccl`` where each rank has a card of its own, ``gloo`` on the
+CPU and where ranks share a card (``chip_smoke.py`` runs two ranks on one
+card; gloo copies CUDA tensors through host memory itself).  Every
+exchange is ``all_reduce``, ``all_gather`` (list form) or ``broadcast``,
+which both backends take on CUDA and CPU tensors.
+
+Not ported: ``spatial_sharding`` (GSPMD's halo-exchanged convolutions);
+the engines' in-process ``mesh=`` (a rank runs its own engine instead).
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import sys
+
+import torch
+import torch.distributed as dist
+
+# long enough for rank 0's epoch-end eval while the others wait for its mIoU
+TIMEOUT = datetime.timedelta(minutes=60)
+
+
+def init(rank: int, world_size: int, init_method: str, device: torch.device | str,
+         backend: str | None = None):
+    """Join a process group of ``world_size`` ranks (``init_method``:
+    'env://', 'tcp://host:port' or 'file://path') and return it.  backend:
+    None takes 'nccl' for a CUDA device (one card per rank) and 'gloo'
+    otherwise; ranks that share a card pass 'gloo'.  The backend is named
+    on stderr."""
+    device = torch.device(device)
+    if backend is None:
+        backend = "nccl" if device.type == "cuda" else "gloo"
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    kw = {"device_id": device} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world_size, timeout=TIMEOUT, **kw)
+    print(f"rank {rank}/{world_size}: {backend} on {device}", file=sys.stderr, flush=True)
+    return dist.group.WORLD
+
+
+def init_from_env(device_name: str):
+    """(group, device) of a process that ``torchrun`` started, from its
+    RANK, LOCAL_RANK and WORLD_SIZE: the rank's device is cuda:<LOCAL_RANK>
+    for ``device_name`` 'cuda' (NCCL), the CPU for 'cpu' (gloo).  Raises
+    when a rank has no card of its own: ranks never share one silently.
+    Without torchrun's variables, or with one rank: (None, device), one
+    process as before."""
+    world_size = int(os.environ.get("WORLD_SIZE", "1"))
+    device = torch.device(device_name)
+    if world_size == 1:
+        return None, device
+    rank, local = int(os.environ["RANK"]), int(os.environ["LOCAL_RANK"])
+    if device.type == "cuda":
+        if device.index is not None:
+            raise ValueError(f"--device {device_name}: under torchrun the rank's card is "
+                             "cuda:<LOCAL_RANK>; pass --device cuda")
+        if local >= torch.cuda.device_count():
+            raise RuntimeError(f"rank {rank} (local rank {local}) has no card of its own: "
+                               f"{torch.cuda.device_count()} visible; launch at most one rank "
+                               "per card (torchrun --nproc_per_node)")
+        device = torch.device("cuda", local)
+    return init(rank, world_size, "env://", device), device
+
+
+def rank(group=None) -> int:
+    """This process's rank in ``group`` (0 for one process)."""
+    return 0 if group is None else dist.get_rank(group)
+
+
+def world(group=None) -> int:
+    """The number of ranks in ``group`` (1 for one process)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def local_batch_slice(global_batch: int, process_index: int | None = None,
+                      process_count: int | None = None) -> slice:
+    """The slice of the global batch this process feeds (the JAX
+    package's, with the default process group's rank and size)."""
+    on = dist.is_available() and dist.is_initialized()
+    pi = (dist.get_rank() if on else 0) if process_index is None else process_index
+    pc = (dist.get_world_size() if on else 1) if process_count is None else process_count
+    if global_batch % pc != 0:
+        raise ValueError(f"global batch {global_batch} not divisible by {pc} hosts")
+    per = global_batch // pc
+    return slice(pi * per, (pi + 1) * per)
+
+
+def rank_rows(n: int, group=None) -> slice:
+    """This rank's contiguous share of n items, n // W or one more (the
+    first n % W ranks); ``local_batch_slice`` where W divides n.  For
+    serving, whose last batch may not divide."""
+    r, w = rank(group), world(group)
+    return slice(r * n // w, (r + 1) * n // w)
+
+
+def per_rank_batch(global_batch: int, group=None) -> int:
+    """The batch each rank trains on.  The counterpart of
+    ``make_data_mesh_for_batch``: where the ranks do not divide the batch
+    the JAX package idles chips, but a launched rank cannot idle, so this
+    raises."""
+    w = world(group)
+    if global_batch % w:
+        raise ValueError(f"--batch_size {global_batch} is not divisible by the {w} ranks: "
+                         "launch a number of ranks that divides it (the JAX package would "
+                         "leave devices idle instead)")
+    return global_batch // w
+
+
+def _coalesced(tensors, op) -> None:
+    """Apply ``op`` (in place, on one flat tensor) to ``tensors`` grouped by
+    dtype and device, and copy the results back."""
+    groups: dict = {}
+    for t in tensors:
+        groups.setdefault((t.dtype, t.device), []).append(t)
+    for ts in groups.values():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        op(flat)
+        offset = 0
+        for t in ts:
+            t.copy_(flat[offset: offset + t.numel()].view_as(t))
+            offset += t.numel()
+
+
+def replicate(module: torch.nn.Module, group=None) -> torch.nn.Module:
+    """Broadcast ``module``'s parameters and buffers from rank 0 and give
+    its batch norms and drop-connect blocks the group (their train-mode
+    statistics and draws then span the global batch).  A group of None
+    leaves the module as it is."""
+    if group is None:
+        return module
+    with torch.no_grad():
+        _coalesced(list(module.parameters()) + list(module.buffers()),
+                   lambda flat: dist.broadcast(flat, dist.get_global_rank(group, 0),
+                                               group=group))
+    set_group(module, group)
+    return module
+
+
+def set_group(module: torch.nn.Module, group) -> None:
+    """Set the data-parallel group of every submodule that reduces over
+    the batch (those with a ``dp_group`` attribute); None makes them local."""
+    for m in module.modules():
+        if hasattr(m, "dp_group"):
+            m.dp_group = group
+
+
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` over the ranks, in place; returns it."""
+    if group is not None:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+def all_reduce_flat(tensors, group=None) -> None:
+    """Sum every tensor of ``tensors`` over the ranks in place, one
+    collective per dtype."""
+    if group is not None and tensors:
+        _coalesced(tensors, lambda flat: dist.all_reduce(flat, group=group))
+
+
+def reduced(x: torch.Tensor, group=None) -> torch.Tensor:
+    """A detached copy of ``x`` summed over the ranks (the global value of a
+    count or a sum a loss divides by); ``x`` itself for one process."""
+    if group is None:
+        return x
+    return all_reduce_sum(x.detach().clone(), group)
+
+
+def batch_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """This rank's share of the mean of ``x`` over the global batch: its
+    sum over the global element count (every rank holds as many).  The
+    ranks' shares sum to the global mean.  ``x.mean()`` for one process."""
+    if group is None:
+        return x.mean()
+    return x.sum() / (x.numel() * world(group))
+
+
+class _AllGather(torch.autograd.Function):
+    """Concatenate every rank's ``x`` along dim 0, in rank order.  The
+    backward sums the cotangent over the ranks (each rank's loss took the
+    whole gather) and returns this rank's rows."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        ctx.rows = x.shape[0]
+        parts = [torch.empty_like(x) for _ in range(world(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = all_reduce_sum(g.contiguous().clone(), ctx.group)
+        r = rank(ctx.group)
+        return g[r * ctx.rows: (r + 1) * ctx.rows], None
+
+
+def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along dim 0 (with gradient);
+    ``x`` itself for one process."""
+    if group is None:
+        return x
+    return _AllGather.apply(x, group)
+
+
+def draw_rows(shape, generator: torch.Generator | None = None, group=None,
+              dtype: torch.dtype | None = None, device=None) -> torch.Tensor:
+    """``torch.rand`` of ``shape`` as this rank's rows of one global draw:
+    the global batch's shape (W x shape[0] rows) is drawn from
+    ``generator``, seeded alike on every rank, and rank r keeps rows
+    [r n, (r + 1) n).  W ranks together see the one-process draw."""
+    if group is None:
+        return torch.rand(shape, generator=generator, dtype=dtype, device=device)
+    n, w = shape[0], world(group)
+    u = torch.rand((n * w, *shape[1:]), generator=generator, dtype=dtype, device=device)
+    r = rank(group)
+    return u[r * n: (r + 1) * n]
+
+
+def broadcast_object(obj, group=None, src_rank: int = 0):
+    """``obj`` (picklable) of the group's rank ``src_rank`` on every rank."""
+    if group is None:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, src_rank), group=group)
+    return box[0]
+
+
+def barrier(group=None) -> None:
+    if group is not None:
+        dist.barrier(group=group)
+
+
+def shutdown(group=None) -> None:
+    """Leave the process group (a no-op for one process)."""
+    if group is not None:
+        dist.destroy_process_group()

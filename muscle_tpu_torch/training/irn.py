@@ -16,6 +16,12 @@ on the two heads only, the ResNet-50 frozen, the learning rate
 poly-decayed (power 0.9) over the run by the caller.  The JAX package's
 CLI differs on both counts (ROADMAP Queue C): its learning rate is fixed
 at 1 and its decay also shrinks the frozen backbone.
+
+group: a data-parallel process group: the four mask sums are summed over
+the ranks before they divide (each rank's loss its share of the global
+batch's), the gradients are summed over the ranks, and the metrics are
+the global batch's.  The heads' GroupNorms and the frozen backbone's
+fixed norms couple no samples.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch
 
 from muscle_tpu_torch.core.bitpack import unpackbits_last
 from muscle_tpu_torch.ops.random_walk import PathIndex
+from muscle_tpu_torch.parallel.mesh import all_reduce_sum, reduced
 from muscle_tpu_torch.training.mcl import decode_image
 from muscle_tpu_torch.training.state import minimize
 
@@ -74,15 +81,16 @@ def pair_displacement(dp_flat: torch.Tensor, pi: PathIndex) -> torch.Tensor:
 
 
 def irn_losses(edge_out: torch.Tensor, dp_out: torch.Tensor, bg_pos: torch.Tensor,
-               fg_pos: torch.Tensor, neg: torch.Tensor, pi: PathIndex):
+               fg_pos: torch.Tensor, neg: torch.Tensor, pi: PathIndex, group=None):
     """edge_out (N, V) logits, dp_out (N, V, 2), masks (N, D, P).  Returns
-    (total, metrics)."""
+    (total, metrics), this rank's shares with a data-parallel ``group``
+    (each mask's sum over the global batch divides)."""
     aff = path_affinity(torch.sigmoid(edge_out), pi)
     pos_loss = -torch.log(aff + 1e-5)
     neg_loss = -torch.log(1.0 + 1e-5 - aff)
 
     def masked_sum_norm(loss, mask, denom_scale=1.0):
-        return torch.sum(loss * mask) / (denom_scale * torch.sum(mask) + 1e-5)
+        return torch.sum(loss * mask) / (denom_scale * reduced(torch.sum(mask), group) + 1e-5)
 
     l_bg_pos = masked_sum_norm(pos_loss, bg_pos)
     l_fg_pos = masked_sum_norm(pos_loss, fg_pos)
@@ -115,17 +123,20 @@ def _decode_mask(v: torch.Tensor, p_pairs: int) -> torch.Tensor:
 
 
 def irn_train_step(model, opt: torch.optim.Optimizer, batch: dict,
-                   cfg: IRNTrainConfig = IRNTrainConfig()) -> dict[str, torch.Tensor]:
+                   cfg: IRNTrainConfig = IRNTrainConfig(), group=None) -> dict[str, torch.Tensor]:
     """One step of the raw two-head ``IRNNet`` (no flip fusion).  batch:
     img (N, S, S, 3) (or img_y/img_c) and bg_pos/fg_pos/neg (N, D, P)
     masks over the stride grid's path index (or bit-packed, (N, D, P/8)),
-    on the model's device.  Returns the detached metrics."""
+    on the model's device.  Returns the detached metrics (the global
+    batch's with a data-parallel ``group``)."""
     model.train()
     pi = _grid_path_index(cfg)
     p_pairs = int(pi.src_indices.size)
     masks = [_decode_mask(batch[k], p_pairs) for k in ("bg_pos", "fg_pos", "neg")]
     edge_out, dp_out = model(decode_image(batch, "img"))  # (N, g, g, 1), (N, g, g, 2)
     n = edge_out.shape[0]
-    total, metrics = irn_losses(edge_out.reshape(n, -1), dp_out.reshape(n, -1, 2), *masks, pi)
-    minimize(opt, total)
-    return {k: v.detach() for k, v in metrics.items()}
+    total, metrics = irn_losses(edge_out.reshape(n, -1), dp_out.reshape(n, -1, 2), *masks, pi,
+                                group)
+    minimize(opt, total, group=group)
+    vals = all_reduce_sum(torch.stack([v.detach() for v in metrics.values()]), group)
+    return dict(zip(metrics, vals.unbind()))

@@ -12,6 +12,14 @@ steps, as the reference does:
 Batches are dicts of tensors on the model's device, in any of the
 dataset's upload formats (``decode_image``).
 
+group: a data-parallel process group (``parallel/mesh.py``): the batch is
+this rank's slice of the global batch, the model was given the group by
+``parallel.replicate`` (global BN statistics and drop-connect draws), the
+loss is this rank's share of the global batch's, the gradients are summed
+over the ranks, and the metrics are the global batch's on every rank.
+Every rank seeds its ``generator`` alike.  The liveness probes stay
+rank-local.
+
 compute_dtype: float32, or bfloat16 as the JAX package's
 ``MuSCLe(dtype=jnp.bfloat16)`` trains: the image is decoded in float32
 and cast at the model's input (where Flax's first ``nn.Conv`` casts it),
@@ -40,6 +48,7 @@ from muscle_tpu_torch.losses import (
     pixpro_loss,
     soft_margin_loss,
 )
+from muscle_tpu_torch.parallel.mesh import all_reduce_sum, batch_mean, reduced
 from muscle_tpu_torch.training.liveness import term_liveness
 from muscle_tpu_torch.training.state import batch_stats_train, minimize
 
@@ -76,22 +85,22 @@ def decode_image(batch: dict, key: str) -> torch.Tensor:
 
 
 def _terms_a(forward, img: torch.Tensor, label: torch.Tensor, cfg: MCLConfig,
-             generator) -> dict[str, torch.Tensor]:
-    """Step A's loss terms from a train-mode ``forward(x, mode=...,
-    generator=...)``."""
+             generator, group=None) -> dict[str, torch.Tensor]:
+    """Step A's loss terms (this rank's shares with a ``group``) from a
+    train-mode ``forward(x, mode=..., generator=...)``."""
     raw_cams, raw_sgcs, emb, logits = forward(img, mode="cam", generator=generator)
     lb = attach_bg_channel(label)[:, None, None, :]
     probs_fg = torch.sigmoid(logits[:, 1:])
     cams = cam_softmaxnorm(raw_cams).detach() * lb
     sgcs = cam_softmaxnorm(raw_sgcs) * lb
     out = {
-        "focal": focal_loss(probs_fg, label),
-        "softmargin": soft_margin_loss(logits[:, 1:], label),
-        "pair": lsep_loss(probs_fg, label).mean(),
-        "er": er_topk_loss(cams, sgcs, label.sum()),
+        "focal": focal_loss(probs_fg, label, group=group),
+        "softmargin": soft_margin_loss(logits[:, 1:], label, group=group),
+        "pair": batch_mean(lsep_loss(probs_fg, label), group),
+        "er": er_topk_loss(cams, sgcs, reduced(label.sum(), group), group=group),
     }
     if cfg.use_imc:
-        out["imc"] = image_level_contrast(emb, label)
+        out["imc"] = image_level_contrast(emb, label, group=group)
     return out
 
 
@@ -101,51 +110,57 @@ def _unit(x: torch.Tensor) -> torch.Tensor:
 
 
 def _terms_b(forward, view1: torch.Tensor, view2: torch.Tensor, batch: dict, cfg: MCLConfig,
-             generator, crop_frac) -> dict[str, torch.Tensor]:
-    """Step B's loss terms: view 1 through ``forward`` with gradients,
-    view 2 without."""
+             generator, crop_frac, group=None) -> dict[str, torch.Tensor]:
+    """Step B's loss terms (this rank's shares with a ``group``): view 1
+    through ``forward`` with gradients, view 2 without."""
     lb = attach_bg_channel(batch["label"])[:, None, None, :]
     _, sgcs_vw1 = forward(view1, mode="pix", generator=generator)
     with torch.no_grad():
         cams_vw2, _ = forward(view2, mode="pix", generator=generator)
     cams_vw2 = cams_vw2.detach()
     out = {"pixpro": pixpro_loss(cam_maxnorm(sgcs_vw1) * lb, cam_maxnorm(cams_vw2) * lb,
-                                 batch["coord1"], batch["coord2"])}
+                                 batch["coord1"], batch["coord2"], group=group)}
     if cfg.use_emd:
         out["emd"] = dynamic_matching_emd(
             _unit(cam_softmaxnorm(sgcs_vw1)), _unit(cam_softmaxnorm(cams_vw2)),
-            batch["coord1"], batch["coord2"], crop_frac=crop_frac, generator=generator)
+            batch["coord1"], batch["coord2"], crop_frac=crop_frac, generator=generator,
+            group=group)
     return out
 
 
-def _metrics(terms: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """The detached terms as float32 0-d tensors."""
-    return {k: v.detach().to(torch.float32) for k, v in terms.items()}
+def _metrics(terms: dict[str, torch.Tensor], group=None) -> dict[str, torch.Tensor]:
+    """The detached terms as float32 0-d tensors; with a ``group``, the
+    ranks' shares summed (one all-reduce): the global batch's values."""
+    vals = all_reduce_sum(torch.stack([v.detach().to(torch.float32) for v in terms.values()]),
+                          group)
+    return dict(zip(terms, vals.unbind()))
 
 
 def mcl_train_step(model, opt: torch.optim.Optimizer, batch: dict, cfg: MCLConfig,
                    generator: torch.Generator | None = None,
-                   compute_dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
+                   compute_dtype: torch.dtype = torch.float32,
+                   group=None) -> dict[str, torch.Tensor]:
     """Step A: puts ``model`` in train mode, updates its parameters and BN
     statistics; ``generator`` feeds drop-connect.  Returns the detached
     metrics (float32 0-d tensors)."""
     model.train()
     t = _terms_a(model, decode_image(batch, "img").to(compute_dtype), batch["label"], cfg,
-                 generator)
+                 generator, group)
     loss = t["focal"] + t["softmargin"] + t["pair"] + t["er"]
     if cfg.use_imc:
         loss = loss + t["imc"]
-    minimize(opt, loss)
+    minimize(opt, loss, group=group)
     zero = torch.zeros((), device=loss.device)
     return _metrics({"loss": loss, "loss_focal": t["focal"], "loss_softmargin": t["softmargin"],
                      "loss_pair": t["pair"], "loss_er": t["er"],
-                     "loss_imc": t.get("imc", zero)})
+                     "loss_imc": t.get("imc", zero)}, group)
 
 
 def mcl_views_step(model, opt: torch.optim.Optimizer, batch: dict, cfg: MCLConfig,
                    generator: torch.Generator | None = None,
                    crop_frac: torch.Tensor | None = None,
-                   compute_dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
+                   compute_dtype: torch.dtype = torch.float32,
+                   group=None) -> dict[str, torch.Tensor]:
     """Step B: puts ``model`` in eval mode (frozen BN statistics, no
     drop-connect, as the reference's model.eval()) and keeps gradients for
     view 1.  ``crop_frac``: EMD's (N, 2) crop fractions, drawn from
@@ -153,13 +168,13 @@ def mcl_views_step(model, opt: torch.optim.Optimizer, batch: dict, cfg: MCLConfi
     model.eval()
     t = _terms_b(model, decode_image(batch, "view1").to(compute_dtype),
                  decode_image(batch, "view2").to(compute_dtype), batch, cfg, generator,
-                 crop_frac)
+                 crop_frac, group)
     loss = t["pixpro"]
     if cfg.use_emd:
         loss = loss + t["emd"]
-    minimize(opt, loss)
+    minimize(opt, loss, group=group)
     zero = torch.zeros((), device=loss.device)
-    return _metrics({"loss_pixpro": t["pixpro"], "loss_emd": t.get("emd", zero)})
+    return _metrics({"loss_pixpro": t["pixpro"], "loss_emd": t.get("emd", zero)}, group)
 
 
 def mcl_term_grad_norms(model, batch: dict, generator: torch.Generator | None = None,

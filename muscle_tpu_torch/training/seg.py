@@ -11,6 +11,12 @@ compute_dtype: float32, or bfloat16 as the JAX package's
 cross entropy then takes the bf16 seg map, BEACON its bf16 maps with
 float32 draws, and the gradients of the float32 parameters are float32,
 their global-norm clip too.  Metrics come back float32.
+
+group: a data-parallel process group, as in ``training/mcl.py``: global
+BN statistics, drop-connect and BEACON draws, the CE's mean over the
+global batch's pixels, BEACON's sum over the global image count, the
+gradients summed over the ranks before the clip (which sees the global
+norm), and global metrics.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 
 from muscle_tpu_torch.core.cam_norm import attach_bg_channel
 from muscle_tpu_torch.losses.beacon import FieldLossConfig, field_loss
+from muscle_tpu_torch.parallel.mesh import all_reduce_sum, batch_mean
 from muscle_tpu_torch.training.liveness import term_liveness
 from muscle_tpu_torch.training.mcl import decode_image
 from muscle_tpu_torch.training.state import batch_stats_train, minimize
@@ -62,47 +69,55 @@ def _dequant_batch(batch: dict, num_classes: int | None = None,
     return out
 
 
-def cross_entropy(seg_logits: torch.Tensor, hard_mask: torch.Tensor) -> torch.Tensor:
+def cross_entropy(seg_logits: torch.Tensor, hard_mask: torch.Tensor,
+                  group=None) -> torch.Tensor:
     """Mean over pixels of -log softmax(logits)[label]: NHWC logits, NHW
-    int labels."""
+    int labels (this rank's share of the global batch's mean with a
+    data-parallel ``group``)."""
     logp = torch.log_softmax(seg_logits, dim=-1)
-    return -torch.gather(logp, -1, hard_mask[..., None]).mean()
+    return -batch_mean(torch.gather(logp, -1, hard_mask[..., None]), group)
 
 
-def _terms(forward, batch: dict, cfg: SegConfig, generator, draws) -> dict[str, torch.Tensor]:
-    """The two loss terms from a train-mode ``forward(x, mode=...,
-    generator=...)`` on a dequantised batch."""
+def _terms(forward, batch: dict, cfg: SegConfig, generator, draws,
+           group=None) -> dict[str, torch.Tensor]:
+    """The two loss terms (this rank's shares with a ``group``) from a
+    train-mode ``forward(x, mode=..., generator=...)`` on a dequantised
+    batch."""
     seg_map, dense_ft = forward(batch["img"], mode="seg", generator=generator)
     hard_mask = torch.argmax(batch["mask"], dim=-1)
-    out = {"seg": cross_entropy(seg_map, hard_mask)}
+    out = {"seg": cross_entropy(seg_map, hard_mask, group)}
     if cfg.lamb > 0:
         flc = FieldLossConfig(num_classes=seg_map.shape[-1], k=cfg.k, step=cfg.step,
                               beta=cfg.beta)
         out["beacon"], _ = field_loss(seg_map, dense_ft, batch["mask"],
-                                      attach_bg_channel(batch["label"]), flc, generator, draws)
+                                      attach_bg_channel(batch["label"]), flc, generator, draws,
+                                      group)
     return out
 
 
 def seg_train_step(model, opt: torch.optim.Optimizer, batch: dict, cfg: SegConfig = SegConfig(),
                    generator: torch.Generator | None = None,
                    draws: torch.Tensor | None = None,
-                   compute_dtype: torch.dtype = torch.float32) -> dict[str, torch.Tensor]:
+                   compute_dtype: torch.dtype = torch.float32,
+                   group=None) -> dict[str, torch.Tensor]:
     """One step: puts ``model`` (MuSCLe, mode 'dec') in train mode, updates
     its parameters and BN statistics.  batch: img (or img_y/img_c), mask
     (N, H, W, C) soft (or packed with mask_idx), label (N, 20), on the
     model's device.  ``generator`` feeds drop-connect and BEACON's
-    sampling; draws: optional (N, C-1, H, W) BEACON scores in its place.
+    sampling; draws: optional (N, C-1, H, W) BEACON scores in its place
+    (this rank's rows with a ``group``).
     Returns the detached metrics (float32 0-d tensors): loss, loss_seg,
     loss_beacon and grad_norm (before clipping)."""
     model.train()
     t = _terms(model, _dequant_batch(batch, cfg.num_classes, compute_dtype), cfg, generator,
-               draws)
+               draws, group)
     beacon = t.get("beacon", torch.zeros((), device=t["seg"].device))
     loss = t["seg"] + cfg.lamb * beacon
-    gnorm = minimize(opt, loss, clip_norm=cfg.clip_norm)
-    return {k: v.detach().to(torch.float32) for k, v in
-            (("loss", loss), ("loss_seg", t["seg"]), ("loss_beacon", beacon),
-             ("grad_norm", gnorm))}
+    gnorm = minimize(opt, loss, clip_norm=cfg.clip_norm, group=group)
+    shares = all_reduce_sum(torch.stack([v.detach().to(torch.float32)
+                                         for v in (loss, t["seg"], beacon)]), group)
+    return dict(zip(("loss", "loss_seg", "loss_beacon"), shares.unbind()),
+                grad_norm=gnorm.detach().to(torch.float32))
 
 
 def seg_term_grad_norms(model, batch: dict, cfg: SegConfig = SegConfig(),

@@ -27,6 +27,8 @@ import os
 
 import torch
 
+from muscle_tpu_torch.parallel.mesh import all_reduce_flat
+
 
 def make_adam(params, lr: float, weight_decay: float) -> torch.optim.Adam:
     """torch.optim.Adam: L2 decay added to the gradient before the moments
@@ -61,18 +63,25 @@ def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
 
 
 def minimize(opt: torch.optim.Optimizer, loss: torch.Tensor,
-             clip_norm: float | None = None) -> torch.Tensor | None:
+             clip_norm: float | None = None, group=None) -> torch.Tensor | None:
     """One optimizer step on ``loss``.  A parameter the loss does not reach
     gets a zero gradient rather than none: optax updates every parameter
     (decay and moments included) at every step, torch.optim skips those
-    without a gradient.  clip_norm: first scale every gradient by
-    min(1, clip_norm / (g + 1e-6)), g their global norm, and return g."""
+    without a gradient.  group: a data-parallel group, ``loss`` this rank's
+    share of the global loss: the gradients are summed over the ranks (one
+    flat all-reduce per dtype; summed, not averaged as DDP does), which
+    gives every rank the global gradient, and the clip and the update then
+    run alike on every rank.  Steps A and B reach different parameters, so
+    the sum covers every parameter, reached or not.  clip_norm: first
+    scale every gradient by min(1, clip_norm / (g + 1e-6)), g their global
+    norm, and return g."""
     opt.zero_grad(set_to_none=True)
     loss.backward()
-    params = [p for group in opt.param_groups for p in group["params"]]
+    params = [p for pg in opt.param_groups for p in pg["params"]]
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    all_reduce_flat([p.grad for p in params], group)
     gnorm = None
     if clip_norm is not None:
         gnorm = torch.nn.utils.clip_grad_norm_(params, clip_norm)

@@ -56,7 +56,8 @@ def test_importing_every_module_loads_no_jax(block_pil):
               "utils.tb_events", "utils.visualize", "utils.train_vis", "cli.train_mcl",
               "core.sobel", "core.bitpack", "losses.beacon", "losses.edge_support",
               "data.transforms", "training.seg", "training.irn", "ops.affinity_labels",
-              "ops.random_walk", "models.irn", "cli.train_muscle", "cli.train_irn"):
+              "ops.random_walk", "models.irn", "cli.train_muscle", "cli.train_irn",
+              "parallel", "parallel.mesh"):
         assert "muscle_tpu_torch." + m in mods
     code = "\n".join([
         "import sys, importlib",
