@@ -2,7 +2,9 @@
 """Drive the PyTorch port's CAM-generation, IRN-refinement,
 segmentation-inference (in float32 and in bfloat16), MCL-training and
 segmentation-training (each in float32 and in bfloat16) and IRN-training
-paths on one CUDA card, and their data-parallel runs over several ranks.
+paths on one CUDA card, their data-parallel runs over several ranks, and
+its file-based CLIs (infer_mcl, the gate harness, real_run) on a
+synthetic VOC tree.
 
     python3 chip_smoke.py            # every phase, the full check
     python3 chip_smoke.py --phases build,kernels
@@ -14,6 +16,7 @@ paths on one CUDA card, and their data-parallel runs over several ranks.
     python3 chip_smoke.py --phases build,bf16,profile   # the same for the bf16 paths
     python3 chip_smoke.py --phases build,train_mcl_bf16,train_seg_bf16
     python3 chip_smoke.py --phases build,dp              # data parallelism alone
+    python3 chip_smoke.py --phases build,kernels,gates   # the CLIs and gates 4-6
 
 Phases:
   build    compile every CUDA kernel of the paths from the checkout
@@ -24,7 +27,10 @@ Phases:
            TTA scales 1 and 2, B = 16, with and without windows; bounds
            on the f32 pipes and with the products on the tensor cores) and
            at the 9 b7 seg shapes (square seg canvases of scales 1 and
-           1.75, B = 8, with and without windows); the
+           1.75, B = 8, with and without windows) and at the 14 b1
+           shapes of the gates phase's evals (enc's 11, dec's 3 on its
+           stride-32 grid; 64 x 64 canvas, B = 8, windowed to the quick
+           tier's four images); the
            stencil walk at B = 8, C = 20, 64 steps on the 128/96/64 walk
            grids (the 512/384/256 buckets) and a 375x500 image's own
            94x125 grid, beside 64 sparse CSR products (torch.sparse.mm,
@@ -157,6 +163,22 @@ Phases:
            propagate_to_edge_sharded at grid 128 (V 16384, T 1 GiB, V / W
            columns a rank), 64 steps, against the one-card dense walk
            (1e-5 of its largest value);
+  gates    the port's CLIs as a user runs them, each its own process
+           (python -m), on a synthetic VOC tree (gates.build_synthetic_voc)
+           of 16 images of 375-500 px: prints PIL.__version__; infer_mcl at
+           its defaults (b3, seeded random weights, --fast 1, the stride-1
+           blocks through the MBConv kernel: 23 launches per forward,
+           images/s); cli.gates --synthetic --quick --gates 4,5,6 (MCL and
+           seg memorisation through train_mcl and train_muscle, convergence
+           in-process, b1 at crop 64 on the gate CLI's own small tree),
+           every row passed, each gate's seconds and the MBConv launches
+           of the trainers' and gate 6's evals; and cli.real_run --stages
+           seg,eval with a seeded random b7 + BiFPN 3 x 256 at its
+           defaults (six scales x flip, the CRF on the card): one PNG per
+           image, mIoU finite in [0, 100], 48 MBConv launches per forward,
+           images/s and the CRF's ms per image.  Each CLI reports its own
+           kernel counts (its process starts at 0), summed into
+           launches_gates;
   profile  (not run by default) device time by kernel name over --fast 0
            CAM batches, with and without the MBConv kernel, over IRN
            batches with the stencil kernel, and over one seg batch, and
@@ -195,6 +217,26 @@ B3_BLOCKS = {
     "_blocks_19": (16, 232, 232, 6, 5),
     "_blocks_24": (16, 232, 384, 6, 3),
     "_blocks_25": (16, 384, 384, 6, 3),
+}
+# b1 stride-1 blocks of the gates phase's evals, one per shape: gate 6's
+# CAM engine and the trainers' epoch-end evals (enc, last_pooling=False),
+# and gate 6's seg engine (dec, last_pooling=True: blocks 0-15 as enc's,
+# 17-22 on a stride-32 grid, 2 x 2 on the 64 x 64 canvas)
+B1_BLOCKS = {
+    "_blocks_0": (2, 32, 16, 1, 3),
+    "_blocks_1": (2, 16, 16, 1, 3),
+    "_blocks_3": (4, 24, 24, 6, 3),
+    "_blocks_6": (8, 40, 40, 6, 5),
+    "_blocks_9": (16, 80, 80, 6, 3),
+    "_blocks_12": (16, 80, 112, 6, 5),
+    "_blocks_13": (16, 112, 112, 6, 5),
+    "_blocks_16": (16, 112, 192, 6, 5),
+    "_blocks_17": (16, 192, 192, 6, 5),
+    "_blocks_21": (16, 192, 320, 6, 3),
+    "_blocks_22": (16, 320, 320, 6, 3),
+    "dec_blocks_17": (32, 192, 192, 6, 5),
+    "dec_blocks_21": (32, 192, 320, 6, 3),
+    "dec_blocks_22": (32, 320, 320, 6, 3),
 }
 # b7 stride-1 blocks of the seg path (last_pooling=True), one per shape
 B7_BLOCKS = {
@@ -344,6 +386,17 @@ DP_SHARED_RANKS, DP_MAX_RANKS = 2, 4
 DP_CHECK_BATCH, DP_MCL_BATCH, DP_SEG_PER_RANK, DP_ITERS = 4, 16, 3, 2
 DP_CAM_BATCHES, DP_SEG_BATCHES, DP_WALK_GRID = 2, 1, 128
 DP_LOSS_RTOL, DP_WALK_RTOL = 1e-4, 1e-5
+# gates phase: the port's CLIs as a user runs them, each its own process
+# (python -m): infer_mcl at its defaults (b3, fused) and real_run's seg and
+# eval stages (b7 + BiFPN 3, six scales x flip, CRF) on a synthetic VOC
+# tree of 16 full-size images (the JAX harness's four sizes, four times),
+# and the gate CLI's quick tier of gates 4, 5 and 6 on its own small tree
+# (b1, crop 64); every gate row must pass.  MBConv launches per forward:
+# b3's 23 stride-1 blocks (infer_mcl), b7's 48 (the seg stage)
+GATES_FULL_SIZES = [(375, 500), (500, 375), (333, 500), (500, 500)] * 4
+GATES_QUICK_SIZES = [(48, 64), (64, 48), (42, 64), (64, 64)]
+GATES_B3_PER_FORWARD, GATES_B7_PER_FORWARD = 23, 48
+GATES_CLI_TIMEOUT = 600
 
 
 def log(msg: str) -> None:
@@ -410,24 +463,27 @@ def _random_block(cin, cout, expand, k, gen, device):
     return block.eval().to(device)
 
 
-def _windows(stride: int, scale: float, device, batch: int = TTA_BATCH):
+def _windows(stride: int, scale: float, device, batch: int = TTA_BATCH,
+             sizes=(VOC_HW, (300, 400))):
     """(B, 4) windows of a TTA batch of ``batch`` versions at a block's
-    grid: images of 500x375 and 400x300, scaled, through the floor chain."""
+    grid: images of ``sizes`` (h, w) in turn (500x375 and 400x300 by
+    default), scaled, through the floor chain."""
     import torch
 
     rows = []
     for i in range(batch // 2):
-        h, w = VOC_HW if i % 2 == 0 else (300, 400)
+        h, w = sizes[i % len(sizes)]
         h, w = round(h * scale), round(w * scale)
         rows += [[0, 0, h // stride, w // stride]] * 2
     return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
-def _check_mbconv(blocks: dict, batch: int, scales, canvas) -> dict:
+def _check_mbconv(blocks: dict, batch: int, scales, canvas,
+                  sizes=(VOC_HW, (300, 400))) -> dict:
     """The MBConv kernel at ``blocks``' shapes on ``batch`` versions at each
-    scale's ``canvas(scale)`` (h, w), held to its plain version; returns
-    the sums over the windowed calls (the main paths' calls are
-    windowed)."""
+    scale's ``canvas(scale)`` (h, w), windowed to images of ``sizes``, held
+    to its plain version; returns the sums over the windowed calls (the
+    main paths' calls are windowed)."""
     import torch
 
     from muscle_tpu_torch.ops import mbconv as M
@@ -447,7 +503,7 @@ def _check_mbconv(blocks: dict, batch: int, scales, canvas) -> dict:
             h, w = ch // stride, cw // stride
             x = torch.randn((batch, h, w, cin), generator=xgen, device=dev)
             for windowed in (False, True):
-                win = _windows(stride, scale, dev, batch) if windowed else None
+                win = _windows(stride, scale, dev, batch, sizes) if windowed else None
                 before = M.mbconv_stride1.launches
                 with torch.inference_mode():
                     got = M.mbconv_stride1(x, wd, win, **kw)
@@ -746,11 +802,16 @@ def phase_kernels() -> dict:
     b3_raw = _check_mbconv(B3_BLOCKS, TTA_BATCH, (1.0, 2.0), b3_canvas)
     b7_raw = _check_mbconv(B7_BLOCKS, SEG_BATCH, (1.0, 1.75), b7_canvas)
     b3, b7 = summary(b3_raw), summary(b7_raw)
+    # gate 6's evals: 4 images of the quick tier's tree x (orig, flip) on
+    # its 64 x 64 canvas at scale 1
+    b1 = summary(_check_mbconv(B1_BLOCKS, 2 * len(GATES_QUICK_SIZES), (1.0,),
+                               lambda s: (64, 64), GATES_QUICK_SIZES))
     b3_16 = summary_bf16(_check_mbconv_bf16(B3_BLOCKS, TTA_BATCH, (1.0, 2.0), b3_canvas,
                                             b3_raw["shape_ms"]))
     b7_16 = summary_bf16(_check_mbconv_bf16(B7_BLOCKS, SEG_BATCH, (1.0, 1.75), b7_canvas,
                                             b7_raw["shape_ms"]))
     print(json.dumps({"mbconv_b3_cam_windowed_total": b3, "mbconv_b7_seg_windowed_total": b7,
+                      "mbconv_b1_gates_windowed_total": b1,
                       "mbconv_bf16_b3_cam_windowed_total": b3_16,
                       "mbconv_bf16_b7_seg_windowed_total": b7_16}), flush=True)
     stencil = _check_stencil()[STENCIL_GRIDS[0]]
@@ -758,8 +819,9 @@ def phase_kernels() -> dict:
     _check_edges()
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
-        "mbconv_stride1": {**b3, "max_abs_err": max(b3["max_abs_err"], b7["max_abs_err"]),
-                           "library_ms": None, "b7_seg": b7},
+        "mbconv_stride1": {**b3, "max_abs_err": max(b3["max_abs_err"], b7["max_abs_err"],
+                                                    b1["max_abs_err"]),
+                           "library_ms": None, "b7_seg": b7, "b1_gates": b1},
         "mbconv_bf16": {**b3_16, "max_abs_err": max(b3_16["max_abs_err"], b7_16["max_abs_err"]),
                         "max_rel_err": max(b3_16["max_rel_err"], b7_16["max_rel_err"]),
                         "library_ms": None, "b7_seg": b7_16},
@@ -3194,11 +3256,137 @@ def phase_dp(card: str) -> dict:
     return out
 
 
+def _cli(tag: str, module: str, *args: str) -> dict:
+    """Run ``python -m <module> <args>`` from the repository's root and
+    return the JSON object of its last stdout line; a non-zero exit fails
+    the phase with the tail of its stderr."""
+    import os
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", module, *args], capture_output=True, text=True,
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         timeout=GATES_CLI_TIMEOUT)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"{tag}: {module} exited {res.returncode}:\n{res.stderr[-4000:]}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    log(f"{tag}: {secs:.1f} s of command time")
+    return {"result": out, "command_seconds": secs, "stdout": res.stdout}
+
+
+def phase_gates(card: str) -> dict:
+    """The port's file-based CLIs on the card (module docstring, phase
+    gates); one {"gates_phase": ...} line.  Each CLI runs in its own
+    process, whose kernel counts start at 0 and which reports them at its
+    end: infer_mcl and infer_seg in their last line
+    (``cli/common.RunStats``), gates 4, 5 and 6 in their rows."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import PIL
+    import torch
+
+    from muscle_tpu_torch.gates import build_synthetic_voc
+    from muscle_tpu_torch.models import MuSCLe, init_weights
+
+    print(json.dumps({"gates_phase": {"PIL": PIL.__version__}}), flush=True)
+    out = {"card": card, "PIL": PIL.__version__}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "voc")
+        names = build_synthetic_voc(root, sizes=GATES_FULL_SIZES)
+        voc = ["--voc12_root", root, "--cls_labels", os.path.join(root, "cls_labels.npy")]
+        lst = os.path.join(root, "list.txt")
+        out["tree_seconds"] = time.perf_counter() - t0
+
+        # infer_mcl at its defaults: a seeded random b3
+        b3 = init_weights(MuSCLe(backbone_name="efficientnet-b3", mode="enc",
+                                 last_pooling=False), torch.Generator().manual_seed(0))
+        torch.save(b3.state_dict(), os.path.join(tmp, "b3.pth"))
+        del b3
+        cams = os.path.join(tmp, "cams")
+        run = _cli("infer_mcl", "muscle_tpu_torch.cli.infer_mcl", "--weights",
+                   os.path.join(tmp, "b3.pth"), "--infer_list", lst, "--out_npy", cams, *voc)
+        r = run["result"]
+        written = sorted(f[:-4] for f in os.listdir(cams + "_sgc"))
+        finite = all(np.isfinite(m.astype(np.float32)).all()
+                     for n in names for m in np.load(os.path.join(cams + "_sgc", n + ".npy"),
+                                                     allow_pickle=True).item().values())
+        out["infer_mcl"] = {**r, "command_seconds": run["command_seconds"],
+                            "launches_per_image": r["mbconv_launches"] / r["images"]}
+        print(json.dumps({"gates_phase": {"infer_mcl": out["infer_mcl"]}}), flush=True)
+        if not (r["images"] == len(names) and written == sorted(names) and finite
+                and r["mbconv_launches"] > 0
+                and r["mbconv_launches"] == GATES_B3_PER_FORWARD * r["backbone_forwards"]):
+            raise AssertionError(f"infer_mcl: {r}, {len(written)} npys, finite {finite}")
+
+        # gates 4, 5 and 6 at the quick tier
+        gdir = os.path.join(tmp, "gates")
+        run = _cli("gates", "muscle_tpu_torch.cli.gates", "--synthetic", "--quick", "--gates",
+                   "4,5,6", "--device", "cuda", "--out_dir", gdir)
+        with open(os.path.join(gdir, "gates_report.json")) as f:
+            rows = json.load(f)
+        for row in rows:
+            print(json.dumps({"gates_phase": {"gate": row}}), flush=True)
+        by = {row["gate"]: row for row in rows}
+        g6 = by.get("6_convergence", {}).get("mbconv_launches", {})
+        out["gates"] = {"command_seconds": run["command_seconds"],
+                        "seconds": {k: v["seconds"] for k, v in by.items()},
+                        "passed": {k: v["passed"] for k, v in by.items()},
+                        "gate6_mbconv_launches": g6,
+                        "mbconv_launches": sum(
+                            v["mbconv_launches"] if isinstance(v["mbconv_launches"], int)
+                            else sum(v["mbconv_launches"].values())
+                            for v in rows if "mbconv_launches" in v)}
+        print(json.dumps({"gates_phase": {"gates": out["gates"]}}), flush=True)
+        want = {"4_train_mcl_memorise", "5_train_muscle_memorise", "6_convergence",
+                "quick_tier_budget"}
+        if set(by) != want or not all(v["passed"] for v in rows):
+            raise AssertionError(f"gates: {[(k, v['passed']) for k, v in by.items()]}")
+        evals = [by["4_train_mcl_memorise"]["mbconv_launches"],
+                 by["5_train_muscle_memorise"]["mbconv_launches"],
+                 g6.get("cam_eval", 0), g6.get("seg_eval", 0)]
+        if not all(n > 0 for n in evals):
+            raise AssertionError(f"gates: MBConv launches in the evals {evals}, want each > 0")
+
+        # real_run's seg and eval stages: a seeded random b7 + BiFPN 3
+        b7 = _seg_model(0)
+        torch.save({k: v.detach().cpu().clone() for k, v in b7.state_dict().items()},
+                   os.path.join(tmp, "b7.pth"))
+        del b7
+        torch.cuda.empty_cache()
+        rdir = os.path.join(tmp, "real_run")
+        run = _cli("real_run", "muscle_tpu_torch.cli.real_run", "--list", lst, "--seg_weights",
+                   os.path.join(tmp, "b7.pth"), "--out_dir", rdir, "--stages", "seg,eval", *voc)
+        seg, ev = run["result"]["seg"], run["result"]["eval"]
+        pngs = sorted(f[:-4] for f in os.listdir(os.path.join(rdir, "seg")))
+        out["real_run"] = {**seg, **{"mIoU": ev["mIoU"], "eval_seconds": ev["seconds"]},
+                           "command_seconds": run["command_seconds"],
+                           "launches_per_forward": seg["mbconv_launches"]
+                           / max(seg["backbone_forwards"], 1)}
+        print(json.dumps({"gates_phase": {"real_run": out["real_run"]}}), flush=True)
+        if not (pngs == sorted(names) and seg["pngs"] == len(names)
+                and np.isfinite(ev["mIoU"]) and 0.0 <= ev["mIoU"] <= 100.0
+                and seg["backbone_forwards"] > 0
+                and seg["mbconv_launches"] == GATES_B7_PER_FORWARD * seg["backbone_forwards"]):
+            raise AssertionError(f"real_run: {out['real_run']}, {len(pngs)} PNGs")
+    out["launches"] = {
+        "mbconv_stride1": (out["infer_mcl"]["mbconv_launches"] + out["gates"]["mbconv_launches"]
+                           + out["real_run"]["mbconv_launches"]),
+        "mbconv_bf16": (out["infer_mcl"]["mbconv_launches_bf16"]
+                        + out["real_run"]["mbconv_launches_bf16"]),
+        # no stage of this phase walks: infer_irn and gate 3 are not in it
+        "stencil_walk": 0, "banded_walk": 0}
+    print(json.dumps({"gates_phase": {"launches": out["launches"]}}), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--phases",
                    default="build,kernels,main,irn,seg,bf16,train_mcl,train_seg,train_irn,"
-                           "train_mcl_bf16,train_seg_bf16,dp")
+                           "train_mcl_bf16,train_seg_bf16,dp,gates")
     args = p.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -3241,6 +3429,7 @@ def main(argv=None) -> int:
     mcl_bf16_out = run("train_mcl_bf16", phase_train_mcl_bf16, card)
     seg_bf16_out = run("train_seg_bf16", phase_train_seg_bf16, card)
     dp_out = run("dp", phase_dp, card)
+    gates_out = run("gates", phase_gates, card)
     run("profile", phase_profile, 4, "bf16" in phases)
 
     print(card, flush=True)  # again beside the results, for readers of the output's tail
@@ -3281,6 +3470,8 @@ def main(argv=None) -> int:
                 run_name: {eng: [cnt[e["name"]] for cnt in r["serve"][eng]["counts_per_rank"]]
                            for eng in ("cam", "seg")}
                 for run_name, r in dp_out.items() if isinstance(r, dict)}
+        for e in entries:  # the CLIs' launches in the gates phase (its subprocesses')
+            e["launches_gates"] = gates_out["launches"][e["name"]] if gates_out else None
         print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

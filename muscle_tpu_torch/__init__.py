@@ -46,8 +46,11 @@ inference   CamTTAEngine, RandomWalkRefiner, SegTTAEngine, the transfers and
             device-side upload unpackers
 evaluation  vectorised mIoU with threshold sweep
 cli         infer_mcl, evaluate, infer_irn, infer_seg, cam_to_label, train_mcl,
-            train_muscle, train_irn
+            train_muscle, train_irn, gates, real_run
 convert     state dicts from the JAX package's variables or reference .pth
+gates       the fidelity-gate harness: the synthetic mini-VOC, the gates
+            against the PyTorch reference oracle, the memorisation and
+            convergence gates
 """
 
 __version__ = "0.1.0"

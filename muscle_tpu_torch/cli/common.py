@@ -99,6 +99,54 @@ def load_model_state(weights: str | None, model) -> None:
     load_into(model, keep)
 
 
+class RunStats:
+    """What an inference CLI's run did, from construction on: the wall
+    seconds, the backbone's forward calls (a hook on ``backbone``) and the
+    MBConv kernel's launches (its wrapper's counts).  ``tick(done)`` after
+    each batch keeps the first batch's seconds apart (its canvases' first
+    convolutions, the kernels' weight folds).  ``summary`` prints and
+    returns them as one JSON line, which is how a caller in another
+    process reads them."""
+
+    def __init__(self, backbone, device):
+        import time
+
+        import torch
+
+        from muscle_tpu_torch.ops.mbconv import mbconv_stride1
+
+        self._sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" \
+            else (lambda: None)
+        self._counts = lambda: (mbconv_stride1.launches, mbconv_stride1.launches_bf16)
+        self._start = self._counts()
+        self.forwards = 0
+        backbone.register_forward_hook(lambda *_: setattr(self, "forwards", self.forwards + 1))
+        self._clock = time.perf_counter
+        self._t0 = self._clock()
+        self._first = (0, 0.0)  # (images, seconds) at the first batch's end
+
+    def tick(self, done: int) -> None:
+        if not self._first[0]:
+            self._first = (done, self._clock() - self._t0)
+
+    def summary(self, images: int, **extra) -> dict:
+        import json
+
+        self._sync()
+        secs = self._clock() - self._t0
+        f32, bf16 = (now - was for now, was in zip(self._counts(), self._start))
+        n1, s1 = self._first
+        rec = {"images": images, "seconds": secs,
+               "images_per_s": images / secs if secs > 0 else None,
+               "first_batch_images": n1, "first_batch_seconds": s1,
+               "images_per_s_after_first": (images - n1) / (secs - s1)
+               if images > n1 and secs > s1 else None,
+               "backbone_forwards": self.forwards, "mbconv_launches": f32,
+               "mbconv_launches_bf16": bf16, **extra}
+        print(json.dumps(rec), flush=True)
+        return rec
+
+
 def sort_by_orientation(names: list[str], voc12_root: str) -> list[str]:
     """Stable-sort an inference list landscape-first (header-only PIL
     reads), so batches are orientation-homogeneous and the TTA engine's

@@ -1,8 +1,13 @@
-"""CAM generation CLI (port of ``muscle_tpu/cli/infer_mcl.py``, same flags
-without --spatial, plus --fuse_mbconv and --device).
+"""CAM generation CLI (port of ``muscle_tpu/cli/infer_mcl.py``, same flags,
+plus --fuse_mbconv and --device).
 
 Writes {class_idx: (H, W) float16} npy dicts of the SGC maps into
-<out_npy>_sgc/ (and the raw CAMs into <out_npy>/ with --save_cam 1).
+<out_npy>_sgc/ (and the raw CAMs into <out_npy>/ with --save_cam 1), and
+last one JSON line of the run's numbers (``common.RunStats``: images,
+seconds, images/s, backbone forwards, MBConv kernel launches).
+
+The stride-1 MBConv blocks run through the MBConv CUDA kernel by default
+(--fuse_mbconv 384), where the JAX CLI never fuses.
 
 Data parallel, one rank per card, as the JAX CLI shards each batch over
 all local chips::
@@ -21,6 +26,7 @@ import os
 import numpy as np
 
 from muscle_tpu_torch.cli.common import (
+    RunStats,
     add_voc_args,
     load_lists,
     load_model_state,
@@ -30,7 +36,7 @@ from muscle_tpu_torch.cli.common import (
 from muscle_tpu_torch.data.voc12 import get_img_path
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
     p = argparse.ArgumentParser()
     p.add_argument("--weights", type=str, required=True)
     p.add_argument("--infer_list", default="data/train.txt", type=str)
@@ -45,12 +51,22 @@ def main(argv=None) -> None:
     p.add_argument("--fast", default=1, type=int,
                    help="1 = fast mode (K-class gather, stride-4 fusion grid + uint8 "
                         "download, tight ycbcr420 upload); 0 = full-res f16")
-    p.add_argument("--fuse_mbconv", default=0, type=int,
-                   help="run stride-1 MBConv blocks with <= N input channels through "
-                        "the MBConv CUDA kernel (0 = none; 384 = all of b3's)")
+    p.add_argument("--spatial", default=0, type=int,
+                   help="sharding image height over several devices: not ported (0 and 1 "
+                        "run one engine per process; torchrun shards the batch over cards)")
+    p.add_argument("--fuse_mbconv", default=384, type=int,
+                   help="run stride-1 MBConv blocks with <= N input channels through the "
+                        "MBConv CUDA kernel (384 = all of b3's, the default; 0 = none).  "
+                        "The JAX CLI never fuses: its Pallas kernel lost to XLA on the "
+                        "TPU, while on an H100 the CUDA kernel pays (50.4 against 31.4 "
+                        "images/s at --fast 1, chip_smoke.py, PERF.md)")
     p.add_argument("--device", default="cuda", type=str, help="cuda or cpu")
     add_voc_args(p)
     args = p.parse_args(argv)
+    if args.spatial > 1:
+        raise NotImplementedError("--spatial (height sharding over several devices) is not "
+                                  "ported: launch with torchrun --nproc_per_node=<cards> to "
+                                  "shard each batch over the cards")
 
     from PIL import Image
 
@@ -91,11 +107,13 @@ def main(argv=None) -> None:
     def load(chunk):
         return [Image.open(get_img_path(n, args.voc12_root)).convert("RGB") for n in chunk]
 
+    stats = RunStats(model.backbone, engine.device)
     done, tag = 0, f"rank {rank(group)}: " if group is not None else ""
     if args.exact:
         for chunk, imgs in prefetch_chunks(names, args.batch_size, load, group=group):
             save(engine.run_batch_exact(imgs, chunk, [labels[n] for n in chunk]))
             done += len(chunk)
+            stats.tick(done)
             print(f"{tag}{done}/{len(names)}")
     else:
         def batches():
@@ -105,8 +123,10 @@ def main(argv=None) -> None:
         for records in engine.run_stream(batches()):
             save(records)
             done += len(records)
+            stats.tick(done)
             print(f"{tag}{done}/{len(names)}")
     shutdown(group)
+    return stats.summary(done)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Segmentation inference CLI (port of ``muscle_tpu/cli/infer_seg.py``, same
 flags without --spatial, plus --fuse_mbconv and --device): 6-scale x flip
 TTA with MuSCLe in dec mode, optional class gating and dense CRF, argmax
-PNGs into --out_seg.
+PNGs into --out_seg, and last one JSON line of the run's numbers
+(``common.RunStats``, with the CRF's ms per image).
 
 Data parallel, one rank per card (``torchrun --nproc_per_node=<cards> -m
 muscle_tpu_torch.cli.infer_seg ...``): each rank runs its own engine (the
@@ -14,10 +15,12 @@ from __future__ import annotations
 
 import argparse
 import os
+import time
 
 import numpy as np
 
 from muscle_tpu_torch.cli.common import (
+    RunStats,
     add_voc_args,
     load_lists,
     load_model_state,
@@ -27,7 +30,7 @@ from muscle_tpu_torch.cli.common import (
 from muscle_tpu_torch.data.voc12 import get_img_path
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
     p = argparse.ArgumentParser()
     p.add_argument("--weights", type=str, required=True)
     p.add_argument("--infer_list", default="data/val.txt", type=str)
@@ -91,6 +94,8 @@ def main(argv=None) -> None:
         if args.out_seg:
             Image.fromarray(pred).save(os.path.join(args.out_seg, name + ".png"))
 
+    crf_s = [0.0]
+
     def postprocess(imgs, records):
         for img, rec in zip(imgs, records):
             if labels_out:
@@ -98,6 +103,7 @@ def main(argv=None) -> None:
                 continue
             probs = rec["probs"]
             if args.crf:
+                t0 = time.perf_counter()  # the .cpu() below waits for the card
                 orig = np.array(img)
                 if args.crf_backend == "native":
                     from muscle_tpu_torch.ops.exact_crf import dense_crf
@@ -107,6 +113,7 @@ def main(argv=None) -> None:
                     probs = mean_field_crf(torch.from_numpy(probs).to(engine.device),
                                            torch.from_numpy(orig).to(engine.device),
                                            t=4).cpu().numpy()
+                crf_s[0] += time.perf_counter() - t0
             save(rec["name"], np.argmax(probs, axis=-1).astype(np.uint8))
 
     def load(chunk):
@@ -117,6 +124,7 @@ def main(argv=None) -> None:
                      for n in chunk]
         return imgs, gates
 
+    stats = RunStats(model.backbone, engine.device)
     done, tag = 0, f"rank {rank(group)}: " if group is not None else ""
     if args.fast:
         img_fifo = []
@@ -130,13 +138,17 @@ def main(argv=None) -> None:
         for records in engine.run_stream(batches()):
             postprocess(img_fifo.pop(0), records)
             done += len(records)
+            stats.tick(done)
             print(f"{tag}{done}/{len(names)}")
     else:
         for chunk, (imgs, gates) in prefetch_chunks(names, args.batch_size, load, group=group):
             postprocess(imgs, engine.run_batch(imgs, chunk, gates))
             done += len(chunk)
+            stats.tick(done)
             print(f"{tag}{done}/{len(names)}")
     shutdown(group)
+    return stats.summary(done, crf_ms_per_image=1e3 * crf_s[0] / done
+                         if args.crf and not labels_out and done else None)
 
 
 if __name__ == "__main__":

@@ -6,13 +6,16 @@ Curriculum (the reference's): epochs 0-3 the classification losses only
 epoch 12.  At each epoch's end: a checkpoint (``model_<ep>.pth`` and the
 full state ``step_<ep>.pt``), the rapid CAM eval over background
 thresholds 0.20-0.50, and ReduceLROnPlateau on its best mIoU.  The model
-trains with the plain MBConv blocks under autograd (``fuse_mbconv=0``, as
-the JAX trainer does), in float32 with TF32 off, or with --bf16 1 in
-bfloat16 on float32 parameters as the JAX package's
-``MuSCLe(dtype=jnp.bfloat16)`` does: a fresh classifier kernel starts in
-bf16 (``models.classifier_as``; a checkpoint's ``fc.weight`` replaces it
-in its own dtype) and the first Adam step promotes it to float32
-(``training/state.py``); the epoch-end eval runs the CAM engine in bf16.
+trains with the plain MBConv blocks under autograd, as the JAX trainer
+does: it is built with ``fuse_mbconv=384``, a block fuses only in
+inference, so the epoch-end eval alone runs the stride-1 blocks through
+the MBConv kernel, as ``train_muscle``'s eval does.  It trains in float32
+with TF32 off, or with --bf16 1 in bfloat16 on float32 parameters as the
+JAX package's ``MuSCLe(dtype=jnp.bfloat16)`` does: a fresh classifier
+kernel starts in bf16 (``models.classifier_as``; a checkpoint's
+``fc.weight`` replaces it in its own dtype) and the first Adam step
+promotes it to float32 (``training/state.py``); the epoch-end eval runs
+the CAM engine in bf16.
 
 Data parallel, one rank per card, as the JAX CLI trains over all local
 chips::
@@ -122,7 +125,7 @@ def main(argv=None) -> None:
                             num_threads=args.num_workers, rank=(rank(group), world(group)))
 
     model = MuSCLe(num_classes=args.num_classes, backbone_name=args.backbone,
-                   bifpn_layers=3, mode="enc", last_pooling=False, fuse_mbconv=0)
+                   bifpn_layers=3, mode="enc", last_pooling=False, fuse_mbconv=384)
     classifier_as(model, dtype)
     load_model_state(args.weights, model)
     model.to(device)

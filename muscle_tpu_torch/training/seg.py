@@ -123,10 +123,12 @@ def seg_train_step(model, opt: torch.optim.Optimizer, batch: dict, cfg: SegConfi
 def seg_term_grad_norms(model, batch: dict, cfg: SegConfig = SegConfig(),
                         generator: torch.Generator | None = None,
                         draws: torch.Tensor | None = None, return_values: bool = False,
-                        compute_dtype: torch.dtype = torch.float32):
-    """Per-term gradient norms of 'seg' (CE) and 'beacon' over the model's
-    trained parameters (``training/liveness.py``), from one train-mode
-    forward whose BN statistics are not updated.
+                        compute_dtype: torch.dtype = torch.float32, method: str = "jacrev"):
+    """Per-term liveness of 'seg' (CE) and 'beacon' over the model's
+    trained parameters (``training/liveness.py``): gradient norms
+    ('jacrev') or |directional derivatives| along seeded random tangents
+    ('jvp'), from one train-mode forward whose BN statistics are not
+    updated.
     return_values: also the terms' values, which tell a dead path (value
     nonzero, liveness 0) from BEACON not engaged on the batch (value 0:
     no class had more than k valid boundary pixels).  Parameters,
@@ -142,7 +144,7 @@ def seg_term_grad_norms(model, batch: dict, cfg: SegConfig = SegConfig(),
         return torch.stack([d[k] for k in keys])
 
     with batch_stats_train(model):
-        values, vals = term_liveness(stacked, len(keys), params)
+        values, vals = term_liveness(stacked, len(keys), params, method)
     norms = {k: float(v) for k, v in zip(keys, vals)}
     if return_values:
         return norms, {k: float(v) for k, v in zip(keys, values)}

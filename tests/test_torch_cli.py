@@ -167,3 +167,53 @@ def test_load_model_state_rules(checkpoint, tmp_path):
             assert torch.equal(v, sd[k]), k
     with pytest.raises(ValueError, match="unrecognised"):
         load_model_state(str(tmp_path / "model.bin"), model)
+
+
+def test_infer_mcl_fuses_b3_stride1_blocks_by_default(mini_voc, tmp_path, monkeypatch):
+    """At its default flags infer_mcl runs every stride-1 block of b3 (23
+    of 26) through the MBConv kernel's wrapper (its plain version on the
+    CPU), once per forward, and reports the run's forwards."""
+    import muscle_tpu_torch.models.efficientnet as eff
+
+    root, names = mini_voc
+    calls = []
+    wrapper = eff.mbconv_stride1
+
+    def counted(x, *a, **kw):
+        calls.append(x.shape[-1])
+        return wrapper(x, *a, **kw)
+
+    monkeypatch.setattr(eff, "mbconv_stride1", counted)
+    empty = tmp_path / "random.pth"  # no keys: the model keeps its random init
+    torch.save({}, empty)
+    run = infer_mcl.main(["--weights", str(empty), "--infer_list", str(root / "list.txt"),
+                          "--voc12_root", str(root), "--cls_labels",
+                          str(root / "cls_labels.npy"), "--scales", "1", "--device", "cpu",
+                          "--num_workers", "1"])
+    blocks, _ = eff.efficientnet_config("efficientnet-b3", last_pooling=False)
+    stride1 = [a.input_filters for a in blocks if a.stride == 1]
+    assert len(blocks) == 26 and len(stride1) == 23
+    assert run["images"] == len(names) and run["backbone_forwards"] == 1
+    assert calls == stride1 * run["backbone_forwards"]
+    assert run["mbconv_launches"] == 0  # the CPU runs the plain version: no launch
+
+
+@pytest.mark.parametrize("spatial", [0, 1])
+def test_infer_mcl_accepts_spatial_0_and_1(mini_voc, checkpoint, tmp_path, spatial):
+    """--spatial 0 (the JAX CLI's default) and 1 run one engine, as the
+    JAX CLI does below 2; the maps equal the run without the flag."""
+    root, names = mini_voc
+    ckpt, _ = checkpoint
+    infer_mcl.main(_cli_args(root, ckpt, tmp_path / "plain"))
+    infer_mcl.main(_cli_args(root, ckpt, tmp_path / "flag", "--spatial", str(spatial)))
+    for n in names:
+        a = np.load(tmp_path / "plain_sgc" / f"{n}.npy", allow_pickle=True).item()
+        b = np.load(tmp_path / "flag_sgc" / f"{n}.npy", allow_pickle=True).item()
+        assert a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def test_infer_mcl_rejects_spatial_above_1(mini_voc, checkpoint, tmp_path):
+    root, _ = mini_voc
+    ckpt, _ = checkpoint
+    with pytest.raises(NotImplementedError, match="spatial"):
+        infer_mcl.main(_cli_args(root, ckpt, tmp_path / "x", "--spatial", "2"))

@@ -53,10 +53,27 @@ def _log(logs):
     return [json.loads(line) for line in (logs / "metrics.jsonl").read_text().splitlines()]
 
 
-def test_train_mcl_epoch_resume_and_infer(mini_voc, tmp_path):
+def test_train_mcl_epoch_resume_and_infer(mini_voc, tmp_path, monkeypatch):
+    import muscle_tpu_torch.models.efficientnet as eff
+
     root, names = mini_voc
     session, logs = tmp_path / "session", tmp_path / "logs"
+    # the epoch-end eval alone calls the MBConv kernel's wrapper (its plain
+    # version on the CPU): every stride-1 block of b1, once a forward
+    calls = []
+    wrapper = eff.mbconv_stride1
+
+    def counted(x, *a, **kw):
+        assert not torch.is_grad_enabled()
+        calls.append(x.shape[-1])
+        return wrapper(x, *a, **kw)
+
+    monkeypatch.setattr(eff, "mbconv_stride1", counted)
     train_mcl.main(_args(root, session, logs, "--max_epoches", "1"))
+    blocks, _ = eff.efficientnet_config("efficientnet-b1", last_pooling=False)
+    stride1 = [a.input_filters for a in blocks if a.stride == 1]
+    forwards = len(calls) // len(stride1)
+    assert forwards >= 1 and calls == stride1 * forwards
     assert (session / "model_0.pth").exists() and (session / "step_0.pt").exists()
     recs = _log(logs)
     assert [r["step"] for r in recs] == [1, 2]  # 4 images, batch 2: step A only

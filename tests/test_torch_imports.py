@@ -57,7 +57,7 @@ def test_importing_every_module_loads_no_jax(block_pil):
               "core.sobel", "core.bitpack", "losses.beacon", "losses.edge_support",
               "data.transforms", "training.seg", "training.irn", "ops.affinity_labels",
               "ops.random_walk", "models.irn", "cli.train_muscle", "cli.train_irn",
-              "parallel", "parallel.mesh"):
+              "parallel", "parallel.mesh", "gates", "cli.gates", "cli.real_run"):
         assert "muscle_tpu_torch." + m in mods
     code = "\n".join([
         "import sys, importlib",
