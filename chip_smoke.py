@@ -2,8 +2,9 @@
 """Drive the PyTorch port's CAM-generation, IRN-refinement,
 segmentation-inference (in float32 and in bfloat16), MCL-training and
 segmentation-training (each in float32 and in bfloat16) and IRN-training
-paths on one CUDA card, their data-parallel runs over several ranks, and
-its file-based CLIs (infer_mcl, the gate harness, real_run) on a
+paths on one CUDA card, their data-parallel runs over several ranks, the
+CAM and seg engines with one image's height split over several ranks,
+and its file-based CLIs (infer_mcl, the gate harness, real_run) on a
 synthetic VOC tree.
 
     python3 chip_smoke.py            # every phase, the full check
@@ -16,6 +17,7 @@ synthetic VOC tree.
     python3 chip_smoke.py --phases build,bf16,profile   # the same for the bf16 paths
     python3 chip_smoke.py --phases build,train_mcl_bf16,train_seg_bf16
     python3 chip_smoke.py --phases build,dp              # data parallelism alone
+    python3 chip_smoke.py --phases build,spatial         # spatial sharding alone
     python3 chip_smoke.py --phases build,kernels,gates   # the CLIs and gates 4-6
 
 Phases:
@@ -43,7 +45,11 @@ Phases:
            and b7 shapes, windowed, against its bf16 plain version (max
            |diff| <= 2^-7 of the plain output's largest value), repeating
            itself bit for bit, its bound with bf16 products and bytes, and
-           the f32 kernel's ms at the same shape beside it;
+           the f32 kernel's ms at the same shape beside it; and the f32
+           kernel on stripes (each b3 and b7 shape split into 2 and 4
+           stripes in one process, each with its halo rows, the SE
+           partials of the stripes' own rows summed by hand between the
+           kernel's two stages) against the plain version (1e-4);
   main     run CamTTAEngine over synthetic VOC-shaped images at scales
            0.5/1/1.5/2 with MuSCLe-b3 (fuse_mbconv=384, float32, seeded
            random weights), count the kernel launches, and hold the
@@ -163,6 +169,20 @@ Phases:
            propagate_to_edge_sharded at grid 128 (V 16384, T 1 GiB, V / W
            columns a rank), 64 steps, against the one-card dense walk
            (1e-5 of its largest value);
+  spatial  spatial sharding (parallel/spatial.py): the CAM engine at
+           infer_mcl's defaults (b3, fused, --fast 1) on batches of 1 and
+           8 images and the seg engine at infer_seg's without the CRF (b7
+           + BiFPN 3 x 256, six scales x flip, f16 probabilities) on
+           batches of 1 and 4, with each canvas's height split over a
+           model group: 2 ranks sharing card 0 over gloo and, where there
+           are several cards, 4 (or 2) one a card over NCCL as 1 x 4 and
+           2 x 2 meshes, each a spawned process; every rank of a group
+           returns the same records, held to one process on card 0 (the
+           main and seg phases' rules), 23 MBConv launches a b3 forward
+           and 48 a b7 forward on every rank; each batch's latency beside
+           one process's, images/s, the exchanges a forward (count,
+           bytes, ms with the device synchronised around each) and peak
+           memory a rank;
   gates    the port's CLIs as a user runs them, each its own process
            (python -m), on a synthetic VOC tree (gates.build_synthetic_voc)
            of 16 images of 375-500 px: prints PIL.__version__; infer_mcl at
@@ -397,6 +417,27 @@ GATES_FULL_SIZES = [(375, 500), (500, 375), (333, 500), (500, 500)] * 4
 GATES_QUICK_SIZES = [(48, 64), (64, 48), (42, 64), (64, 64)]
 GATES_B3_PER_FORWARD, GATES_B7_PER_FORWARD = 23, 48
 GATES_CLI_TIMEOUT = 600
+# spatial sharding (spatial phase): one image's height split over a model
+# group (parallel/spatial.py).  SPATIAL_SHARED_RANKS ranks share card 0 over
+# gloo (a 1 x 2 mesh); where the machine has several cards, SPATIAL_NCCL_RANKS
+# of them (the most it has of 4 and 2) one a card over NCCL as 1 x W and, at
+# W = 4, also as 2 x 2.  CAM at infer_mcl's defaults (b3, fused, scales
+# 0.5-2, --fast 1) on batches of SPATIAL_CAM_SIZES images, seg at
+# infer_seg's without the CRF (b7 + BiFPN 3 x 256, six scales x flip, the
+# stride-4 grid, f16 probabilities) on batches of SPATIAL_SEG_SIZES; each
+# batch once to warm up, SPATIAL_REPS times timed (the counts zeroed just
+# before), once more with every exchange timed (``Stripes.timed``: the
+# device synchronised around each).  Held to one process on card 0: CAM by the
+# main phase's rules, seg probabilities within SEG_PROBS_TOL and labels on
+# SEG_LABEL_AGREE of each image's pixels.  The kernels phase's owned-row
+# check splits each MBConv shape into SPATIAL_SPLITS stripes in one process
+SPATIAL_SHARED_RANKS, SPATIAL_NCCL_RANKS = 2, (4, 2)
+SPATIAL_CAM_SIZES, SPATIAL_SEG_SIZES, SPATIAL_REPS = (1, 8), (1, 4), 2
+SPATIAL_SPLITS = (2, 4)
+SPATIAL_CAM_FAST = dict(accum_stride=4, download_dtype="uint8", tight_upload=True,
+                        upload_mode="ycbcr420")
+SPATIAL_SEG_FAST = dict(accum_stride=4, download_dtype="float16", tight_upload=True,
+                        upload_mode="ycbcr420")
 
 
 def log(msg: str) -> None:
@@ -610,6 +651,65 @@ def _check_mbconv_bf16(blocks: dict, batch: int, scales, canvas, f32_ms: dict) -
     return total
 
 
+def _check_mbconv_owned(blocks: dict, batch: int, scales, canvas) -> float:
+    """The MBConv kernel on stripes, in one process: each windowed shape's
+    image split into SPATIAL_SPLITS stripes, each with its k//2 halo rows
+    (zeros beyond the image) and its window in stripe rows; launch (a) on
+    every stripe (the SE partials of its own rows), the partials summed by
+    hand, then launches (b) and (c) on every stripe; the stripes' rows
+    together held to the plain version on the whole image (KERNEL_TOL).
+    Returns the largest error."""
+    import torch
+    import torch.nn.functional as F
+
+    from muscle_tpu_torch.ops import mbconv as M
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    xgen = torch.Generator(device=dev).manual_seed(0)
+    worst = 0.0
+    for name, (stride, cin, cout, expand, k) in blocks.items():
+        block = _random_block(cin, cout, expand, k, gen, dev)
+        wd = block.fused_weights()
+        kw = dict(k=k, has_expand=expand != 1, has_skip=cin == cout)
+        p = k // 2
+        for scale in scales:
+            ch, cw = canvas(scale)
+            h, w = ch // stride, cw // stride
+            x = torch.randn((batch, h, w, cin), generator=xgen, device=dev)
+            win = _windows(stride, scale, dev, batch)
+            errs = {}
+            with torch.inference_mode():
+                want = M.mbconv_stride1_plain(x, wd, win, **kw)
+                xp = F.pad(x, (0, 0, 0, 0, p, p))
+                for n in SPATIAL_SPLITS:
+                    s = h // n
+                    if s * n != h:
+                        raise AssertionError(f"{name} scale {scale}: {h} rows in {n} stripes")
+                    parts = [M.mbconv_stride1_begin(
+                        xp[:, r * s: r * s + s + 2 * p].contiguous(), wd,
+                        M.shift_rows(win, r * s - p).contiguous(), owned=(p, p + s), **kw)
+                        for r in range(n)]
+                    total = sum(q.part for q in parts)
+                    for q in parts:
+                        q.part = total
+                    got = torch.cat([M.mbconv_stride1_end(q) for q in parts], dim=1)
+                    torch.cuda.synchronize()
+                    errs[n] = float((got - want).abs().max())
+            print(json.dumps({"kernel": "mbconv_stride1", "owned_rows": True, "block": name,
+                              "scale": scale, "B": batch, "H": h, "W": w, "k": k,
+                              "stripes": list(SPATIAL_SPLITS),
+                              "max_abs_err": [errs[n] for n in SPATIAL_SPLITS]}), flush=True)
+            if not max(errs.values()) <= KERNEL_TOL:
+                raise AssertionError(f"{name} scale {scale} on stripes: max_abs_err {errs} > "
+                                     f"{KERNEL_TOL}")
+            worst = max(worst, *errs.values())
+            del x, xp, want
+        del block, wd
+        torch.cuda.empty_cache()
+    return worst
+
+
 def _smooth_edges(b: int, h: int, w: int, gen, device):
     """(B, h, w) edge maps in (0, 1): a seeded low-frequency random field,
     so the affinities span their range instead of being all ~0 or ~1."""
@@ -810,7 +910,10 @@ def phase_kernels() -> dict:
                                             b3_raw["shape_ms"]))
     b7_16 = summary_bf16(_check_mbconv_bf16(B7_BLOCKS, SEG_BATCH, (1.0, 1.75), b7_canvas,
                                             b7_raw["shape_ms"]))
+    owned = max(_check_mbconv_owned(B3_BLOCKS, TTA_BATCH, (1.0, 2.0), b3_canvas),
+                _check_mbconv_owned(B7_BLOCKS, SEG_BATCH, (1.0, 1.75), b7_canvas))
     print(json.dumps({"mbconv_b3_cam_windowed_total": b3, "mbconv_b7_seg_windowed_total": b7,
+                      "mbconv_owned_rows_max_abs_err": owned,
                       "mbconv_b1_gates_windowed_total": b1,
                       "mbconv_bf16_b3_cam_windowed_total": b3_16,
                       "mbconv_bf16_b7_seg_windowed_total": b7_16}), flush=True)
@@ -821,6 +924,7 @@ def phase_kernels() -> dict:
     return {
         "mbconv_stride1": {**b3, "max_abs_err": max(b3["max_abs_err"], b7["max_abs_err"],
                                                     b1["max_abs_err"]),
+                           "owned_rows_max_abs_err": owned,
                            "library_ms": None, "b7_seg": b7, "b1_gates": b1},
         "mbconv_bf16": {**b3_16, "max_abs_err": max(b3_16["max_abs_err"], b7_16["max_abs_err"]),
                         "max_rel_err": max(b3_16["max_rel_err"], b7_16["max_rel_err"]),
@@ -3256,6 +3360,209 @@ def phase_dp(card: str) -> dict:
     return out
 
 
+def _spatial_engines(spec: dict, dev, mesh=None) -> dict:
+    """The CAM (infer_mcl's defaults) and seg (infer_seg's without the CRF,
+    probabilities) engines of the spatial phase, split over ``mesh``'s model
+    group where given."""
+    from muscle_tpu_torch.inference import CamTTAEngine, SegTTAEngine
+
+    kw = dict(device=dev, mesh=mesh, shard_spatial=mesh is not None)
+    return {"cam": CamTTAEngine(_dp_model("b3_cam", spec["cam_state"]),
+                                scales=(0.5, 1.0, 1.5, 2.0), return_cam=False,
+                                **SPATIAL_CAM_FAST, **kw),
+            "seg": SegTTAEngine(_dp_model("b7_seg", spec["seg_state"]), scales=SEG_SCALES,
+                                **SPATIAL_SEG_FAST, **kw)}
+
+
+def _spatial_serve(engines: dict, spec: dict, dev, rows=None) -> dict:
+    """Each engine on each of its batches (this rank's ``rows`` of it):
+    one warm-up run, SPATIAL_REPS timed ones with every kernel's count and
+    the exchanges' counts zeroed just before them, and one more with the
+    exchanges timed; the records, seconds, counts per forward, exchanges
+    and peak memory."""
+    import torch
+
+    out = {}
+    for name, engine in engines.items():
+        stripes = engine.stripes
+        for batch in spec[f"{name}_batches"]:
+            size = len(batch[0])
+            mine = tuple(part[rows(size)] if rows else part for part in batch)
+            if not mine[0]:  # this data row's share of the batch is empty
+                continue
+            engine.run_batch(*mine)
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            _zero_counts()
+            if stripes:
+                stripes.reset_stats()
+            secs = []
+            for _ in range(SPATIAL_REPS):
+                t0 = time.perf_counter()
+                recs = engine.run_batch(*mine)  # waits for its download
+                secs.append(time.perf_counter() - t0)
+            forwards = SPATIAL_REPS * len(engine.scales)
+            counts = {k: v / forwards for k, v in _launch_counts().items()}
+            exchanges = timed_s = None
+            if stripes:  # the exchanges' counts, then one more run with them timed
+                exchanges = {k: {"per_forward": v["calls"] / forwards,
+                                 "bytes_per_forward": v["bytes"] / forwards}
+                             for k, v in stripes.stats.items()}
+                stripes.reset_stats()
+                stripes.timed = True
+                t0 = time.perf_counter()
+                engine.run_batch(*mine)
+                timed_s = time.perf_counter() - t0
+                stripes.timed = False
+                for k, v in stripes.stats.items():
+                    exchanges[k]["ms_per_batch"] = v["seconds"] * 1e3
+            out[(name, size)] = {
+                "records": recs, "images": len(mine[0]), "seconds": secs,
+                "timed_run_seconds": timed_s, "launches_per_forward": counts,
+                "exchanges": exchanges,
+                "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    return out
+
+
+def _spatial_rank(rank: int, world: int, backend: str, axes, tmp: str) -> None:
+    """One rank of the spatial phase: joins the group (gloo: every rank on
+    card 0; nccl: rank r on card r), makes every mesh of ``axes`` (model
+    axis k: a (world / k) x k mesh), runs both engines on each, and saves
+    what it measured."""
+    import os
+
+    import torch
+
+    from muscle_tpu_torch import parallel
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0 if backend == "gloo" else rank)
+    group = parallel.init(rank, world, f"file://{tmp}/store_sp_{backend}", dev, backend)
+    spec = torch.load(os.path.join(tmp, "spatial_spec.pt"), weights_only=False)
+    meshes = {k: parallel.make_mesh(k) for k in axes}
+    out = {}
+    for k, mesh in meshes.items():
+        tag = f"{mesh.shape['data']}x{k}"
+
+        def rows(n, mesh=mesh):
+            return parallel.rank_rows(n, mesh.data_group)
+
+        out[tag] = {"coords": (mesh.data_index, mesh.model_index),
+                    "serve": _spatial_serve(_spatial_engines(spec, dev, mesh), spec, dev, rows)}
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(tmp, f"sp_{backend}_rank{rank}.pt"))
+    parallel.barrier(group)
+    parallel.shutdown(group)
+
+
+def _spatial_readings(ref: dict, outs: list, tag: str, backend: str) -> dict:
+    """One mesh's run against the one-process references: each data row's
+    records (from its model group's first rank; every rank of the group
+    must hold the same) by image name, the launches per forward of every
+    rank, and the readings."""
+    import numpy as np
+
+    rec = {}
+    for (name, size), one in ref.items():
+        runs = [o[tag]["serve"].get((name, size)) for o in outs]
+        by_name, agree = {}, True
+        for o, run in zip(outs, runs):
+            if run is None:
+                continue
+            for r in run["records"]:
+                first = by_name.setdefault(r["name"], r)
+                key = "sgc" if name == "cam" else "probs"
+                if name == "cam":
+                    agree &= all(np.array_equal(first[key][c], r[key][c]) for c in r[key])
+                else:
+                    agree &= bool(np.array_equal(first[key], r[key]))
+        want = one["records"]
+        mine = [by_name[r["name"]] for r in want]
+        entry = {"batch": size, "one_process_latency_s": one["seconds"],
+                 "latency_s": [max(run["seconds"][i] for run in runs if run)
+                               for i in range(SPATIAL_REPS)],
+                 "one_process_peak_gib": one["peak_gib"],
+                 "peak_gib_per_rank": [run and run["peak_gib"] for run in runs],
+                 "counts_per_rank": [run and run["launches_per_forward"] for run in runs],
+                 "exchanges_rank0": runs[0] and runs[0]["exchanges"],
+                 "timed_run_s_rank0": runs[0] and runs[0]["timed_run_seconds"],
+                 "ranks_of_a_group_agree": agree}
+        entry["images_per_s"] = size / min(entry["latency_s"])
+        entry["one_process_images_per_s"] = size / min(one["seconds"])
+        entry["speedup"] = min(one["seconds"]) / min(entry["latency_s"])
+        per = GATES_B3_PER_FORWARD if name == "cam" else GATES_B7_PER_FORWARD
+        launches_ok = all(c["mbconv_stride1"] == per for c in entry["counts_per_rank"] if c)
+        if name == "cam":
+            entry["score_err"], entry["sgc_err"] = _compare(
+                mine, want, f"spatial {backend} {tag} CAM batch {size} vs one process")
+            ok = True
+        else:
+            err, lab = 0.0, 1.0
+            for g, w in zip(mine, want):
+                assert g["probs"].shape == w["probs"].shape and np.isfinite(g["probs"]).all()
+                err = max(err, float(np.abs(g["probs"] - w["probs"]).max()))
+                lab = min(lab, float((g["probs"].argmax(-1) == w["probs"].argmax(-1)).mean()))
+            entry["probs_err"], entry["labels_agreement_min"] = err, lab
+            ok = err <= SEG_PROBS_TOL and lab >= SEG_LABEL_AGREE
+        entry["passed"] = bool(ok and agree and launches_ok)
+        rec[f"{name}_{size}"] = entry
+    rec["passed"] = all(e["passed"] for e in rec.values())
+    return rec
+
+
+def phase_spatial(card: str) -> dict:
+    """Spatial sharding (module docstring, phase spatial): the one-process
+    references on card 0, then SPATIAL_SHARED_RANKS ranks sharing card 0
+    over gloo and, where there are several cards, one rank a card over
+    NCCL (spawned processes, a FileStore rendezvous in a temporary
+    directory); one {"spatial": ...} line; any failed check fails the
+    phase."""
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from muscle_tpu_torch.models import init_weights
+
+    n = torch.cuda.device_count()
+    configs = [("gloo", SPATIAL_SHARED_RANKS, (SPATIAL_SHARED_RANKS,))]
+    nccl = next((w for w in SPATIAL_NCCL_RANKS if w <= n), None)
+    if nccl:
+        configs.append(("nccl", nccl, (nccl, 2) if nccl == 4 else (nccl,)))
+    cam = _images(1, seed=4)[0]
+    seg = _seg_batches(1, seed=5)[0]
+    spec = {"cam_state": {k: v.detach().cpu() for k, v in init_weights(
+                _dp_arch("b3_cam"), torch.Generator().manual_seed(0)).state_dict().items()},
+            "seg_state": {k: v.detach().cpu() for k, v in _seg_model(384).state_dict().items()},
+            "cam_batches": [tuple(part[:size] for part in cam) for size in SPATIAL_CAM_SIZES],
+            "seg_batches": [tuple(part[:size] for part in seg) for size in SPATIAL_SEG_SIZES]}
+    out = {"card": card, "ran": [f"{b} x {w}" for b, w, _ in configs]}
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ref = _spatial_serve(_spatial_engines(spec, dev), spec, dev)
+        torch.cuda.empty_cache()
+        out["one_process_seconds"] = time.perf_counter() - t0
+        torch.save(spec, f"{tmp}/spatial_spec.pt")
+        for backend, world, axes in configs:
+            t0 = time.perf_counter()
+            mp.spawn(_spatial_rank, args=(world, backend, axes, tmp), nprocs=world, join=True)
+            outs = [torch.load(f"{tmp}/sp_{backend}_rank{r}.pt", weights_only=False)
+                    for r in range(world)]
+            for tag in outs[0]:
+                rec = _spatial_readings(ref, outs, tag, backend)
+                rec["passed"] &= [o[tag]["coords"] for o in outs] == [
+                    divmod(r, world // int(tag.split("x")[0])) for r in range(world)]
+                out[f"{backend}_{tag}"] = rec
+            out[f"{backend}_seconds"] = time.perf_counter() - t0
+    print(json.dumps({"spatial": out}), flush=True)
+    failed = [k for k, v in out.items() if isinstance(v, dict) and not v["passed"]]
+    if failed:
+        raise AssertionError(f"spatial: {failed} failed")
+    return out
+
+
 def _cli(tag: str, module: str, *args: str) -> dict:
     """Run ``python -m <module> <args>`` from the repository's root and
     return the JSON object of its last stdout line; a non-zero exit fails
@@ -3386,7 +3693,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--phases",
                    default="build,kernels,main,irn,seg,bf16,train_mcl,train_seg,train_irn,"
-                           "train_mcl_bf16,train_seg_bf16,dp,gates")
+                           "train_mcl_bf16,train_seg_bf16,dp,spatial,gates")
     args = p.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -3429,6 +3736,7 @@ def main(argv=None) -> int:
     mcl_bf16_out = run("train_mcl_bf16", phase_train_mcl_bf16, card)
     seg_bf16_out = run("train_seg_bf16", phase_train_seg_bf16, card)
     dp_out = run("dp", phase_dp, card)
+    spatial_out = run("spatial", phase_spatial, card)
     gates_out = run("gates", phase_gates, card)
     run("profile", phase_profile, 4, "bf16" in phases)
 
@@ -3470,6 +3778,13 @@ def main(argv=None) -> int:
                 run_name: {eng: [cnt[e["name"]] for cnt in r["serve"][eng]["counts_per_rank"]]
                            for eng in ("cam", "seg")}
                 for run_name, r in dp_out.items() if isinstance(r, dict)}
+        # each rank's launches per forward in the spatially sharded engines
+        # (f32: every rank of a model group runs every stride-1 block)
+        for e in entries:
+            e["launches_spatial"] = None if spatial_out is None else {
+                run_name: {case: [c and c[e["name"]] for c in r[case]["counts_per_rank"]]
+                           for case in r if isinstance(r[case], dict)}
+                for run_name, r in spatial_out.items() if isinstance(r, dict)}
         for e in entries:  # the CLIs' launches in the gates phase (its subprocesses')
             e["launches_gates"] = gates_out["launches"][e["name"]] if gates_out else None
         print(json.dumps({"kernels": entries}), flush=True)

@@ -147,6 +147,17 @@ class RunStats:
         return rec
 
 
+def spatial_summary(mesh, engine) -> dict:
+    """A spatially sharded CLI run's extra summary keys: the mesh's shape
+    and this rank's coordinates and exchanges (the engine's
+    ``stripes.stats``); none without a mesh."""
+    if mesh is None:
+        return {}
+    return {"mesh": mesh.shape, "data_index": mesh.data_index, "model_index": mesh.model_index,
+            "exchanges": {k: {"calls": v["calls"], "bytes": v["bytes"]}
+                          for k, v in engine.stripes.stats.items()}}
+
+
 def sort_by_orientation(names: list[str], voc12_root: str) -> list[str]:
     """Stable-sort an inference list landscape-first (header-only PIL
     reads), so batches are orientation-homogeneous and the TTA engine's

@@ -16,6 +16,18 @@ all local chips::
 
 Each rank runs its own engine (and the MBConv kernel on its card) on its
 rows of every --batch_size batch and writes its images' files.
+
+Spatial sharding, as the JAX CLI's --spatial k: under torchrun with W
+ranks, a multiple of k, the ranks form a (W / k data) x (k model) mesh
+(``parallel.make_mesh``).  Each model group, k consecutive ranks, takes its
+data row's share of every batch and splits each canvas's height over its
+ranks (halo exchanges, ``parallel/spatial.py``); its first rank writes the
+files::
+
+    torchrun --nproc_per_node=<cards> -m muscle_tpu_torch.cli.infer_mcl --spatial 2 ...
+
+Every rank prints its own last JSON line, with its MBConv launches and
+its exchanges.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ from muscle_tpu_torch.cli.common import (
     load_model_state,
     prefetch_chunks,
     sort_by_orientation,
+    spatial_summary,
 )
 from muscle_tpu_torch.data.voc12 import get_img_path
 
@@ -52,8 +65,10 @@ def main(argv=None) -> dict:
                    help="1 = fast mode (K-class gather, stride-4 fusion grid + uint8 "
                         "download, tight ycbcr420 upload); 0 = full-res f16")
     p.add_argument("--spatial", default=0, type=int,
-                   help="sharding image height over several devices: not ported (0 and 1 "
-                        "run one engine per process; torchrun shards the batch over cards)")
+                   help="k > 1: split each image's height over k ranks (torchrun with a "
+                        "multiple of k ranks: a (ranks / k data) x (k model) mesh; k in 2, 4, "
+                        "8, 16; the device path only); 0 and 1: one engine per rank on its "
+                        "rows of every batch")
     p.add_argument("--fuse_mbconv", default=384, type=int,
                    help="run stride-1 MBConv blocks with <= N input channels through the "
                         "MBConv CUDA kernel (384 = all of b3's, the default; 0 = none).  "
@@ -63,18 +78,17 @@ def main(argv=None) -> dict:
     p.add_argument("--device", default="cuda", type=str, help="cuda or cpu")
     add_voc_args(p)
     args = p.parse_args(argv)
-    if args.spatial > 1:
-        raise NotImplementedError("--spatial (height sharding over several devices) is not "
-                                  "ported: launch with torchrun --nproc_per_node=<cards> to "
-                                  "shard each batch over the cards")
 
     from PIL import Image
 
     from muscle_tpu_torch.inference import CamTTAEngine
     from muscle_tpu_torch.models import MuSCLe
-    from muscle_tpu_torch.parallel import init_from_env, rank, shutdown
+    from muscle_tpu_torch.parallel import init_from_env, make_mesh, rank, shutdown
 
     group, device = init_from_env(args.device)
+    mesh = make_mesh(model_axis=args.spatial) if args.spatial > 1 else None
+    rows_group = mesh.data_group if mesh is not None else group
+    writes = mesh is None or mesh.model_index == 0
 
     model = MuSCLe(num_classes=args.num_classes, backbone_name=args.backbone,
                    bifpn_layers=3, mode="enc", last_pooling=False,
@@ -85,8 +99,8 @@ def main(argv=None) -> dict:
                 upload_mode="ycbcr420")
     engine = CamTTAEngine(
         model, scales=scales, num_classes=args.num_classes,
-        return_cam=bool(args.save_cam), device=device,
-        **(fast if args.fast and not args.exact else {}),
+        return_cam=bool(args.save_cam), device=device, mesh=mesh,
+        shard_spatial=mesh is not None, **(fast if args.fast and not args.exact else {}),
     )
 
     names, labels = load_lists(args, args.infer_list)
@@ -99,7 +113,7 @@ def main(argv=None) -> dict:
 
     def save(records):
         for rec in records:
-            if args.out_npy:
+            if args.out_npy and writes:
                 np.save(os.path.join(args.out_npy + "_sgc", rec["name"] + ".npy"), rec["sgc"])
                 if args.save_cam:
                     np.save(os.path.join(args.out_npy, rec["name"] + ".npy"), rec["cam"])
@@ -110,14 +124,14 @@ def main(argv=None) -> dict:
     stats = RunStats(model.backbone, engine.device)
     done, tag = 0, f"rank {rank(group)}: " if group is not None else ""
     if args.exact:
-        for chunk, imgs in prefetch_chunks(names, args.batch_size, load, group=group):
+        for chunk, imgs in prefetch_chunks(names, args.batch_size, load, group=rows_group):
             save(engine.run_batch_exact(imgs, chunk, [labels[n] for n in chunk]))
             done += len(chunk)
             stats.tick(done)
             print(f"{tag}{done}/{len(names)}")
     else:
         def batches():
-            for chunk, imgs in prefetch_chunks(names, args.batch_size, load, group=group):
+            for chunk, imgs in prefetch_chunks(names, args.batch_size, load, group=rows_group):
                 yield imgs, chunk, [labels[n] for n in chunk]
 
         for records in engine.run_stream(batches()):
@@ -126,7 +140,7 @@ def main(argv=None) -> dict:
             stats.tick(done)
             print(f"{tag}{done}/{len(names)}")
     shutdown(group)
-    return stats.summary(done)
+    return stats.summary(done, **spatial_summary(mesh, engine))
 
 
 if __name__ == "__main__":

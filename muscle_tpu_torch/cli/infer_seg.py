@@ -1,5 +1,5 @@
 """Segmentation inference CLI (port of ``muscle_tpu/cli/infer_seg.py``, same
-flags without --spatial, plus --fuse_mbconv and --device): 6-scale x flip
+flags, plus --fuse_mbconv and --device): 6-scale x flip
 TTA with MuSCLe in dec mode, optional class gating and dense CRF, argmax
 PNGs into --out_seg, and last one JSON line of the run's numbers
 (``common.RunStats``, with the CRF's ms per image).
@@ -7,8 +7,9 @@ PNGs into --out_seg, and last one JSON line of the run's numbers
 Data parallel, one rank per card (``torchrun --nproc_per_node=<cards> -m
 muscle_tpu_torch.cli.infer_seg ...``): each rank runs its own engine (the
 MBConv kernel on its card) on its rows of every --batch_size batch and
-writes its images' PNGs.  --spatial (one image's height over several
-cards) is not ported.
+writes its images' PNGs.  --spatial k under torchrun splits each image's
+height over k ranks, as ``cli/infer_mcl.py``'s; a model group's first
+rank runs the CRF and writes the PNGs.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from muscle_tpu_torch.cli.common import (
     load_model_state,
     prefetch_chunks,
     sort_by_orientation,
+    spatial_summary,
 )
 from muscle_tpu_torch.data.voc12 import get_img_path
 
@@ -47,18 +49,15 @@ def main(argv=None) -> dict:
                    help="1 = fast mode (stride-4 prob grid + f16 download + tight ycbcr420 "
                         "upload + overlapped stream); 0 = full-res f32 mode")
     p.add_argument("--spatial", default=0, type=int,
-                   help="sharding image height over several devices: not ported (0 only; "
-                        "torchrun shards the batch over cards)")
+                   help="k > 1: split each image's height over k ranks (torchrun with a "
+                        "multiple of k ranks: a (ranks / k data) x (k model) mesh; k in 2, 4, "
+                        "8, 16); 0 and 1: one engine per rank on its rows of every batch")
     p.add_argument("--fuse_mbconv", default=384, type=int,
                    help="run stride-1 MBConv blocks with <= N input channels through the "
                         "MBConv CUDA kernel (0 = none; 384 = all of b7's)")
     p.add_argument("--device", default="cuda", type=str, help="cuda or cpu")
     add_voc_args(p)
     args = p.parse_args(argv)
-    if args.spatial > 1:
-        raise NotImplementedError("--spatial (height sharding over several devices) is not "
-                                  "ported: launch with torchrun --nproc_per_node=<cards> to "
-                                  "shard each batch over the cards (ROADMAP Queue A item 7)")
 
     import torch
     from PIL import Image
@@ -66,9 +65,12 @@ def main(argv=None) -> dict:
     from muscle_tpu_torch.inference import SegTTAEngine
     from muscle_tpu_torch.models import MuSCLe
     from muscle_tpu_torch.ops.crf import mean_field_crf
-    from muscle_tpu_torch.parallel import init_from_env, rank, shutdown
+    from muscle_tpu_torch.parallel import init_from_env, make_mesh, rank, shutdown
 
     group, device = init_from_env(args.device)
+    mesh = make_mesh(model_axis=args.spatial) if args.spatial > 1 else None
+    rows_group = mesh.data_group if mesh is not None else group
+    writes = mesh is None or mesh.model_index == 0
 
     model = MuSCLe(num_classes=args.num_classes, backbone_name="efficientnet-" + args.pretrained,
                    bifpn_layers=args.bifpn, mode="dec", last_pooling=True,
@@ -80,7 +82,8 @@ def main(argv=None) -> dict:
     # the engine resizes and takes the argmax on the device and downloads
     # one uint8 label map per image
     labels_out = bool(args.fast) and not args.crf and not args.cls_dir
-    engine = SegTTAEngine(model, num_classes=args.num_classes, device=device,
+    engine = SegTTAEngine(model, num_classes=args.num_classes, device=device, mesh=mesh,
+                          shard_spatial=mesh is not None,
                           output="labels" if labels_out else "probs",
                           **(fast if args.fast else {}))
 
@@ -97,6 +100,8 @@ def main(argv=None) -> dict:
     crf_s = [0.0]
 
     def postprocess(imgs, records):
+        if not writes:  # another rank of this model group writes the same records
+            return
         for img, rec in zip(imgs, records):
             if labels_out:
                 save(rec["name"], rec["label"])
@@ -131,7 +136,7 @@ def main(argv=None) -> dict:
 
         def batches():
             for chunk, (imgs, gates) in prefetch_chunks(names, args.batch_size, load,
-                                                        group=group):
+                                                        group=rows_group):
                 img_fifo.append(imgs)
                 yield imgs, chunk, gates
 
@@ -141,14 +146,15 @@ def main(argv=None) -> dict:
             stats.tick(done)
             print(f"{tag}{done}/{len(names)}")
     else:
-        for chunk, (imgs, gates) in prefetch_chunks(names, args.batch_size, load, group=group):
+        for chunk, (imgs, gates) in prefetch_chunks(names, args.batch_size, load, group=rows_group):
             postprocess(imgs, engine.run_batch(imgs, chunk, gates))
             done += len(chunk)
             stats.tick(done)
             print(f"{tag}{done}/{len(names)}")
     shutdown(group)
     return stats.summary(done, crf_ms_per_image=1e3 * crf_s[0] / done
-                         if args.crf and not labels_out and done else None)
+                         if args.crf and not labels_out and done and writes else None,
+                         **spatial_summary(mesh, engine))
 
 
 if __name__ == "__main__":

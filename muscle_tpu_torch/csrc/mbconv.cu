@@ -66,6 +66,12 @@
 //      k*k), then BN1 + swish + mask, SE partial sums in a fixed order (no
 //      atomics), and d to HBM.
 //   b. se: one CTA per image reduces the partials and runs both SE FCs.
+//      (a) and (b + c) are separate entries: on a stripe of an image split
+//      over several cards (parallel/spatial.py) x carries halo rows, (a)
+//      sums only the stripe's own rows [row_lo, row_hi) into the partials,
+//      and the caller adds the partials over the cards between the two.
+//      The window's oy is then in the stripe's rows and its h stays the
+//      image's, so (b) divides by the whole window's pixel count.
 //   c. project: per-image 64-pixel x 64-channel tiles; a producer warp
 //      keeps a ring of up to 4 stages of TMA tiles (d and w_proj_kt) in
 //      flight; a consumer warpgroup runs the wgmma with A (d) from
@@ -387,7 +393,7 @@ __global__ void __launch_bounds__(NT, 2) expand_dw_kernel(
     const int* __restrict__ win, const float* __restrict__ s0, const float* __restrict__ b0,
     const T* __restrict__ w_dw, const float* __restrict__ s1, const float* __restrict__ b1,
     T* __restrict__ d, float* __restrict__ part, int H, int W, int Cin, int Cmid,
-    int tiles_w) {
+    int tiles_w, int row_lo, int row_hi) {
   constexpr int TH = dw_th<K, EXPAND>(), TC = dw_tc<EXPAND>();
   constexpr int REGION = EXPAND ? WgTile<K, TH, T>::REGION : x_tile_bytes<K, TH, TC, T>();
   constexpr int ESP = EXPAND ? WgTile<K, TH, T>::ESP : TC;
@@ -426,7 +432,8 @@ __global__ void __launch_bounds__(NT, 2) expand_dw_kernel(
                                         if (c0 + c < Cmid)
                                           d[(img + (size_t)gy * W + gx) * Cmid + c0 + c] =
                                               from_f<T>(v);
-                                        psum += v;  // f32 d, before the rounding
+                                        // f32 d, before the rounding; own rows only
+                                        if (gy >= row_lo && gy < row_hi) psum += v;
                                       }
                                     });
   red_s[tid] = psum;  // row group tid / TC, channel tid % TC
@@ -695,6 +702,8 @@ struct Args {
   float *part, *gate;
   void* y;
   int B, H, W, Cin, Cmid, Csq, Cout, has_skip;
+  int row_lo, row_hi;  // (a): the rows whose d enters the SE partials
+  int ntiles;          // (b): partial sums per image in part
   cudaStream_t st;
 };
 
@@ -739,7 +748,7 @@ cudaError_t launch_expand_dw(const Args& a) {
   if (err != cudaSuccess) return err;
   expand_dw_kernel<K, EXPAND, T><<<grid, NT, smem, a.st>>>(
       xm, wm, a.win, a.s0, a.b0, static_cast<const T*>(a.w_dw), a.s1, a.b1,
-      static_cast<T*>(a.d), a.part, a.H, a.W, a.Cin, a.Cmid, tiles_w);
+      static_cast<T*>(a.d), a.part, a.H, a.W, a.Cin, a.Cmid, tiles_w, a.row_lo, a.row_hi);
   return cudaGetLastError();
 }
 
@@ -766,28 +775,61 @@ int partials_per_image(int H, int W, int k, int has_expand) {
   return ((H + th - 1) / th) * ((W + TW - 1) / TW);
 }
 
-// The three launches on a.st; returns the first launch error (an invalid
-// value when a tensor map is refused), 0 on success.
+// Launch (a) on a.st; returns its error (an invalid value when a tensor
+// map is refused or a channel count is not a multiple of the type's
+// granularity), 0 on success.
 template <class T>
-int run(const Args& a, int k, int has_expand) {
+int run_expand_dw(const Args& a, int k, int has_expand) {
   constexpr int MULT = std::is_same<T, float>::value ? 8 : 16;  // channel granularity
-  if ((k != 3 && k != 5) || a.Cin % MULT || a.Cmid % MULT || a.Cout % MULT)
-    return (int)cudaErrorInvalidValue;
+  if ((k != 3 && k != 5) || a.Cin % MULT || a.Cmid % MULT) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (k == 3)
     err = has_expand ? launch_expand_dw<3, true, T>(a) : launch_expand_dw<3, false, T>(a);
   else
     err = has_expand ? launch_expand_dw<5, true, T>(a) : launch_expand_dw<5, false, T>(a);
-  if (err != cudaSuccess) return (int)err;
+  return (int)err;
+}
 
+// Launches (b) and (c) on a.st; returns the first launch error, 0 on
+// success.
+template <class T>
+int run_se_project(const Args& a) {
+  constexpr int MULT = std::is_same<T, float>::value ? 8 : 16;
+  if (a.Cmid % MULT || a.Cout % MULT || a.ntiles < 1) return (int)cudaErrorInvalidValue;
   se_kernel<T><<<a.B, SE_NT, (size_t)(a.Cmid + a.Csq) * sizeof(float), a.st>>>(
-      a.part, partials_per_image(a.H, a.W, k, has_expand), a.win,
-      static_cast<const T*>(a.w_se_r), a.b_se_r, static_cast<const T*>(a.w_se_e), a.b_se_e,
-      a.gate, a.Cmid, a.Csq);
-  err = cudaGetLastError();
+      a.part, a.ntiles, a.win, static_cast<const T*>(a.w_se_r), a.b_se_r,
+      static_cast<const T*>(a.w_se_e), a.b_se_e, a.gate, a.Cmid, a.Csq);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-
   return (int)launch_project<T>(a);
+}
+
+template <class T>
+int expand_dw_entry(const void* x, const int* win, const void* w_exp_kt, const float* s0,
+                    const float* b0, const void* w_dw, const float* s1, const float* b1,
+                    void* d, float* part, int B, int H, int W, int Cin, int Cmid, int k,
+                    int has_expand, int row_lo, int row_hi, void* stream) {
+  Args a{};
+  a.x = x, a.win = win, a.w_exp_kt = w_exp_kt, a.s0 = s0, a.b0 = b0, a.w_dw = w_dw;
+  a.s1 = s1, a.b1 = b1, a.d = d, a.part = part;
+  a.B = B, a.H = H, a.W = W, a.Cin = Cin, a.Cmid = Cmid;
+  a.row_lo = row_lo, a.row_hi = row_hi, a.st = (cudaStream_t)stream;
+  return run_expand_dw<T>(a, k, has_expand);
+}
+
+template <class T>
+int se_project_entry(const void* x, const int* win, const float* part, const void* w_se_r,
+                     const float* b_se_r, const void* w_se_e, const float* b_se_e,
+                     const void* w_proj_kt, const float* s2, const float* b2, const void* d,
+                     float* gate, void* y, int B, int H, int W, int Cmid, int Csq, int Cout,
+                     int ntiles, int has_skip, void* stream) {
+  Args a{};
+  a.x = x, a.win = win, a.part = const_cast<float*>(part), a.w_se_r = w_se_r;
+  a.b_se_r = b_se_r, a.w_se_e = w_se_e, a.b_se_e = b_se_e, a.w_proj_kt = w_proj_kt;
+  a.s2 = s2, a.b2 = b2, a.d = const_cast<void*>(d), a.gate = gate, a.y = y;
+  a.B = B, a.H = H, a.W = W, a.Cmid = Cmid, a.Csq = Csq, a.Cout = Cout;
+  a.ntiles = ntiles, a.has_skip = has_skip, a.st = (cudaStream_t)stream;
+  return run_se_project<T>(a);
 }
 
 }  // namespace
@@ -803,38 +845,54 @@ const char* mbconv_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Launches the three kernels on `stream`, with d (B, H, W, Cmid) and part
-// (B, mbconv_partials_per_image, Cmid) as scratch.  Every channel count is
-// a multiple of 8.  Returns the first launch error
-// (cudaGetLastError after each launch; an invalid value when a tensor map
-// is refused), 0 on success.
-int mbconv_stride1_f32(const float* x, const int* win, const float* w_exp_kt, const float* s0,
-                       const float* b0, const float* w_dw, const float* s1, const float* b1,
-                       const float* w_se_r, const float* b_se_r, const float* w_se_e,
-                       const float* b_se_e, const float* w_proj_kt, const float* s2,
-                       const float* b2, float* d, float* part, float* gate, float* y, int B,
-                       int H, int W, int Cin, int Cmid, int Csq, int Cout, int k, int has_expand,
-                       int has_skip, void* stream) {
-  const Args a{x,  w_exp_kt, w_dw, w_se_r, w_se_e, w_proj_kt, s0, b0, s1, b1, b_se_r, b_se_e,
-               s2, b2,       win,  d,      part,   gate,      y,  B,  H,  W,  Cin,    Cmid,
-               Csq, Cout,    has_skip, (cudaStream_t)stream};
-  return run<float>(a, k, has_expand);
+// A block call is two entries on `stream`, each returning its first launch
+// error (cudaGetLastError after each launch; an invalid value when a tensor
+// map is refused or a channel count is off), 0 on success.  Channel counts
+// are multiples of 8 (f32) or 16 (bf16).
+//
+// mbconv_expand_dw_*: launch (a), d (B, H, W, Cmid) and the SE partial sums
+// part (B, mbconv_partials_per_image, Cmid) of the rows [row_lo, row_hi)
+// (0 and H for a whole image).
+int mbconv_expand_dw_f32(const float* x, const int* win, const float* w_exp_kt, const float* s0,
+                         const float* b0, const float* w_dw, const float* s1, const float* b1,
+                         float* d, float* part, int B, int H, int W, int Cin, int Cmid, int k,
+                         int has_expand, int row_lo, int row_hi, void* stream) {
+  return expand_dw_entry<float>(x, win, w_exp_kt, s0, b0, w_dw, s1, b1, d, part, B, H, W, Cin,
+                                Cmid, k, has_expand, row_lo, row_hi, stream);
+}
+
+// mbconv_se_project_*: launches (b) and (c), the gate from `ntiles` partial
+// sums per image in part (B, ntiles, Cmid), then y (B, H, W, Cout).
+int mbconv_se_project_f32(const float* x, const int* win, const float* part,
+                          const float* w_se_r, const float* b_se_r, const float* w_se_e,
+                          const float* b_se_e, const float* w_proj_kt, const float* s2,
+                          const float* b2, const float* d, float* gate, float* y, int B, int H,
+                          int W, int Cmid, int Csq, int Cout, int ntiles, int has_skip,
+                          void* stream) {
+  return se_project_entry<float>(x, win, part, w_se_r, b_se_r, w_se_e, b_se_e, w_proj_kt, s2,
+                                 b2, d, gate, y, B, H, W, Cmid, Csq, Cout, ntiles, has_skip,
+                                 stream);
 }
 
 // The same at bf16: x, the weight matrices, the K-major operands, d and y
-// bf16 (pointers to __nv_bfloat16), the rest f32.  Every channel count is
-// a multiple of 16.
-int mbconv_stride1_bf16(const void* x, const int* win, const void* w_exp_kt, const float* s0,
-                        const float* b0, const void* w_dw, const float* s1, const float* b1,
-                        const void* w_se_r, const float* b_se_r, const void* w_se_e,
-                        const float* b_se_e, const void* w_proj_kt, const float* s2,
-                        const float* b2, void* d, float* part, float* gate, void* y, int B,
-                        int H, int W, int Cin, int Cmid, int Csq, int Cout, int k,
-                        int has_expand, int has_skip, void* stream) {
-  const Args a{x,  w_exp_kt, w_dw, w_se_r, w_se_e, w_proj_kt, s0, b0, s1, b1, b_se_r, b_se_e,
-               s2, b2,       win,  d,      part,   gate,      y,  B,  H,  W,  Cin,    Cmid,
-               Csq, Cout,    has_skip, (cudaStream_t)stream};
-  return run<bf16>(a, k, has_expand);
+// bf16 (pointers to __nv_bfloat16), the rest f32.
+int mbconv_expand_dw_bf16(const void* x, const int* win, const void* w_exp_kt, const float* s0,
+                          const float* b0, const void* w_dw, const float* s1, const float* b1,
+                          void* d, float* part, int B, int H, int W, int Cin, int Cmid, int k,
+                          int has_expand, int row_lo, int row_hi, void* stream) {
+  return expand_dw_entry<bf16>(x, win, w_exp_kt, s0, b0, w_dw, s1, b1, d, part, B, H, W, Cin,
+                               Cmid, k, has_expand, row_lo, row_hi, stream);
+}
+
+int mbconv_se_project_bf16(const void* x, const int* win, const float* part,
+                           const void* w_se_r, const float* b_se_r, const void* w_se_e,
+                           const float* b_se_e, const void* w_proj_kt, const float* s2,
+                           const float* b2, const void* d, float* gate, void* y, int B, int H,
+                           int W, int Cmid, int Csq, int Cout, int ntiles, int has_skip,
+                           void* stream) {
+  return se_project_entry<bf16>(x, win, part, w_se_r, b_se_r, w_se_e, b_se_e, w_proj_kt, s2,
+                                b2, d, gate, y, B, H, W, Cmid, Csq, Cout, ntiles, has_skip,
+                                stream);
 }
 
 }  // extern "C"

@@ -20,6 +20,12 @@ Three modes:
   (default): one uint8 upload per image, the multi-scale bicubic resize,
   normalisation and flip on the device, and a download of the labelled
   classes only.
+
+``shard_spatial`` (the device path only, float32): the ranks of a
+``parallel.make_mesh(model_axis=k)`` model group run one batch together.
+Each builds the same scaled pairs from the whole batch, takes its stripe
+of the canvas into the model (``parallel/spatial.py``), and gets the whole
+maps back; the fusion and download then run on every rank alike.
 """
 
 from __future__ import annotations
@@ -37,12 +43,44 @@ from muscle_tpu_torch.data import transforms as T
 from muscle_tpu_torch.data.tta import group_by_shape, msf_batch, scaled_size
 from muscle_tpu_torch.inference.upload import start_download, to_device
 from muscle_tpu_torch.models.efficientnet import placement_offset
+from muscle_tpu_torch.parallel.spatial import Stripes
 
 # stride-2 convs between the input and the CAM-mode stride-16 maps (stem +
 # stages 2-4): the ladder depth for placement_offset
 N_STRIDED_ENC = 4
 # the engines' model dtypes (the JAX package's compute_dtype)
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+# model axes whose stripes of every canvas (a multiple of 64 rows) are even
+# and at least 4 rows tall, so the stem halves them (parallel/spatial.py)
+SPATIAL_AXES = (2, 4, 8, 16)
+
+
+def spatial_stripes(mesh, shard_spatial: bool, compute_dtype):
+    """The engines' ``mesh`` and ``shard_spatial``, as the JAX engines take
+    them: the ``Stripes`` of this rank's model group, or None without
+    ``shard_spatial``.  Raises ValueError for shard_spatial without a mesh
+    or on a model axis of 1 (the JAX engines' errors) or one whose stripes
+    would not split every canvas, NotImplementedError at bfloat16 and for
+    a mesh without shard_spatial (the in-process data-parallel mesh)."""
+    if not shard_spatial:
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= without shard_spatial (an in-process data-parallel engine) is not "
+                "ported: run one engine per rank under torchrun, each on its rows of every "
+                "batch (cli/infer_mcl.py); ROADMAP Queue A item 2")
+        return None
+    if mesh is None:
+        raise ValueError("shard_spatial requires a mesh")
+    k = mesh.shape.get("model", 1)
+    if k < 2:
+        raise ValueError("shard_spatial needs make_mesh(model_axis>1)")
+    if k not in SPATIAL_AXES:
+        raise ValueError(f"shard_spatial over {k} ranks: the stripes of a canvas of 64 m rows "
+                         f"halve through the stem for a model axis in {SPATIAL_AXES} only")
+    if compute_dtype != torch.float32:
+        raise NotImplementedError("shard_spatial at bfloat16 is not ported: spatial sharding "
+                                  "runs float32 (ROADMAP Queue A item 2)")
+    return Stripes(mesh.model_group)
 
 
 def _scaled_np(orig_sizes, scale: float) -> np.ndarray:
@@ -144,6 +182,10 @@ class CamTTAEngine:
         with portrait images transposed.
       upload_mode: 'rgb' or 'ycbcr420' (device_tta only): 4:2:0 upload,
         reconstructed to RGB on the device.
+      mesh, shard_spatial: ``parallel.make_mesh(model_axis=k)`` and True
+        split each canvas's height over this rank's model group (module
+        docstring; ``spatial_stripes`` for what raises).  The batch's
+        split over the data axis is the caller's (``parallel.rank_rows``).
       device: where the model runs: 'cuda' (default) or 'cpu'.
     """
 
@@ -152,9 +194,11 @@ class CamTTAEngine:
                  lowres: bool = True, device_tta: bool = True, max_classes: int = 8,
                  return_cam: bool = True, accum_stride: int = 1,
                  download_dtype: str = "float16", tight_upload: bool = False,
-                 upload_mode: str = "rgb", device: str | torch.device = "cuda"):
+                 upload_mode: str = "rgb", mesh=None, shard_spatial: bool = False,
+                 device: str | torch.device = "cuda"):
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype}: float32 or bfloat16")
+        self.stripes = spatial_stripes(mesh, shard_spatial, compute_dtype)
         if out_side % accum_stride:
             raise ValueError("accum_stride must divide out_side")
         if download_dtype not in ("float16", "uint8"):
@@ -185,7 +229,12 @@ class CamTTAEngine:
 
     def _model(self, images: torch.Tensor, **kw):
         """(cams, sgcs, emb, logits) of the model on ``images`` cast to the
-        compute dtype, the maps and logits cast back to float32."""
+        compute dtype, the maps and logits cast back to float32; under
+        shard_spatial on this rank's stripe of ``images``, the outputs
+        whole."""
+        if self.stripes is not None:
+            images = self.stripes.take(images)
+            kw["stripes"] = self.stripes
         cams, sgcs, emb, logits = self.model(images.to(self.compute_dtype), **kw)
         return cams.float(), sgcs.float(), emb, logits.float()
 
@@ -251,6 +300,7 @@ class CamTTAEngine:
         classes only) and score (20,): the reference's npy contract."""
         if self.device_tta:
             return self._run_batch_device(images, names, labels)
+        self._no_stripes("the host-prep path (device_tta=False)")
         b = len(images)
         z = torch.zeros((b, self.out_side, self.out_side, self.num_classes), device=self.device)
         accs = {"cam": z, "sgc": z.clone(),
@@ -282,12 +332,18 @@ class CamTTAEngine:
             })
         return out
 
+    def _no_stripes(self, path: str) -> None:
+        if self.stripes is not None:
+            raise ValueError(f"{path} has no device canvas to split: shard_spatial runs the "
+                             "device path (device_tta=True, run_batch / run_stream)")
+
     # ---- exact mode --------------------------------------------------------
 
     def run_batch_exact(self, images, names, labels) -> list[dict]:
         """Parity TTA mode: images grouped by identical shape and run at
         their exact sizes (no canvas padding), the reference's per-image
         forwards batched."""
+        self._no_stripes("run_batch_exact")
         results: dict[int, dict] = {}
         nv = float(2 * len(self.scales))
         with torch.inference_mode():

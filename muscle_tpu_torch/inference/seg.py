@@ -14,6 +14,10 @@ Two input paths:
   multi-scale bicubic resize, normalisation and flip on the device;
 * ``device_tta=False``: PIL-prepped canvases per scale on the host, for
   parity checks.
+
+``shard_spatial`` (the device path only, float32): as ``CamTTAEngine``'s,
+each rank of a model group runs its stripe of every canvas and gets the
+whole logits back.
 """
 
 from __future__ import annotations
@@ -24,7 +28,13 @@ import torch
 from muscle_tpu_torch.core.resize import dynamic_window_resize
 from muscle_tpu_torch.data import transforms as T
 from muscle_tpu_torch.data.tta import msf_batch, scaled_size
-from muscle_tpu_torch.inference.cam import COMPUTE_DTYPES, _batch_canvas, _valid, scaled_pairs
+from muscle_tpu_torch.inference.cam import (
+    COMPUTE_DTYPES,
+    _batch_canvas,
+    _valid,
+    scaled_pairs,
+    spatial_stripes,
+)
 from muscle_tpu_torch.inference.upload import start_download, to_device
 from muscle_tpu_torch.models.efficientnet import advance_window, placement_offset
 
@@ -57,9 +67,10 @@ class SegTTAEngine:
         (device_tta only) resizes to the original size and takes the
         argmax on the device and downloads one uint8 map per image (argmax
         commutes with the mean; class gating needs 'probs').
-      mesh, shard_spatial: sharding one engine over several devices is not
-        ported: launch one engine per card with torchrun, each on its rows
-        of every batch (``cli/infer_seg.py``; ROADMAP Queue A item 7).
+      mesh, shard_spatial: ``parallel.make_mesh(model_axis=k)`` and True
+        split each canvas's height over this rank's model group
+        (``inference.cam.spatial_stripes`` for what raises); the batch's
+        split over the data axis is the caller's (``cli/infer_seg.py``).
       device: where the model runs: 'cuda' (default) or 'cpu'.
     """
 
@@ -71,10 +82,7 @@ class SegTTAEngine:
                  output: str = "probs", device: str | torch.device = "cuda"):
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype}: float32 or bfloat16")
-        if mesh is not None or shard_spatial:
-            raise NotImplementedError(
-                "mesh / shard_spatial (one engine over several devices) are not ported: run "
-                "one engine per card under torchrun (cli/infer_seg.py), ROADMAP Queue A item 7")
+        self.stripes = spatial_stripes(mesh, shard_spatial, compute_dtype)
         if out_side % accum_stride:
             raise ValueError("accum_stride must divide out_side")
         if download_dtype not in ("float32", "float16"):
@@ -121,8 +129,11 @@ class SegTTAEngine:
         place."""
         ch, cw = canvas_hw
         win = torch.cat([off, sizes], dim=-1)
+        kw = {}
+        if self.stripes is not None:  # this rank's stripe in, the whole logits out
+            images, kw["stripes"] = self.stripes.take(images), self.stripes
         seg, _ = self.model(images.to(self.compute_dtype), mode="seg_lowres",
-                            valid_window=win.repeat_interleave(2, dim=0))
+                            valid_window=win.repeat_interleave(2, dim=0), **kw)
         seg = seg.float()
         # stride-8 logits -> input-size logits, the reference's seg_map (exact:
         # the 1x1 head commutes with the bilinear upsample)
@@ -183,6 +194,9 @@ class SegTTAEngine:
 
     def _run_host(self, images, names, cls_gates):
         """The host-prep path: PIL-resized canvases per scale."""
+        if self.stripes is not None:
+            raise ValueError("the host-prep path (device_tta=False) has no device canvas to "
+                             "split: shard_spatial runs the device path")
         b = len(images)
         acc = self._new_acc(b)
         orig_sizes = None

@@ -25,7 +25,14 @@ is the layout cuDNN and the MBConv kernel both want.
 * the forward computes in its input's dtype, float32 or bfloat16, with
   float32 parameters, as Flax's ``dtype=bf16`` does (``models/layers.py``):
   convolutions and their outputs in bf16, batch norms in f32 rounded to
-  bf16, masks and the SE mean in bf16.
+  bf16, masks and the SE mean in bf16;
+* given ``stripes`` (``parallel/spatial.py``; float32 inference) the
+  forward runs on this rank's stripe of the canvas: each conv takes halo
+  rows from the neighbouring stripes (k//2 at stride 1, the static pad at
+  stride 2) and pads only its width, the window masks are taken in image
+  rows, and the SE means add the stripes' sums; from the first stride-2
+  conv whose stripes would not halve (``Stripes.can_halve``) the level is
+  gathered and the rest runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from muscle_tpu_torch.ops.mbconv import (
     fold_bn,
     kernel_operands,
     mbconv_stride1,
+    shift_rows,
     window_mask,
 )
 from muscle_tpu_torch.parallel.mesh import all_gather, all_reduce_sum, draw_rows, world
@@ -460,6 +468,49 @@ class MBConvBlock(nn.Module):
             out = out + inputs
         return out
 
+    def forward_stripe(self, x: torch.Tensor, stripes, win_in: torch.Tensor,
+                       win: torch.Tensor, se_count: torch.Tensor,
+                       fused: bool = False) -> torch.Tensor:
+        """Inference on this rank's stripe ``x`` (N, s, W, Cin) of a level
+        split over ``stripes``: win_in / win the (N, 4) windows at the
+        block's input / output grid in image rows, se_count the SE mean's
+        (N, 1, 1, 1) whole-window pixel count.  Returns the block's output
+        stripe.  The halo rows are exchanged on x (Cin channels, fewer
+        than the expanded Cmid); fused runs the MBConv kernel on the stripe
+        with its halo, the SE partials summed over the group."""
+        a = self.args
+        k, s = a.kernel_size, x.shape[1]
+        row0 = stripes.row0(s)
+        if fused and self.fusable():
+            p = k // 2
+            return mbconv_stride1(
+                stripes.halo(x, p, p).contiguous(), self.fused_weights(x.dtype),
+                shift_rows(win, row0 - p).contiguous(), k=k, has_expand=a.expand_ratio != 1,
+                has_skip=a.input_filters == a.output_filters, owned=(p, p + s),
+                se_sum=stripes.sum)
+        lo, hi = (k // 2, k // 2) if a.stride == 1 else _static_pad(k)
+        xe = stripes.halo(x, lo, hi)
+        h = _nchw(xe)
+        if a.expand_ratio != 1:
+            h = F.silu(self._bn0(self._expand_conv(h)))
+        # the window in the halo's rows: rows beyond the image are zero, as
+        # the whole image's conv pads them
+        h = h * _nchw(window_mask(xe.shape[1:3], win_in, h.dtype, row0=row0 - lo))
+        if a.stride == 1:  # the conv pads k//2 on both axes: keep the own rows
+            h = self._depthwise_conv(h)[:, :, lo:lo + s]
+        else:  # the halo is the height's static pad; pad the width
+            h = self._depthwise_conv(F.pad(h, (lo, hi, 0, 0)))
+        h = F.silu(self._bn1(h))
+        mask = _nchw(window_mask((h.shape[2], h.shape[3]), win, h.dtype,
+                                 row0=stripes.row0(h.shape[2])))
+        h = h * mask
+        se = stripes.sum(h.sum(dim=(2, 3), keepdim=True)) / _nchw(se_count)
+        h = torch.sigmoid(self._se_expand(F.silu(self._se_reduce(se)))) * h
+        out = _nhwc(self._bn2(self._project_conv(h)) * mask)
+        if a.id_skip and a.stride == 1 and a.input_filters == a.output_filters:
+            out = out + x
+        return out
+
 
 class EfficientNet(nn.Module):
     """EfficientNet feature-pyramid extractor: ``forward`` returns the list
@@ -479,7 +530,7 @@ class EfficientNet(nn.Module):
         self._blocks = nn.ModuleList(MBConvBlock(a) for a in self.block_args)
 
     def forward(self, x: torch.Tensor, valid_window: torch.Tensor | None = None,
-                generator: torch.Generator | None = None) -> list[torch.Tensor]:
+                generator: torch.Generator | None = None, stripes=None) -> list[torch.Tensor]:
         """x: (N, H, W, 3), in the compute dtype (float32 or bfloat16; every
         block output comes back in it).  valid_window: optional (N, 4) int
         (oy, ox, h, w) per-image windows inside the canvas, with (oy, ox)
@@ -487,7 +538,10 @@ class EfficientNet(nn.Module):
         per-stage window after every BN and SE pools over the window, which
         makes the canvas forward equal the unpadded one.  generator: where
         training's drop-connect draws (``drop_connect_rate`` 0 turns it
-        off)."""
+        off).  stripes: x is this rank's stripe of the canvas, valid_window
+        in canvas rows (``forward_stripes``)."""
+        if stripes is not None:
+            return self.forward_stripes(x, stripes, valid_window)
         lo, hi = _static_pad(3)
         h = F.pad(_nchw(x), (lo, hi, lo, hi))
         x = _nhwc(F.silu(self._bn0(self._conv_stem(h))))
@@ -510,5 +564,62 @@ class EfficientNet(nn.Module):
             x = block(x, drop_rate=rate, mask_in=mask_in, mask_out=mask, se_count=count,
                       fused=args.input_filters <= self.fuse_max_in_filters, window=win,
                       generator=generator)
+            pyramid.append(x)
+        return pyramid
+
+    def block_strides(self) -> list[int]:
+        """Each block output's stride in canvas pixels (the stem's 2 first)."""
+        out, stride = [], 2
+        for a in self.block_args:
+            stride *= a.stride
+            out.append(stride)
+        return out
+
+    def forward_stripes(self, x: torch.Tensor, stripes,
+                        valid_window: torch.Tensor | None = None) -> list[torch.Tensor]:
+        """Inference on this rank's stripe ``x`` (N, s, W, 3) of a canvas of
+        s x ``stripes.size`` rows (module docstring): the pyramid, each level
+        this rank's stripe, or whole from the level that was gathered on.
+        Without ``valid_window`` the whole canvas is the window, which masks
+        the halo rows beyond the image as the convs' zero padding would."""
+        if self.training or torch.is_grad_enabled():
+            raise RuntimeError("a striped forward is inference-only: eval mode under "
+                               "torch.inference_mode()")
+        if x.dtype != torch.float32:
+            raise NotImplementedError("spatial sharding runs float32 (bf16 under "
+                                      "shard_spatial: ROADMAP Queue A item 2)")
+        n, s, w, _ = x.shape
+        if not stripes.can_halve(s):
+            raise ValueError(f"a canvas of {s * stripes.size} rows does not split into "
+                             f"{stripes.size} stripes that halve through the stem")
+        win = valid_window
+        if win is None:
+            win = torch.zeros((n, 4), dtype=torch.int32, device=x.device)
+            win[:, 2], win[:, 3] = s * stripes.size, w
+        lo, hi = _static_pad(3)
+        h = F.pad(_nchw(stripes.halo(x, lo, hi)), (lo, hi, 0, 0))
+        x = _nhwc(F.silu(self._bn0(self._conv_stem(h))))
+        win = advance_window(win)
+        count = (win[:, 2] * win[:, 3]).to(x.dtype)[:, None, None, None]
+        x = x * window_mask(x.shape[1:3], win, x.dtype, row0=stripes.row0(x.shape[1]))
+
+        pyramid, mask = [], None  # mask: the level's, once it is whole
+        for args, block in zip(self.block_args, self._blocks):
+            fused = args.input_filters <= self.fuse_max_in_filters
+            win_in, mask_in = win, mask
+            if args.stride == 2:
+                if mask is None and not stripes.can_halve(x.shape[1]):
+                    x = stripes.gather(x)
+                    mask_in = window_mask(x.shape[1:3], win, x.dtype)
+                win = advance_window(win)
+                count = (win[:, 2] * win[:, 3]).to(x.dtype)[:, None, None, None]
+                if mask_in is not None:
+                    mask = window_mask(((x.shape[1] + 1) // 2, (x.shape[2] + 1) // 2), win,
+                                       x.dtype)
+            if mask is None:
+                x = block.forward_stripe(x, stripes, win_in, win, count, fused=fused)
+            else:
+                x = block(x, mask_in=mask_in, mask_out=mask, se_count=count, fused=fused,
+                          window=win)
             pyramid.append(x)
         return pyramid

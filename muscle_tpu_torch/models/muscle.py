@@ -17,6 +17,16 @@ and of a 'dec' model:
   'seg_lowres' -> (logits, p3_dec)           at the stride-8 p3 grid
   'vis'        -> (seg_map, p7)
 
+Spatial sharding (``forward(..., stripes=)``, float32 inference): the
+backbone runs on this rank's stripe of the canvas
+(``models/efficientnet.py``); the heads then run whole on every rank.  In
+'enc' modes the stride-16 levels p5 and p7 are gathered, and p1 (stride 2)
+and p3 (stride 8) are window-resized to the stride-16 grid on their
+stripes, the partial resizes summed over the group
+(``parallel.spatial.window_resize_ac``), so the large p1 never moves; the
+PCM's affinity is global over the stride-16 map.  In 'dec' modes p3..p7
+are gathered and the BiFPN and head run whole.
+
 The model computes in its input's dtype (float32, or bfloat16 as the JAX
 package's ``dtype=jnp.bfloat16``; ``models/layers.py``).  At bfloat16, as
 under jnp's promotion: the CAMs, the SGC and the logits come out in the
@@ -37,6 +47,7 @@ from muscle_tpu_torch.core.resize import batched_window_resize_ac, resize_biline
 from muscle_tpu_torch.models.bifpn import BiFPN
 from muscle_tpu_torch.models.efficientnet import EfficientNet, advance_window, window_mask
 from muscle_tpu_torch.models.layers import Conv2d
+from muscle_tpu_torch.parallel import spatial
 
 # Per-variant pyramid: (channels p1..p7, block indices p1..p7)
 ENC_MODES = ("logits", "cam", "pix", "cam_lowres")
@@ -135,12 +146,15 @@ class MuSCLe(nn.Module):
     def forward(self, x: torch.Tensor, mode: str = "cam",
                 valid_hw: torch.Tensor | None = None,
                 valid_window: torch.Tensor | None = None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, stripes=None):
         """x: (N, H, W, 3) normalised images.  valid_hw (enc modes): optional
         (N, 2) valid (h, w) inside a padded canvas, masking the GAP and the
         PCM normalisation.  valid_window: optional (N, 4) (oy, ox, h, w) for the
         window-exact canvas mode; supersedes valid_hw.  generator: where the
-        backbone's training-mode drop-connect draws."""
+        backbone's training-mode drop-connect draws.  stripes
+        (``parallel.spatial.Stripes``): x is this rank's stripe of the
+        canvas (the windows and sizes in canvas rows); the outputs are the
+        whole canvas's on every rank."""
         own = ENC_MODES if self.mode == "enc" else DEC_MODES
         if mode not in own:
             if mode in ENC_MODES + DEC_MODES:
@@ -148,7 +162,19 @@ class MuSCLe(nn.Module):
                                  f"{'dec' if self.mode == 'enc' else 'enc'!r}")
             raise ValueError(f"unknown mode {mode!r}")
         _, hh, ww, _ = x.shape
-        feats = self.backbone(x, valid_window=valid_window, generator=generator)
+        feats = self.backbone(x, valid_window=valid_window, generator=generator,
+                              stripes=stripes)
+        if stripes is not None:
+            hh *= stripes.size
+            strides = self.backbone.block_strides()
+            # the levels the heads take whole: dec p3..p7; enc p5 and p7, and
+            # p1 and p3 too where no window resize takes them on stripes
+            if self.mode == "dec":
+                need = self.p_seq[2:]
+            else:
+                need = self.p_seq[4::2] if valid_window is not None else self.p_seq[::2]
+            feats = [stripes.whole(f, hh // strides[i]) if i in need else f
+                     for i, f in enumerate(feats)]
         if self.mode == "dec":
             return self._decode([feats[i] for i in self.p_seq[2:]], mode, hh, ww, valid_window)
         p1, _, p3, _, p5, _, p7 = (feats[i] for i in self.p_seq)
@@ -164,8 +190,8 @@ class MuSCLe(nn.Module):
             w2 = advance_window(valid_window)
             w8 = advance_window(advance_window(w2))
             w16 = advance_window(w8)
-            f1 = F.relu(batched_window_resize_ac(p1, w2, w16, hw7))
-            f2 = F.relu(batched_window_resize_ac(p3, w8, w16, hw7))
+            f1 = F.relu(self._window_resize(p1, w2, w16, hw7, hh // 2, stripes))
+            f2 = F.relu(self._window_resize(p3, w8, w16, hw7, hh // 8, stripes))
         else:
             f1 = F.relu(resize_to(p1, p7, align_corners=True))
             f2 = F.relu(resize_to(p3, p7, align_corners=True))
@@ -188,6 +214,14 @@ class MuSCLe(nn.Module):
         if mode == "pix":
             return cams, sgc
         return cams, sgc, emb, self._logits(emb)
+
+    @staticmethod
+    def _window_resize(p, src_win, dst_win, hw, rows: int, stripes):
+        """``batched_window_resize_ac`` of level ``p`` (``rows`` canvas
+        rows), on its stripes where it is split (``spatial.window_resize_ac``)."""
+        if stripes is None or p.shape[1] == rows:
+            return batched_window_resize_ac(p, src_win, dst_win, hw)
+        return spatial.window_resize_ac(p, src_win, dst_win, hw, stripes)
 
     def _decode(self, feats5, mode: str, hh: int, ww: int, valid_window):
         """BiFPN + segmentation head over p3..p7.  With ``valid_window``

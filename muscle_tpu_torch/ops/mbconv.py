@@ -31,6 +31,7 @@ are zero-padded for the kernel to multiples of 8 (f32) or 16 (bf16)
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -69,10 +70,12 @@ def full_window(x: torch.Tensor) -> torch.Tensor:
     return win
 
 
-def window_mask(hw: tuple[int, int], win: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+def window_mask(hw: tuple[int, int], win: torch.Tensor, dtype=torch.float32,
+                row0: int = 0) -> torch.Tensor:
     """(N, H, W, 1) indicator of the per-image valid windows ``win``
-    ((N, 4) int (oy, ox, h, w)) inside an (H, W) canvas."""
-    rows = torch.arange(hw[0], device=win.device)[None, :, None]
+    ((N, 4) int (oy, ox, h, w)) inside an (H, W) canvas, or inside rows
+    row0 .. row0 + H - 1 of a taller one (a stripe, ``parallel/spatial.py``)."""
+    rows = torch.arange(row0, row0 + hw[0], device=win.device)[None, :, None]
     cols = torch.arange(hw[1], device=win.device)[None, None, :]
     oy, ox = win[:, 0, None, None], win[:, 1, None, None]
     m = ((rows >= oy) & (rows < oy + win[:, 2, None, None])
@@ -80,17 +83,44 @@ def window_mask(hw: tuple[int, int], win: torch.Tensor, dtype=torch.float32) -> 
     return m[..., None].to(dtype)
 
 
-def mbconv_stride1_plain(x, weights, window, *, k: int, has_expand: bool,
-                         has_skip: bool) -> torch.Tensor:
-    """The block in plain PyTorch ops, with the kernel's folding and
-    masking: the CPU path of ``mbconv_stride1`` and its reference on the
-    card.  A bfloat16 ``x`` takes the bf16 version (``_plain_bf16``)."""
-    if x.dtype == torch.bfloat16:
-        return _plain_bf16(x, weights, window, k=k, has_expand=has_expand, has_skip=has_skip)
-    b, h, w, _ = x.shape
+def shift_rows(win: torch.Tensor, dy: int) -> torch.Tensor:
+    """(B, 4) int32 windows ``win`` with their first row moved up by ``dy``:
+    the window of a stripe whose row 0 is row ``dy`` of the image (its h
+    stays the image's, so the SE mean divides by the whole window)."""
+    out = win.to(torch.int32).clone()
+    out[:, 0] -= dy
+    return out
+
+
+@dataclasses.dataclass
+class MBConvPartial:
+    """A block call between its two stages: ``part`` (B, n, Cmid') float32
+    holds the SE sums of the depthwise output ``d`` over the call's own
+    rows, ``n`` per image (the kernel's tiles, or 1).  Made by
+    ``mbconv_stride1_begin`` or ``_plain_begin``; where x is a stripe of
+    an image split over several ranks, the caller adds ``part`` over them
+    before ``mbconv_stride1_end``."""
+    x: torch.Tensor
+    weights: dict
+    win: torch.Tensor
+    d: torch.Tensor
+    part: torch.Tensor
+    has_skip: bool
+    owned: tuple[int, int] | None
+    cout: int = 0
+    kernel: dict | None = None  # the kernel's operands on a card
+
+
+def _plain_begin(x, wd, window, *, k: int, has_expand: bool, has_skip: bool,
+                 owned=None) -> MBConvPartial:
+    """The plain expand + depthwise (float32): ``d`` and its SE sums over
+    the rows ``owned`` (all rows when None), (B, 1, Cmid)."""
+    if x.dtype != torch.float32:
+        raise NotImplementedError("the bf16 plain version runs in one piece: "
+                                  "mbconv_stride1_plain")
+    h, w = x.shape[1:3]
     win = full_window(x) if window is None else window
     mask = window_mask((h, w), win)
-    wd = weights
     if has_expand:
         e = F.silu(x @ wd["w_exp"] * wd["s0"] + wd["b0"])
     else:
@@ -100,14 +130,38 @@ def mbconv_stride1_plain(x, weights, window, *, k: int, has_expand: bool,
     kern = wd["w_dw"].t().reshape(cmid, 1, k, k)
     dw = F.conv2d(e.permute(0, 3, 1, 2), kern, padding=k // 2, groups=cmid)
     d = F.silu(dw.permute(0, 2, 3, 1) * wd["s1"] + wd["b1"]) * mask
+    lo, hi = (0, h) if owned is None else owned
+    return MBConvPartial(x, wd, win, d, d[:, lo:hi].sum(dim=(1, 2))[:, None], has_skip, owned)
+
+
+def _plain_end(p: MBConvPartial) -> torch.Tensor:
+    """The plain SE gate from ``p.part`` and the project: y of the rows
+    ``p.owned`` (all rows when None)."""
+    wd, win = p.weights, p.win
+    mask = window_mask(p.x.shape[1:3], win)
     count = (win[:, 2] * win[:, 3]).to(torch.float32)[:, None]
-    se = d.sum(dim=(1, 2)) / count
+    se = p.part.sum(dim=1) / count
     sq = F.silu(se @ wd["w_se_r"] + wd["b_se_r"])
     gate = torch.sigmoid(sq @ wd["w_se_e"] + wd["b_se_e"])
-    y = ((d * gate[:, None, None, :]) @ wd["w_proj"] * wd["s2"] + wd["b2"]) * mask
-    if has_skip:
-        y = y + x
-    return y
+    y = ((p.d * gate[:, None, None, :]) @ wd["w_proj"] * wd["s2"] + wd["b2"]) * mask
+    if p.has_skip:
+        y = y + p.x
+    return y if p.owned is None else y[:, p.owned[0]:p.owned[1]]
+
+
+def mbconv_stride1_plain(x, weights, window, *, k: int, has_expand: bool, has_skip: bool,
+                         owned=None, se_sum=None) -> torch.Tensor:
+    """The block in plain PyTorch ops, with the kernel's folding and
+    masking: the CPU path of ``mbconv_stride1`` and its reference on the
+    card (``owned`` and ``se_sum`` as there).  A bfloat16 ``x`` takes the
+    bf16 version (``_plain_bf16``), whole images only."""
+    if x.dtype == torch.bfloat16 and owned is None:
+        return _plain_bf16(x, weights, window, k=k, has_expand=has_expand, has_skip=has_skip)
+    p = _plain_begin(x, weights, window, k=k, has_expand=has_expand, has_skip=has_skip,
+                     owned=owned)
+    if se_sum is not None:
+        se_sum(p.part)
+    return _plain_end(p)
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -186,8 +240,11 @@ def _lib():
     lib = build.load("mbconv")
     if not getattr(lib, "_typed", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for fn in (lib.mbconv_stride1_f32, lib.mbconv_stride1_bf16):
-            fn.argtypes = [ptr] * 19 + [i32] * 10 + [ptr]
+        for fn in (lib.mbconv_expand_dw_f32, lib.mbconv_expand_dw_bf16):
+            fn.argtypes = [ptr] * 10 + [i32] * 9 + [ptr]
+            fn.restype = i32
+        for fn in (lib.mbconv_se_project_f32, lib.mbconv_se_project_bf16):
+            fn.argtypes = [ptr] * 13 + [i32] * 8 + [ptr]
             fn.restype = i32
         lib.mbconv_partials_per_image.argtypes = [i32] * 4
         lib.mbconv_partials_per_image.restype = i32
@@ -268,7 +325,8 @@ def kernel_operands(weights: dict, has_expand: bool) -> dict:
 
 
 def mbconv_stride1(x: torch.Tensor, weights: dict, window: torch.Tensor | None, *,
-                   k: int, has_expand: bool, has_skip: bool) -> torch.Tensor:
+                   k: int, has_expand: bool, has_skip: bool, owned=None,
+                   se_sum=None) -> torch.Tensor:
     """Inference stride-1 MBConv block on NHWC ``x`` (B, H, W, Cin),
     float32 or bfloat16; y comes back in x's dtype.
 
@@ -277,61 +335,117 @@ def mbconv_stride1(x: torch.Tensor, weights: dict, window: torch.Tensor | None, 
     x's dtype and the rest float32.  window: (B, 4) int32 (oy, ox, h, w)
     valid windows, or None for whole images.
 
+    owned: (lo, hi) when x is a stripe of a taller image with halo rows
+    above and below (float32; ``parallel/spatial.py``): only rows lo .. hi - 1
+    are this call's, ``window`` is in x's rows (``shift_rows``), the SE
+    sums of those rows, (B, 1, Cmid') float32, go through ``se_sum`` (in
+    place: ``Stripes.sum`` adds the other stripes' sums) and are divided
+    by the whole window's count, and y comes back for those rows only.
+
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (building it on first use) or raises.  ``mbconv_stride1.launches``
-    counts float32 kernel launches, ``mbconv_stride1.launches_bf16`` the
-    bfloat16 ones."""
+    counts float32 kernel calls, ``mbconv_stride1.launches_bf16`` the
+    bfloat16 ones: one a block call, its two entries (``_begin``, ``_end``)
+    together."""
+    kw = dict(k=k, has_expand=has_expand, has_skip=has_skip, owned=owned)
+    if x.device.type == "cpu":
+        _check_call(x, weights, window, **kw)
+        return mbconv_stride1_plain(x, weights, window, se_sum=se_sum, **kw)
+    p = mbconv_stride1_begin(x, weights, window, **kw)
+    if se_sum is not None:
+        se_sum(p.part)
+    return mbconv_stride1_end(p)
+
+
+def _check_call(x, weights, window, *, k, has_expand, has_skip, owned) -> dict:
     if x.requires_grad:
         raise RuntimeError("mbconv_stride1 is inference-only (the kernel has no "
                            "backward); call it under torch.inference_mode()")
     dims = _check(x, weights, window, k, has_expand, has_skip)
+    if owned is not None:
+        if x.dtype != torch.float32:
+            raise NotImplementedError("a stripe at bfloat16: spatial sharding runs float32 "
+                                      "(ROADMAP Queue A item 2)")
+        if not 0 <= owned[0] < owned[1] <= x.shape[1]:
+            raise ValueError(f"owned rows {owned} outside x's {x.shape[1]} rows")
+    return dims
+
+
+def mbconv_stride1_begin(x: torch.Tensor, weights: dict, window: torch.Tensor | None, *,
+                         k: int, has_expand: bool, has_skip: bool,
+                         owned=None) -> MBConvPartial:
+    """The block's first stage (``mbconv_stride1``'s arguments): on a card
+    the kernel's launch (a), ``d`` and the SE partial sums of the rows
+    ``owned`` (summed over its tiles to one per image when ``owned`` is
+    given); on the CPU the plain version's (float32)."""
+    dims = _check_call(x, weights, window, k=k, has_expand=has_expand, has_skip=has_skip,
+                       owned=owned)
     if x.device.type == "cpu":
-        return mbconv_stride1_plain(x, weights, window, k=k, has_expand=has_expand,
-                                    has_skip=has_skip)
+        return _plain_begin(x, weights, window, k=k, has_expand=has_expand, has_skip=has_skip,
+                            owned=owned)
     if x.device.type != "cuda":
         raise ValueError(f"mbconv_stride1 runs on cpu or cuda, not {x.device}")
     lib = _lib()
-    cout = dims["Cout"]
     win = full_window(x) if window is None else window
-    bf16 = x.dtype == torch.bfloat16
     x8 = _pad_dims(x, ("B", "H", "W", "Cin"), {"Cin"}, channel_multiple(x.dtype))
     wd = _pad_channels(weights, has_expand)
     b, h, w, cin8 = x8.shape
-    cmid8, cout8, csq = wd["w_dw"].shape[1], wd["w_proj"].shape[1], dims["Csq"]
+    cmid8, cout8 = wd["w_dw"].shape[1], wd["w_proj"].shape[1]
     want = _kernel_operand_shapes(cin8, cmid8, cout8, x.dtype)
     kt = {n: weights.get(n) for n in KERNEL_OPERANDS if has_expand or n != "w_exp_kt"}
     if any(t is None or tuple(t.shape) != want[n] or t.device != x.device
            or t.dtype != x.dtype for n, t in kt.items()):
         kt = kernel_operands(weights, has_expand)
     ntiles = lib.mbconv_partials_per_image(h, w, k, int(has_expand))
+    d = torch.empty((b, h, w, cmid8), dtype=x.dtype, device=x.device)
+    part = torch.empty((b, ntiles, cmid8), dtype=torch.float32, device=x.device)
+    lo, hi = (0, h) if owned is None else owned
+    rc = (lib.mbconv_expand_dw_bf16 if x.dtype == torch.bfloat16 else lib.mbconv_expand_dw_f32)(
+        _ptr(x8), _ptr(win), _ptr(kt.get("w_exp_kt")), _ptr(wd.get("s0")), _ptr(wd.get("b0")),
+        _ptr(wd["w_dw"]), _ptr(wd["s1"]), _ptr(wd["b1"]), _ptr(d), _ptr(part),
+        b, h, w, cin8, cmid8, k, int(has_expand), lo, hi, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"mbconv kernel launch failed: {lib.mbconv_error_string(rc).decode()}")
+    if owned is not None:  # one partial per image, for the sum over the stripes
+        part = part.sum(dim=1, keepdim=True)
+    return MBConvPartial(x8, wd, win, d, part, has_skip, owned, cout=dims["Cout"], kernel=kt)
 
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=x.device)
 
-    d, part = empty(b, h, w, cmid8, dtype=x.dtype), empty(b, ntiles, cmid8)
-    gate, y = empty(b, cmid8), empty(b, h, w, cout8, dtype=x.dtype)
-    none = ctypes.c_void_p(0)
-
-    def p(t):
-        return ctypes.c_void_p(t.data_ptr()) if t is not None else none
-
-    launch = lib.mbconv_stride1_bf16 if bf16 else lib.mbconv_stride1_f32
-    rc = launch(
-        p(x8), p(win), p(kt.get("w_exp_kt")),
-        p(wd.get("s0") if has_expand else None), p(wd.get("b0") if has_expand else None),
-        p(wd["w_dw"]), p(wd["s1"]), p(wd["b1"]), p(wd["w_se_r"]), p(wd["b_se_r"]),
-        p(wd["w_se_e"]), p(wd["b_se_e"]), p(kt["w_proj_kt"]), p(wd["s2"]), p(wd["b2"]),
-        p(d), p(part), p(gate), p(y),
-        b, h, w, cin8, cmid8, csq, cout8, k, int(has_expand), int(has_skip),
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
-    )
+def mbconv_stride1_end(p: MBConvPartial) -> torch.Tensor:
+    """The block's second stage: on a card the kernel's launches (b) and
+    (c), the SE gate from ``p.part`` and the project; y of the rows
+    ``p.owned`` (all rows when None), in x's dtype."""
+    if p.x.device.type == "cpu":
+        return _plain_end(p)
+    lib = _lib()
+    wd, x8 = p.weights, p.x
+    b, h, w, _ = x8.shape
+    cmid8, cout8, csq = wd["w_dw"].shape[1], wd["w_proj"].shape[1], wd["w_se_r"].shape[1]
+    gate = torch.empty((b, cmid8), dtype=torch.float32, device=x8.device)
+    y = torch.empty((b, h, w, cout8), dtype=x8.dtype, device=x8.device)
+    bf16 = x8.dtype == torch.bfloat16
+    rc = (lib.mbconv_se_project_bf16 if bf16 else lib.mbconv_se_project_f32)(
+        _ptr(x8), _ptr(p.win), _ptr(p.part), _ptr(wd["w_se_r"]), _ptr(wd["b_se_r"]),
+        _ptr(wd["w_se_e"]), _ptr(wd["b_se_e"]), _ptr(p.kernel["w_proj_kt"]), _ptr(wd["s2"]),
+        _ptr(wd["b2"]), _ptr(p.d), _ptr(gate), _ptr(y),
+        b, h, w, cmid8, csq, cout8, p.part.shape[1], int(p.has_skip), _stream(x8))
     if rc != 0:
         raise RuntimeError(f"mbconv kernel launch failed: {lib.mbconv_error_string(rc).decode()}")
     if bf16:
         mbconv_stride1.launches_bf16 += 1
     else:
         mbconv_stride1.launches += 1
-    return y if cout8 == cout else y[..., :cout].contiguous()
+    if p.owned is not None:
+        y = y[:, p.owned[0]:p.owned[1]]
+    return y if cout8 == p.cout else y[..., :p.cout].contiguous()
+
+
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def _stream(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
 
 mbconv_stride1.launches = 0

@@ -29,12 +29,17 @@ card; gloo copies CUDA tensors through host memory itself).  Every
 exchange is ``all_reduce``, ``all_gather`` (list form) or ``broadcast``,
 which both backends take on CUDA and CPU tensors.
 
-Not ported: ``spatial_sharding`` (GSPMD's halo-exchanged convolutions);
-the engines' in-process ``mesh=`` (a rank runs its own engine instead).
+Spatial sharding (``make_mesh(model_axis=k)``, the JAX package's
+``spatial_sharding``): the ranks form a (W / k data) x (k model) grid, k
+consecutive ranks a model group that splits each image's height into k
+stripes (``parallel/spatial.py``: halo exchanges and cross-stripe sums in
+place of GSPMD's).  Not ported: an engine's in-process data-parallel
+``mesh=`` (a rank runs its own engine on its rows instead).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
 import sys
@@ -262,3 +267,47 @@ def shutdown(group=None) -> None:
     """Leave the process group (a no-op for one process)."""
     if group is not None:
         dist.destroy_process_group()
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The ('data', 'model') grid of ranks of ``make_mesh``: ``shape``
+    {'data': W / k, 'model': k}; this rank's coordinates; ``data_group``,
+    the ranks that share this rank's model coordinate (one a data row:
+    the batch is split over them, ``rank_rows``), and ``model_group``,
+    the k ranks of this rank's data row (one image's stripes).  A group
+    of one rank is None, as everywhere in this module."""
+    shape: dict
+    data_index: int
+    model_index: int
+    data_group: object = None
+    model_group: object = None
+
+
+def make_mesh(model_axis: int = 1) -> Mesh:
+    """The counterpart of the JAX package's ``make_mesh(model_axis=k)``
+    over the ranks of the default process group (one process without
+    one): the ranks reshaped to (W / k, k), so a model group is k
+    consecutive ranks.  Every rank calls it, in the same order as its
+    other group constructions.  Raises ValueError where k does not divide
+    the ranks (one process with k > 1 among them)."""
+    on = dist.is_available() and dist.is_initialized()
+    n, me = (dist.get_world_size(), dist.get_rank()) if on else (1, 0)
+    if model_axis < 1 or n % model_axis:
+        raise ValueError(f"{n} ranks not divisible by model axis {model_axis}")
+    rows = n // model_axis
+    groups = {}
+    if model_axis > 1:  # dist.new_group on every rank, for every group
+        for d in range(rows):
+            ranks = list(range(d * model_axis, (d + 1) * model_axis))
+            g = dist.new_group(ranks)
+            if me in ranks:
+                groups["model"] = g
+    if rows > 1:
+        for m in range(model_axis):
+            ranks = list(range(m, n, model_axis))
+            g = dist.new_group(ranks)
+            if me in ranks:
+                groups["data"] = g
+    return Mesh({"data": rows, "model": model_axis}, me // model_axis, me % model_axis,
+                groups.get("data"), groups.get("model"))

@@ -213,7 +213,11 @@ def test_infer_mcl_accepts_spatial_0_and_1(mini_voc, checkpoint, tmp_path, spati
 
 
 def test_infer_mcl_rejects_spatial_above_1(mini_voc, checkpoint, tmp_path):
+    """--spatial k > 1 needs a multiple of k ranks (torchrun): one process
+    raises, as the JAX CLI's make_mesh does on too few devices, and never
+    runs unsharded (test_torch_spatial.py runs it on 2 ranks)."""
     root, _ = mini_voc
     ckpt, _ = checkpoint
-    with pytest.raises(NotImplementedError, match="spatial"):
+    with pytest.raises(ValueError, match="not divisible by model axis 2"):
         infer_mcl.main(_cli_args(root, ckpt, tmp_path / "x", "--spatial", "2"))
+    assert not (tmp_path / "x_sgc").exists()

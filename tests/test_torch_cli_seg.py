@@ -135,9 +135,12 @@ def test_infer_seg_writes_pngs_equal_to_engine(mini_voc, checkpoint, tmp_path, c
 
 
 def test_infer_seg_rejects_spatial(mini_voc, checkpoint):
+    """--spatial k > 1 needs a multiple of k ranks (torchrun): one process
+    raises and never runs unsharded (test_torch_spatial.py runs it on 2
+    ranks)."""
     root, _ = mini_voc
     ckpt, _ = checkpoint
-    with pytest.raises(NotImplementedError, match="spatial"):
+    with pytest.raises(ValueError, match="not divisible by model axis 2"):
         infer_seg.main(["--weights", str(ckpt), "--infer_list", str(root / "list.txt"),
                         "--spatial", "2", "--device", "cpu"])
 

@@ -101,6 +101,41 @@ def test_mbconv_kernel_matches_plain(cuda, case):
     assert torch.equal(got, again)
 
 
+def stripes_by_hand(x, wd, win, kw, n):
+    """The block on ``n`` stripes of x in one process (parallel/spatial.py's
+    split): each stripe with its k//2 halo rows (zeros beyond the image)
+    and its window in stripe rows, the first stage on every stripe, the SE
+    partials of the stripes' own rows summed by hand, then the second
+    stage; the stripes' rows concatenated."""
+    p, h = kw["k"] // 2, x.shape[1]
+    s = h // n
+    xp = torch.nn.functional.pad(x, (0, 0, 0, 0, p, p))
+    parts = [M.mbconv_stride1_begin(xp[:, r * s: r * s + s + 2 * p].contiguous(), wd,
+                                    M.shift_rows(win, r * s - p).contiguous(),
+                                    owned=(p, p + s), **kw) for r in range(n)]
+    total = sum(q.part for q in parts)
+    for q in parts:
+        q.part = total
+    return torch.cat([M.mbconv_stride1_end(q) for q in parts], dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["windowed", "no_expand_k5", "wide", "many_tiles_expand",
+                                  "b7_grid448"])
+def test_mbconv_kernel_on_stripes_matches_plain(cuda, case):
+    """The kernel's two stages on 2 stripes, the SE partials of each
+    stripe's own rows summed between them, against the plain version on
+    the whole image."""
+    block, x, win, kw = _case(case, cuda)
+    if win is None:
+        win = M.full_window(x)
+    with torch.inference_mode():
+        got = stripes_by_hand(x, block.fused_weights(), win, kw, 2)
+        want = M.mbconv_stride1_plain(x, block.fused_weights(), win, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_mbconv_bf16_kernel_matches_plain(cuda, case):

@@ -14,6 +14,7 @@ from muscle_tpu.models import MuSCLe as JMuSCLe
 from muscle_tpu_torch.data.transforms import color_norm
 from muscle_tpu_torch.inference import SegTTAEngine
 from muscle_tpu_torch.models import MuSCLe, calibrate_seg_head, init_weights
+from muscle_tpu_torch.parallel import make_mesh
 
 # the JAX package's seg engine bounds (test_inference.py), tightened to what
 # f32 on both sides gives: probabilities through the same resizes in f32,
@@ -155,8 +156,13 @@ def test_seg_engine_rejects_unsupported_options(models):
                         device="cpu").compute_dtype == torch.bfloat16
     with pytest.raises(ValueError, match="bfloat16"):
         SegTTAEngine(model, compute_dtype=torch.float16, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # shard_spatial without a mesh raises as the JAX engine does
+    # (test_torch_spatial.py runs it on a mesh); a mesh without
+    # shard_spatial (an in-process data-parallel engine) is not ported
+    with pytest.raises(ValueError, match="requires a mesh"):
         SegTTAEngine(model, shard_spatial=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        SegTTAEngine(model, mesh=make_mesh(), device="cpu")
     with pytest.raises(ValueError):
         SegTTAEngine(model, output="labels", device_tta=False, device="cpu")
     with pytest.raises(ValueError):
