@@ -18,6 +18,8 @@ synthetic VOC tree.
     python3 chip_smoke.py --phases build,train_mcl_bf16,train_seg_bf16
     python3 chip_smoke.py --phases build,dp              # data parallelism alone
     python3 chip_smoke.py --phases build,spatial         # spatial sharding alone
+    python3 chip_smoke.py --phases build,kernels,spatial # with the bf16 stripes' kernel check
+    python3 chip_smoke.py --phases build,device_exec     # device-only rates of the engines
     python3 chip_smoke.py --phases build,kernels,gates   # the CLIs and gates 4-6
 
 Phases:
@@ -49,7 +51,9 @@ Phases:
            kernel on stripes (each b3 and b7 shape split into 2 and 4
            stripes in one process, each with its halo rows, the SE
            partials of the stripes' own rows summed by hand between the
-           kernel's two stages) against the plain version (1e-4);
+           kernel's two stages) against the plain version (1e-4), and the
+           bf16 instantiation on stripes the same way against the bf16
+           plain version (2^-7 of its output's largest value);
   main     run CamTTAEngine over synthetic VOC-shaped images at scales
            0.5/1/1.5/2 with MuSCLe-b3 (fuse_mbconv=384, float32, seeded
            random weights), count the kernel launches, and hold the
@@ -165,7 +169,10 @@ Phases:
            engine (b3, --fast 0) over 2 batches of 8 and the seg engine
            (b7) over 1 batch of 4, each rank on its rows of every batch,
            collected and held to the one-process engine (the main and seg
-           phases' rules), the MBConv launches of each rank; and
+           phases' rules), the MBConv launches of each rank; the same
+           engines with mesh=make_mesh(), every rank given each global
+           batch and returning the whole batch's records (bit-identical
+           on every rank, held to one process by the same rules); and
            propagate_to_edge_sharded at grid 128 (V 16384, T 1 GiB, V / W
            columns a rank), 64 steps, against the one-card dense walk
            (1e-5 of its largest value);
@@ -173,16 +180,29 @@ Phases:
            infer_mcl's defaults (b3, fused, --fast 1) on batches of 1 and
            8 images and the seg engine at infer_seg's without the CRF (b7
            + BiFPN 3 x 256, six scales x flip, f16 probabilities) on
-           batches of 1 and 4, with each canvas's height split over a
-           model group: 2 ranks sharing card 0 over gloo and, where there
-           are several cards, 4 (or 2) one a card over NCCL as 1 x 4 and
-           2 x 2 meshes, each a spawned process; every rank of a group
-           returns the same records, held to one process on card 0 (the
-           main and seg phases' rules), 23 MBConv launches a b3 forward
-           and 48 a b7 forward on every rank; each batch's latency beside
-           one process's, images/s, the exchanges a forward (count,
-           bytes, ms with the device synchronised around each) and peak
-           memory a rank;
+           batches of 1 and 4, in f32 and in bf16, with each canvas's
+           height split over a model group: 2 ranks sharing card 0 over
+           gloo and, where there are several cards, 4 (or 2) one a card
+           over NCCL as 1 x 4 and 2 x 2 meshes, each a spawned process
+           given every whole batch (the engine splits it over the data
+           rows); every rank returns the same records, held to one
+           process on card 0 (f32: the main and seg phases' rules; bf16:
+           the bf16 phase's against one process's bf16 engine), 23
+           MBConv launches a b3 forward and 48 a b7 forward on every rank
+           (the bf16 instantiation's for the bf16 engines); each batch's
+           latency beside one process's, images/s, the exchanges a
+           forward (count, bytes, ms with the device synchronised around
+           each) and peak memory a rank;
+  device_exec
+           each engine's bench_device_exec (the host prep and upload once,
+           then the device pipeline alone on resident tensors) at the
+           main phase's CAM configuration (b3, --fast 0), the bf16
+           phase's CamBench one, the seg phase's --fast 1 labels one and
+           the irn phase's: one call's launches (92 MBConv a CAM batch of
+           8, 288 a seg batch of 4, one stencil walk an IRN batch) and its
+           buffer against the engine's own result, 10 chained calls timed
+           by CUDA events (device-only images/s) beside the engine's
+           streaming rate over 4 copies of the batch;
   gates    the port's CLIs as a user runs them, each its own process
            (python -m), on a synthetic VOC tree (gates.build_synthetic_voc)
            of 16 images of 375-500 px: prints PIL.__version__; infer_mcl at
@@ -438,6 +458,9 @@ SPATIAL_CAM_FAST = dict(accum_stride=4, download_dtype="uint8", tight_upload=Tru
                         upload_mode="ycbcr420")
 SPATIAL_SEG_FAST = dict(accum_stride=4, download_dtype="float16", tight_upload=True,
                         upload_mode="ycbcr420")
+# device_exec phase: chained closure calls timed after one warm-up, and the
+# copies of the batch the streaming rate beside it runs
+DEVICE_EXEC_REPS, DEVICE_EXEC_STREAM_BATCHES = 10, 4
 
 
 def log(msg: str) -> None:
@@ -651,36 +674,41 @@ def _check_mbconv_bf16(blocks: dict, batch: int, scales, canvas, f32_ms: dict) -
     return total
 
 
-def _check_mbconv_owned(blocks: dict, batch: int, scales, canvas) -> float:
+def _check_mbconv_owned(blocks: dict, batch: int, scales, canvas,
+                        dtype: str = "float32") -> float:
     """The MBConv kernel on stripes, in one process: each windowed shape's
     image split into SPATIAL_SPLITS stripes, each with its k//2 halo rows
     (zeros beyond the image) and its window in stripe rows; launch (a) on
     every stripe (the SE partials of its own rows), the partials summed by
     hand, then launches (b) and (c) on every stripe; the stripes' rows
-    together held to the plain version on the whole image (KERNEL_TOL).
-    Returns the largest error."""
+    together held to the plain version on the whole image: KERNEL_TOL at
+    float32, BF16_REL of the plain output's largest value for the bf16
+    instantiation.  Returns the largest error (relative to that largest
+    value at bf16)."""
     import torch
     import torch.nn.functional as F
 
     from muscle_tpu_torch.ops import mbconv as M
 
-    dev = torch.device("cuda")
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
     gen = torch.Generator().manual_seed(0)
     xgen = torch.Generator(device=dev).manual_seed(0)
     worst = 0.0
     for name, (stride, cin, cout, expand, k) in blocks.items():
         block = _random_block(cin, cout, expand, k, gen, dev)
-        wd = block.fused_weights()
+        wd = block.fused_weights(dt)
         kw = dict(k=k, has_expand=expand != 1, has_skip=cin == cout)
         p = k // 2
         for scale in scales:
             ch, cw = canvas(scale)
             h, w = ch // stride, cw // stride
-            x = torch.randn((batch, h, w, cin), generator=xgen, device=dev)
+            x = torch.randn((batch, h, w, cin), generator=xgen, device=dev).to(dt)
             win = _windows(stride, scale, dev, batch)
             errs = {}
             with torch.inference_mode():
                 want = M.mbconv_stride1_plain(x, wd, win, **kw)
+                tol = KERNEL_TOL if dt == torch.float32 else BF16_REL * float(
+                    want.float().abs().max())
                 xp = F.pad(x, (0, 0, 0, 0, p, p))
                 for n in SPATIAL_SPLITS:
                     s = h // n
@@ -695,15 +723,17 @@ def _check_mbconv_owned(blocks: dict, batch: int, scales, canvas) -> float:
                         q.part = total
                     got = torch.cat([M.mbconv_stride1_end(q) for q in parts], dim=1)
                     torch.cuda.synchronize()
-                    errs[n] = float((got - want).abs().max())
-            print(json.dumps({"kernel": "mbconv_stride1", "owned_rows": True, "block": name,
-                              "scale": scale, "B": batch, "H": h, "W": w, "k": k,
-                              "stripes": list(SPATIAL_SPLITS),
-                              "max_abs_err": [errs[n] for n in SPATIAL_SPLITS]}), flush=True)
-            if not max(errs.values()) <= KERNEL_TOL:
-                raise AssertionError(f"{name} scale {scale} on stripes: max_abs_err {errs} > "
-                                     f"{KERNEL_TOL}")
-            worst = max(worst, *errs.values())
+                    errs[n] = float((got.float() - want.float()).abs().max())
+            print(json.dumps({"kernel": "mbconv_stride1" if dt == torch.float32 else "mbconv_bf16",
+                              "owned_rows": True, "block": name, "scale": scale, "B": batch,
+                              "H": h, "W": w, "k": k, "stripes": list(SPATIAL_SPLITS),
+                              "max_abs_err": [errs[n] for n in SPATIAL_SPLITS], "tol": tol}),
+                  flush=True)
+            if not (max(errs.values()) <= tol and got.dtype == dt):
+                raise AssertionError(f"{dtype} {name} scale {scale} on stripes: max_abs_err "
+                                     f"{errs} > {tol}")
+            worst = max(worst, *(e if dt == torch.float32 else e / (tol / BF16_REL)
+                                 for e in errs.values()))
             del x, xp, want
         del block, wd
         torch.cuda.empty_cache()
@@ -912,8 +942,12 @@ def phase_kernels() -> dict:
                                             b7_raw["shape_ms"]))
     owned = max(_check_mbconv_owned(B3_BLOCKS, TTA_BATCH, (1.0, 2.0), b3_canvas),
                 _check_mbconv_owned(B7_BLOCKS, SEG_BATCH, (1.0, 1.75), b7_canvas))
+    owned_16 = max(_check_mbconv_owned(B3_BLOCKS, TTA_BATCH, (1.0, 2.0), b3_canvas, "bfloat16"),
+                   _check_mbconv_owned(B7_BLOCKS, SEG_BATCH, (1.0, 1.75), b7_canvas,
+                                       "bfloat16"))
     print(json.dumps({"mbconv_b3_cam_windowed_total": b3, "mbconv_b7_seg_windowed_total": b7,
                       "mbconv_owned_rows_max_abs_err": owned,
+                      "mbconv_bf16_owned_rows_max_rel_err": owned_16,
                       "mbconv_b1_gates_windowed_total": b1,
                       "mbconv_bf16_b3_cam_windowed_total": b3_16,
                       "mbconv_bf16_b7_seg_windowed_total": b7_16}), flush=True)
@@ -928,6 +962,7 @@ def phase_kernels() -> dict:
                            "library_ms": None, "b7_seg": b7, "b1_gates": b1},
         "mbconv_bf16": {**b3_16, "max_abs_err": max(b3_16["max_abs_err"], b7_16["max_abs_err"]),
                         "max_rel_err": max(b3_16["max_rel_err"], b7_16["max_rel_err"]),
+                        "owned_rows_max_rel_err": owned_16,
                         "library_ms": None, "b7_seg": b7_16},
         "stencil_walk": {k: stencil[k] for k in keys},
         "banded_walk": {k: banded[k] for k in keys},
@@ -2977,17 +3012,22 @@ def _dp_parity_runs(case: dict, group, dev, every: bool = True) -> dict:
     return dict(runs[0], metrics_per_batch=[r["metrics"] for r in runs])
 
 
-def _dp_serve(spec: dict, group, dev) -> dict:
-    """This rank's engines on its rows of every batch: CamTTAEngine (b3,
-    fused, scales 0.5-2, --fast 0) and SegTTAEngine (b7, fused, six scales
-    x flip, --fast 0); every kernel's launches in each (counts zeroed just
-    before it), the records and the wall seconds."""
+def _dp_serve(spec: dict, group, dev, mesh=None) -> dict:
+    """CamTTAEngine (b3, fused, scales 0.5-2, --fast 0) and SegTTAEngine
+    (b7, fused, six scales x flip, --fast 0): without ``mesh`` this rank's
+    engines on its rows of every batch (one engine per rank, as the CLIs'
+    default), with it the engines' ``mesh=`` given every global batch (the
+    engine splits it and returns every rank the whole batch's records);
+    every kernel's launches in each (counts zeroed just before it), the
+    records and the wall seconds."""
     import torch
 
     from muscle_tpu_torch import parallel
     from muscle_tpu_torch.inference import CamTTAEngine, SegTTAEngine
 
     def rows(batches):
+        if mesh is not None:
+            return batches
         out = []
         for b in batches:
             sl = parallel.rank_rows(len(b[0]), group)
@@ -2997,9 +3037,9 @@ def _dp_serve(spec: dict, group, dev) -> dict:
     out = {}
     engines = {
         "cam": (CamTTAEngine(_dp_model("b3_cam", spec["cam_state"]), scales=(0.5, 1.0, 1.5, 2.0),
-                             return_cam=False, device=dev), spec["cam_batches"]),
+                             return_cam=False, device=dev, mesh=mesh), spec["cam_batches"]),
         "seg": (SegTTAEngine(_dp_model("b7_seg", spec["seg_state"]), scales=SEG_SCALES,
-                             device=dev), spec["seg_batches"]),
+                             device=dev, mesh=mesh), spec["seg_batches"]),
     }
     for name, (engine, batches) in engines.items():
         mine = rows(batches)
@@ -3081,10 +3121,13 @@ def _dp_rank(rank: int, world: int, backend: str, tmp: str) -> None:
     marks.append(time.perf_counter())
     out["serve"] = _dp_serve(spec, group, dev)
     marks.append(time.perf_counter())
+    out["serve_mesh"] = _dp_serve(spec, group, dev, parallel.make_mesh())
+    marks.append(time.perf_counter())
     out["walk"] = _dp_walk(spec, group, dev)
     marks.append(time.perf_counter())
     out["collective_us"] = _dp_collective_us(group, dev)
-    out["seconds"] = dict(zip(("parity", "full", "serve", "walk"), np.diff(marks).tolist()))
+    out["seconds"] = dict(zip(("parity", "full", "serve", "serve_mesh", "walk"),
+                              np.diff(marks).tolist()))
     if rank:
         for res in list(out["parity"].values()) + list(out["full"].values()):
             for k in ("grads", "params", "stats"):
@@ -3236,6 +3279,23 @@ def _dp_parity(name: str, spec: dict, ref: dict, got: dict) -> dict:
             "passed": loss <= 1.0 and grad[0] <= 1.0 and stats <= 1.0}
 
 
+def _records_equal(got: list, want: list) -> bool:
+    """Two engines' record lists equal bit for bit (CAM: names, scores and
+    SGC maps; seg: names and probabilities)."""
+    import numpy as np
+
+    if [r["name"] for r in got] != [r["name"] for r in want]:
+        return False
+    for g, w in zip(got, want):
+        for key in ("score", "probs", "label"):
+            if key in w and not np.array_equal(g[key], w[key]):
+                return False
+        if "sgc" in w and (sorted(g["sgc"]) != sorted(w["sgc"]) or not all(
+                np.array_equal(g["sgc"][c], w["sgc"][c]) for c in w["sgc"])):
+            return False
+    return True
+
+
 def _dp_readings(spec: dict, ref: dict, outs: list, world: int, backend: str) -> dict:
     """Every check of one W-rank run against the one-process references,
     and what the ranks measured."""
@@ -3274,33 +3334,42 @@ def _dp_readings(spec: dict, ref: dict, outs: list, world: int, backend: str) ->
             "speedup": (float(np.mean(one_run["step_ms"]))
                         / max(float(np.mean(o["full"][name]["step_ms"])) for o in outs)),
             "passed": loss <= 1.0}
-    for name in ("cam", "seg"):
+    rec["serve_mesh"] = {}
+    for serve, name in [(s, n) for s in ("serve", "serve_mesh") for n in ("cam", "seg")]:
         want = ref["serve"][name]["records"]
-        by_name = {r["name"]: r for o in outs for r in o["serve"][name]["records"]}
-        assert sorted(by_name) == sorted(r["name"] for r in want), name
-        mine = [by_name[r["name"]] for r in want]
-        counts = [o["serve"][name]["counts"] for o in outs]
+        if serve == "serve":  # each rank returned its rows
+            by_name = {r["name"]: r for o in outs for r in o[serve][name]["records"]}
+            assert sorted(by_name) == sorted(r["name"] for r in want), name
+            mine = [by_name[r["name"]] for r in want]
+            identical = True
+        else:  # every rank returned the whole batch's records, the same bit for bit
+            recs = [o[serve][name]["records"] for o in outs]
+            mine = recs[0]
+            identical = all(_records_equal(r, mine) for r in recs[1:])
+            assert [r["name"] for r in mine] == [r["name"] for r in want], name
+        counts = [o[serve][name]["counts"] for o in outs]
         launches = [cnt["mbconv_stride1"] for cnt in counts]
         # per forward, whatever a rank's share of the batch
         expect = ref["serve"][name]["counts"]["mbconv_stride1"]
-        entry = {"images_per_rank": [o["serve"][name]["images"] for o in outs],
-                 "images_per_s_per_rank": [o["serve"][name]["images"] / o["serve"][name]["seconds"]
+        entry = {"images_per_rank": [o[serve][name]["images"] for o in outs],
+                 "images_per_s_per_rank": [o[serve][name]["images"] / o[serve][name]["seconds"]
                                            for o in outs],
                  "launches_per_rank": launches, "one_process_launches": expect,
                  "counts_per_rank": counts,
                  # the node: every image over the slowest rank's seconds
-                 "node_images_per_s": len(want) / max(o["serve"][name]["seconds"] for o in outs),
+                 "node_images_per_s": len(want) / max(o[serve][name]["seconds"] for o in outs),
                  "one_process_images_per_s": len(want) / ref["serve"][name]["seconds"]}
         if name == "cam":
-            entry["score_err"], entry["sgc_err"] = _compare(mine, want, f"dp {backend} x {world} "
-                                                            "CAM vs one process")
+            entry["score_err"], entry["sgc_err"] = _compare(
+                mine, want, f"dp {backend} x {world} CAM ({serve}) vs one process")
             ok = True
         else:
             err = max(float(np.abs(g["probs"] - w["probs"]).max()) for g, w in zip(mine, want))
             entry["probs_err"] = err
             ok = err <= SEG_PROBS_TOL
-        entry["passed"] = ok and expect > 0 and all(n == expect for n in launches)
-        rec["serve"][name] = entry
+        entry["ranks_bit_identical"] = identical
+        entry["passed"] = ok and identical and expect > 0 and all(n == expect for n in launches)
+        rec[serve][name] = entry
     exact = ref["walk64"]
     scale = float(exact.abs().max())
     walk_err = max(float((o["walk"]["walk"] - ref["walk"]).abs().max()) for o in outs)
@@ -3317,7 +3386,7 @@ def _dp_readings(spec: dict, ref: dict, outs: list, world: int, backend: str) ->
     rec["collective_us_per_rank"] = [o["collective_us"] for o in outs]
     rec["rank_seconds"] = [o["seconds"] for o in outs]
     parts = (list(rec["parity"].values()) + list(rec["full"].values())
-             + list(rec["serve"].values()) + [rec["walk"]])
+             + list(rec["serve"].values()) + list(rec["serve_mesh"].values()) + [rec["walk"]])
     rec["passed"] = agree and all(p["passed"] for p in parts)
     return rec
 
@@ -3362,22 +3431,28 @@ def phase_dp(card: str) -> dict:
 
 def _spatial_engines(spec: dict, dev, mesh=None) -> dict:
     """The CAM (infer_mcl's defaults) and seg (infer_seg's without the CRF,
-    probabilities) engines of the spatial phase, split over ``mesh``'s model
-    group where given."""
+    probabilities) engines of the spatial phase, in f32 and in bf16 (on the
+    same models), each data row of ``mesh`` running its share of every
+    batch split over its model group where given."""
+    import torch
+
     from muscle_tpu_torch.inference import CamTTAEngine, SegTTAEngine
 
-    kw = dict(device=dev, mesh=mesh, shard_spatial=mesh is not None)
-    return {"cam": CamTTAEngine(_dp_model("b3_cam", spec["cam_state"]),
-                                scales=(0.5, 1.0, 1.5, 2.0), return_cam=False,
-                                **SPATIAL_CAM_FAST, **kw),
-            "seg": SegTTAEngine(_dp_model("b7_seg", spec["seg_state"]), scales=SEG_SCALES,
-                                **SPATIAL_SEG_FAST, **kw)}
+    cam, seg = _dp_model("b3_cam", spec["cam_state"]), _dp_model("b7_seg", spec["seg_state"])
+    out = {}
+    for tag, dtype in (("", torch.float32), ("_bf16", torch.bfloat16)):
+        kw = dict(device=dev, mesh=mesh, shard_spatial=mesh is not None, compute_dtype=dtype)
+        out["cam" + tag] = CamTTAEngine(cam, scales=(0.5, 1.0, 1.5, 2.0), return_cam=False,
+                                        **SPATIAL_CAM_FAST, **kw)
+        out["seg" + tag] = SegTTAEngine(seg, scales=SEG_SCALES, **SPATIAL_SEG_FAST, **kw)
+    return out
 
 
-def _spatial_serve(engines: dict, spec: dict, dev, rows=None) -> dict:
-    """Each engine on each of its batches (this rank's ``rows`` of it):
-    one warm-up run, SPATIAL_REPS timed ones with every kernel's count and
-    the exchanges' counts zeroed just before them, and one more with the
+def _spatial_serve(engines: dict, spec: dict, dev) -> dict:
+    """Each engine on each of its batches (every rank passes the whole
+    batch; the engine splits it over the mesh's data rows): one warm-up
+    run, SPATIAL_REPS timed ones with every kernel's count and the
+    exchanges' counts zeroed just before them, and one more with the
     exchanges timed; the records, seconds, counts per forward, exchanges
     and peak memory."""
     import torch
@@ -3385,12 +3460,9 @@ def _spatial_serve(engines: dict, spec: dict, dev, rows=None) -> dict:
     out = {}
     for name, engine in engines.items():
         stripes = engine.stripes
-        for batch in spec[f"{name}_batches"]:
+        for batch in spec[f"{name.split('_')[0]}_batches"]:
             size = len(batch[0])
-            mine = tuple(part[rows(size)] if rows else part for part in batch)
-            if not mine[0]:  # this data row's share of the batch is empty
-                continue
-            engine.run_batch(*mine)
+            engine.run_batch(*batch)
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
             _zero_counts()
@@ -3399,7 +3471,7 @@ def _spatial_serve(engines: dict, spec: dict, dev, rows=None) -> dict:
             secs = []
             for _ in range(SPATIAL_REPS):
                 t0 = time.perf_counter()
-                recs = engine.run_batch(*mine)  # waits for its download
+                recs = engine.run_batch(*batch)  # waits for its download
                 secs.append(time.perf_counter() - t0)
             forwards = SPATIAL_REPS * len(engine.scales)
             counts = {k: v / forwards for k, v in _launch_counts().items()}
@@ -3411,13 +3483,13 @@ def _spatial_serve(engines: dict, spec: dict, dev, rows=None) -> dict:
                 stripes.reset_stats()
                 stripes.timed = True
                 t0 = time.perf_counter()
-                engine.run_batch(*mine)
+                engine.run_batch(*batch)
                 timed_s = time.perf_counter() - t0
                 stripes.timed = False
                 for k, v in stripes.stats.items():
                     exchanges[k]["ms_per_batch"] = v["seconds"] * 1e3
             out[(name, size)] = {
-                "records": recs, "images": len(mine[0]), "seconds": secs,
+                "records": recs, "images": size, "seconds": secs,
                 "timed_run_seconds": timed_s, "launches_per_forward": counts,
                 "exchanges": exchanges,
                 "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
@@ -3444,12 +3516,8 @@ def _spatial_rank(rank: int, world: int, backend: str, axes, tmp: str) -> None:
     out = {}
     for k, mesh in meshes.items():
         tag = f"{mesh.shape['data']}x{k}"
-
-        def rows(n, mesh=mesh):
-            return parallel.rank_rows(n, mesh.data_group)
-
         out[tag] = {"coords": (mesh.data_index, mesh.model_index),
-                    "serve": _spatial_serve(_spatial_engines(spec, dev, mesh), spec, dev, rows)}
+                    "serve": _spatial_serve(_spatial_engines(spec, dev, mesh), spec, dev)}
         torch.cuda.empty_cache()
     torch.save(out, os.path.join(tmp, f"sp_{backend}_rank{rank}.pt"))
     parallel.barrier(group)
@@ -3457,43 +3525,51 @@ def _spatial_rank(rank: int, world: int, backend: str, axes, tmp: str) -> None:
 
 
 def _spatial_readings(ref: dict, outs: list, tag: str, backend: str) -> dict:
-    """One mesh's run against the one-process references: each data row's
-    records (from its model group's first rank; every rank of the group
-    must hold the same) by image name, the launches per forward of every
-    rank, and the readings."""
+    """One mesh's run against the one-process references: the records
+    (every rank returns the whole batch's, and every rank must hold the
+    same) by image name, the launches per forward of every rank, and the
+    readings; the bf16 engines by the bf16 rules against one process's
+    bf16 engine, each map's own distance its bf16 records' from its f32
+    ones."""
     import numpy as np
 
     rec = {}
     for (name, size), one in ref.items():
         runs = [o[tag]["serve"].get((name, size)) for o in outs]
+        cam = name.startswith("cam")
+        key = "sgc" if cam else "probs"
         by_name, agree = {}, True
         for o, run in zip(outs, runs):
-            if run is None:
-                continue
             for r in run["records"]:
                 first = by_name.setdefault(r["name"], r)
-                key = "sgc" if name == "cam" else "probs"
-                if name == "cam":
+                if cam:
                     agree &= all(np.array_equal(first[key][c], r[key][c]) for c in r[key])
+                    agree &= bool(np.array_equal(first["score"], r["score"]))
                 else:
                     agree &= bool(np.array_equal(first[key], r[key]))
         want = one["records"]
         mine = [by_name[r["name"]] for r in want]
         entry = {"batch": size, "one_process_latency_s": one["seconds"],
-                 "latency_s": [max(run["seconds"][i] for run in runs if run)
+                 "latency_s": [max(run["seconds"][i] for run in runs)
                                for i in range(SPATIAL_REPS)],
                  "one_process_peak_gib": one["peak_gib"],
-                 "peak_gib_per_rank": [run and run["peak_gib"] for run in runs],
-                 "counts_per_rank": [run and run["launches_per_forward"] for run in runs],
-                 "exchanges_rank0": runs[0] and runs[0]["exchanges"],
-                 "timed_run_s_rank0": runs[0] and runs[0]["timed_run_seconds"],
-                 "ranks_of_a_group_agree": agree}
+                 "peak_gib_per_rank": [run["peak_gib"] for run in runs],
+                 "counts_per_rank": [run["launches_per_forward"] for run in runs],
+                 "exchanges_rank0": runs[0]["exchanges"],
+                 "timed_run_s_rank0": runs[0]["timed_run_seconds"],
+                 "ranks_agree": agree}
         entry["images_per_s"] = size / min(entry["latency_s"])
         entry["one_process_images_per_s"] = size / min(one["seconds"])
         entry["speedup"] = min(one["seconds"]) / min(entry["latency_s"])
-        per = GATES_B3_PER_FORWARD if name == "cam" else GATES_B7_PER_FORWARD
-        launches_ok = all(c["mbconv_stride1"] == per for c in entry["counts_per_rank"] if c)
-        if name == "cam":
+        per = GATES_B3_PER_FORWARD if cam else GATES_B7_PER_FORWARD
+        kernel, other = (("mbconv_bf16", "mbconv_stride1") if name.endswith("bf16")
+                         else ("mbconv_stride1", "mbconv_bf16"))
+        launches_ok = all(c[kernel] == per and c[other] == 0 for c in entry["counts_per_rank"])
+        if name.endswith("bf16"):
+            f32 = ref[(name.split("_")[0], size)]["records"]
+            entry.update(_bf16_readings_vs(mine, want, f32, cam))
+            ok = entry["bf16_rules_passed"]
+        elif cam:
             entry["score_err"], entry["sgc_err"] = _compare(
                 mine, want, f"spatial {backend} {tag} CAM batch {size} vs one process")
             ok = True
@@ -3509,6 +3585,39 @@ def _spatial_readings(ref: dict, outs: list, tag: str, backend: str) -> dict:
         rec[f"{name}_{size}"] = entry
     rec["passed"] = all(e["passed"] for e in rec.values())
     return rec
+
+
+def _bf16_readings_vs(got, want, f32, cam: bool) -> dict:
+    """The bf16 phase's rules for records ``got`` against the bf16
+    reference ``want``, each map's own bf16 sensitivity ``want``'s distance
+    from the f32 records ``f32``: CAM scores within BF16_SCORE_TOL, each
+    SGC map's mean |diff| within BF16_SGC_TOL or BF16_SGC_REL times its
+    own; seg labels (the probabilities' argmax) on BF16_LABEL_AGREE of
+    the pixels whose f32 top-two margin exceeds BF16_MARGIN, or
+    disagreeing there on at most BF16_SGC_REL times what ``want``
+    disagrees with f32."""
+    import numpy as np
+
+    if cam:
+        score = max(float(np.abs(g["score"] - w["score"]).max()) for g, w in zip(got, want))
+        errs, flips = _fused_mean_errs(got, want)
+        own, _ = _fused_mean_errs(want, f32)
+        ok = score <= BF16_SCORE_TOL and all(
+            e <= max(BF16_SGC_TOL, BF16_SGC_REL * o) for e, o in zip(errs, own))
+        return {"bf16_score_max_abs_err": score, "bf16_sgc_mean_abs_err_max": max(errs),
+                "bf16_own_sgc_mean_abs_err_max": max(own), "bf16_zeroing_flips": flips,
+                "bf16_rules_passed": ok}
+    agree, own = [], []
+    for g, w, f in zip(got, want, f32):
+        assert g["probs"].shape == w["probs"].shape and np.isfinite(g["probs"]).all()
+        top2 = np.sort(f["probs"].astype(np.float32), axis=-1)[..., -2:]
+        clear = (top2[..., 1] - top2[..., 0]) > BF16_MARGIN
+        lab, wlab, flab = (r["probs"].argmax(-1) for r in (g, w, f))
+        agree.append(float((lab == wlab)[clear].mean()))
+        own.append(float((wlab == flab)[clear].mean()))
+    floors = [1 - max(1 - BF16_LABEL_AGREE, BF16_SGC_REL * (1 - o)) for o in own]
+    return {"bf16_labels_agreement": agree, "bf16_own_labels_agreement": own,
+            "bf16_rules_passed": all(a >= fl for a, fl in zip(agree, floors))}
 
 
 def phase_spatial(card: str) -> dict:
@@ -3560,6 +3669,121 @@ def phase_spatial(card: str) -> dict:
     failed = [k for k, v in out.items() if isinstance(v, dict) and not v["passed"]]
     if failed:
         raise AssertionError(f"spatial: {failed} failed")
+    return out
+
+
+def _device_exec_case(engine, batch, stream, check) -> dict:
+    """One engine's ``bench_device_exec`` on ``batch``: the closure made
+    (host prep and upload once), one warm-up call, one call with every
+    kernel's count zeroed just before it (its buffer handed to ``check``,
+    which holds it to what the engine's own entry point returns for the
+    batch), DEVICE_EXEC_REPS chained calls timed by CUDA events, and
+    ``stream()`` (the engine's streaming entry point over
+    DEVICE_EXEC_STREAM_BATCHES copies of the batch: (records, seconds))."""
+    import torch
+
+    run = engine.bench_device_exec(*batch)
+    run()
+    torch.cuda.synchronize()
+    _zero_counts()
+    buf = run()
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    readings = check(buf)
+    del buf
+    ms = time_ms(run, DEVICE_EXEC_REPS)
+    stream()  # warm-up
+    _, secs = stream()
+    n = len(batch[0])
+    return {"images": n, "device_ms_per_call": ms, "device_images_per_s": n / ms * 1e3,
+            "stream_images_per_s": n * DEVICE_EXEC_STREAM_BATCHES / secs,
+            "launches_per_call": counts, **readings}
+
+
+def phase_device_exec(card: str) -> dict:
+    """Device-only rates (module docstring, phase device_exec): each
+    engine's ``bench_device_exec`` at the main (CAM b3, --fast 0), bf16
+    (CamBench), seg (b7, --fast 1 labels) and irn (crop 512, fast labels)
+    phases' configurations, beside the engine's streaming rate on the same
+    batch; one {"device_exec": ...} line."""
+    import numpy as np
+    import torch
+
+    from muscle_tpu_torch.inference import CamTTAEngine, RandomWalkRefiner, SegTTAEngine
+    from muscle_tpu_torch.models import MuSCLe, init_weights
+
+    cam_model = init_weights(MuSCLe(backbone_name="efficientnet-b3", mode="enc",
+                                    last_pooling=False, fuse_mbconv=384),
+                             torch.Generator().manual_seed(0))
+    cams = {"cam_f32": CamTTAEngine(cam_model, scales=(0.5, 1.0, 1.5, 2.0), return_cam=False,
+                                    device="cuda"),
+            "cam_bf16": CamTTAEngine(cam_model, compute_dtype=torch.bfloat16,
+                                     scales=(0.5, 1.0, 1.5, 2.0), return_cam=False,
+                                     max_classes=4, accum_stride=4, download_dtype="uint8",
+                                     tight_upload=True, upload_mode="ycbcr420", device="cuda")}
+    batch = _images(1, seed=2)[0]
+    out = {"card": card}
+
+    def cam_check(engine):
+        want = engine.run_batch(*batch)
+        prep = engine._host_prep(*batch)
+
+        def check(buf):
+            got = engine._make_finalize(lambda: buf.cpu().numpy(), prep["names"],
+                                        prep["orig_sizes"], prep["class_idx"], prep["counts"],
+                                        engine.max_classes)()
+            score = max(float(np.abs(g["score"] - w["score"]).max()) for g, w in zip(got, want))
+            errs, _ = _fused_mean_errs(got, want)
+            return {"vs_run_batch_score_max_abs_err": score,
+                    "vs_run_batch_sgc_mean_abs_err_max": max(errs),
+                    "passed": score <= SCORE_TOL and max(errs) <= SGC_TOL}
+        return check
+
+    for name, engine in cams.items():
+        out[name] = _device_exec_case(engine, batch, lambda e=engine: _run(
+            e, [batch] * DEVICE_EXEC_STREAM_BATCHES), cam_check(engine))
+    del cams, cam_model
+    torch.cuda.empty_cache()
+
+    seg = SegTTAEngine(_seg_model(384), scales=SEG_SCALES, accum_stride=4,
+                       download_dtype="float16", tight_upload=True, upload_mode="ycbcr420",
+                       output="labels", device="cuda")
+    sbatch = _seg_batches(1, seed=2)[0]
+
+    def seg_check(buf):
+        want = seg.run_batch(*sbatch)
+        lab = buf.cpu().numpy()
+        agree = min(float((lab[i, :w["label"].shape[0], :w["label"].shape[1]]
+                           == w["label"]).mean()) for i, w in enumerate(want))
+        return {"vs_run_batch_labels_agreement_min": agree, "passed": agree >= SEG_LABEL_AGREE}
+
+    out["seg"] = _device_exec_case(seg, sbatch, lambda: _seg_run(
+        seg, [sbatch] * DEVICE_EXEC_STREAM_BATCHES), seg_check)
+    del seg
+    torch.cuda.empty_cache()
+
+    refiner = RandomWalkRefiner(_irn_model(), crop_size=512, fast_io=True, output="labels",
+                                device="cuda")
+    ibatch = _irn_batches(1, seed=4)[0]
+
+    def irn_check(buf):
+        want = refiner.refine_batch(*ibatch)
+        lab = buf.cpu().numpy()
+        agree = min(float((lab[i, :w.shape[0], :w.shape[1]] == w).mean())
+                    for i, w in enumerate(want))
+        return {"vs_refine_batch_labels_agreement_min": agree, "passed": agree >= LABEL_AGREE}
+
+    out["irn"] = _device_exec_case(refiner, ibatch, lambda: _refine(
+        refiner, [ibatch] * DEVICE_EXEC_STREAM_BATCHES), irn_check)
+    print(json.dumps({"device_exec": out}), flush=True)
+    want = {"cam_f32": ("mbconv_stride1", 23 * 4), "cam_bf16": ("mbconv_bf16", 23 * 4),
+            "seg": ("mbconv_stride1", SEG_LAUNCHES), "irn": ("stencil_walk", 1)}
+    bad = [k for k, (kernel, n) in want.items()
+           if out[k]["launches_per_call"][kernel] != n or not out[k]["passed"]
+           or sum(out[k]["launches_per_call"].values()) != n]
+    if bad:
+        raise AssertionError(f"device_exec: {bad} failed (launches per call, or the closure's "
+                             f"buffer against the engine's own result): {out}")
     return out
 
 
@@ -3693,7 +3917,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--phases",
                    default="build,kernels,main,irn,seg,bf16,train_mcl,train_seg,train_irn,"
-                           "train_mcl_bf16,train_seg_bf16,dp,spatial,gates")
+                           "train_mcl_bf16,train_seg_bf16,dp,spatial,device_exec,gates")
     args = p.parse_args(argv)
     phases = args.phases.split(",")
 
@@ -3737,6 +3961,7 @@ def main(argv=None) -> int:
     seg_bf16_out = run("train_seg_bf16", phase_train_seg_bf16, card)
     dp_out = run("dp", phase_dp, card)
     spatial_out = run("spatial", phase_spatial, card)
+    exec_out = run("device_exec", phase_device_exec, card)
     gates_out = run("gates", phase_gates, card)
     run("profile", phase_profile, 4, "bf16" in phases)
 
@@ -3775,16 +4000,21 @@ def main(argv=None) -> int:
         # each rank's MBConv launches in the data-parallel engines (f32)
         for e in entries:
             e["launches_dp"] = None if dp_out is None else {
-                run_name: {eng: [cnt[e["name"]] for cnt in r["serve"][eng]["counts_per_rank"]]
-                           for eng in ("cam", "seg")}
+                run_name: {f"{serve}_{eng}": [cnt[e["name"]]
+                                              for cnt in r[serve][eng]["counts_per_rank"]]
+                           for serve in ("serve", "serve_mesh") for eng in ("cam", "seg")}
                 for run_name, r in dp_out.items() if isinstance(r, dict)}
         # each rank's launches per forward in the spatially sharded engines
         # (f32: every rank of a model group runs every stride-1 block)
         for e in entries:
             e["launches_spatial"] = None if spatial_out is None else {
-                run_name: {case: [c and c[e["name"]] for c in r[case]["counts_per_rank"]]
+                run_name: {case: [c[e["name"]] for c in r[case]["counts_per_rank"]]
                            for case in r if isinstance(r[case], dict)}
                 for run_name, r in spatial_out.items() if isinstance(r, dict)}
+        for e in entries:  # one device-only call of each engine's executor
+            e["launches_device_exec"] = None if exec_out is None else {
+                k: v["launches_per_call"][e["name"]] for k, v in exec_out.items()
+                if isinstance(v, dict)}
         for e in entries:  # the CLIs' launches in the gates phase (its subprocesses')
             e["launches_gates"] = gates_out["launches"][e["name"]] if gates_out else None
         print(json.dumps({"kernels": entries}), flush=True)

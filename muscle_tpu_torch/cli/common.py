@@ -147,6 +147,13 @@ class RunStats:
         return rec
 
 
+def save_score_dict(path: str, d: dict) -> None:
+    """Save a {class index: (H, W) array} dict as the reference's .npy."""
+    import numpy as np
+
+    np.save(path, d)
+
+
 def spatial_summary(mesh, engine) -> dict:
     """A spatially sharded CLI run's extra summary keys: the mesh's shape
     and this rank's coordinates and exchanges (the engine's
@@ -156,6 +163,23 @@ def spatial_summary(mesh, engine) -> dict:
     return {"mesh": mesh.shape, "data_index": mesh.data_index, "model_index": mesh.model_index,
             "exchanges": {k: {"calls": v["calls"], "bytes": v["bytes"]}
                           for k, v in engine.stripes.stats.items()}}
+
+
+def written_rows(mesh, n: int) -> slice:
+    """The records of a batch of ``n`` that this rank writes, so that each
+    image's files are written once: all of them without a mesh; under one
+    (where the engines return the whole batch's records on every rank)
+    its data row's share on the first rank of each model group, or where
+    the batch was not split (``parallel.data_share``) all of them on the
+    first rank, and none on the other ranks."""
+    from muscle_tpu_torch.parallel import data_share
+
+    if mesh is None:
+        return slice(None)
+    rows, split = data_share(mesh, n)
+    if mesh.model_index or not (split or mesh.data_index == 0):
+        return slice(0)
+    return rows
 
 
 def sort_by_orientation(names: list[str], voc12_root: str) -> list[str]:

@@ -19,10 +19,13 @@ rows of every --batch_size batch and writes its images' files.
 
 Spatial sharding, as the JAX CLI's --spatial k: under torchrun with W
 ranks, a multiple of k, the ranks form a (W / k data) x (k model) mesh
-(``parallel.make_mesh``).  Each model group, k consecutive ranks, takes its
-data row's share of every batch and splits each canvas's height over its
-ranks (halo exchanges, ``parallel/spatial.py``); its first rank writes the
-files::
+(``parallel.make_mesh``) and every rank hands the engine the whole
+--batch_size batch.  The engine splits it over the data axis (each model
+group, k consecutive ranks, runs its data row's share, a batch the rows do
+not divide whole) and each canvas's height over the group's ranks (halo
+exchanges, ``parallel/spatial.py``), and returns the whole batch's records
+on every rank; each image's files are written once, by the first rank of
+the model group that ran it (``common.written_rows``)::
 
     torchrun --nproc_per_node=<cards> -m muscle_tpu_torch.cli.infer_mcl --spatial 2 ...
 
@@ -45,6 +48,7 @@ from muscle_tpu_torch.cli.common import (
     prefetch_chunks,
     sort_by_orientation,
     spatial_summary,
+    written_rows,
 )
 from muscle_tpu_torch.data.voc12 import get_img_path
 
@@ -87,8 +91,8 @@ def main(argv=None) -> dict:
 
     group, device = init_from_env(args.device)
     mesh = make_mesh(model_axis=args.spatial) if args.spatial > 1 else None
-    rows_group = mesh.data_group if mesh is not None else group
-    writes = mesh is None or mesh.model_index == 0
+    # under a mesh the engine splits the global batch; else each rank loads its rows
+    rows_group = group if mesh is None else None
 
     model = MuSCLe(num_classes=args.num_classes, backbone_name=args.backbone,
                    bifpn_layers=3, mode="enc", last_pooling=False,
@@ -112,8 +116,8 @@ def main(argv=None) -> dict:
             os.makedirs(args.out_npy, exist_ok=True)
 
     def save(records):
-        for rec in records:
-            if args.out_npy and writes:
+        for rec in records[written_rows(mesh, len(records))]:
+            if args.out_npy:
                 np.save(os.path.join(args.out_npy + "_sgc", rec["name"] + ".npy"), rec["sgc"])
                 if args.save_cam:
                     np.save(os.path.join(args.out_npy, rec["name"] + ".npy"), rec["cam"])

@@ -8,8 +8,11 @@ Data parallel, one rank per card (``torchrun --nproc_per_node=<cards> -m
 muscle_tpu_torch.cli.infer_seg ...``): each rank runs its own engine (the
 MBConv kernel on its card) on its rows of every --batch_size batch and
 writes its images' PNGs.  --spatial k under torchrun splits each image's
-height over k ranks, as ``cli/infer_mcl.py``'s; a model group's first
-rank runs the CRF and writes the PNGs.
+height over k ranks, as ``cli/infer_mcl.py``'s: every rank hands the
+engine the whole batch, the engine splits it over the data axis and
+returns the whole batch's records on every rank, and each image's CRF and
+PNG are done once, by the first rank of the model group that ran it
+(``common.written_rows``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from muscle_tpu_torch.cli.common import (
     prefetch_chunks,
     sort_by_orientation,
     spatial_summary,
+    written_rows,
 )
 from muscle_tpu_torch.data.voc12 import get_img_path
 
@@ -69,8 +73,8 @@ def main(argv=None) -> dict:
 
     group, device = init_from_env(args.device)
     mesh = make_mesh(model_axis=args.spatial) if args.spatial > 1 else None
-    rows_group = mesh.data_group if mesh is not None else group
-    writes = mesh is None or mesh.model_index == 0
+    # under a mesh the engine splits the global batch; else each rank loads its rows
+    rows_group = group if mesh is None else None
 
     model = MuSCLe(num_classes=args.num_classes, backbone_name="efficientnet-" + args.pretrained,
                    bifpn_layers=args.bifpn, mode="dec", last_pooling=True,
@@ -97,12 +101,11 @@ def main(argv=None) -> dict:
         if args.out_seg:
             Image.fromarray(pred).save(os.path.join(args.out_seg, name + ".png"))
 
-    crf_s = [0.0]
+    crf = [0.0, 0]  # seconds, images
 
     def postprocess(imgs, records):
-        if not writes:  # another rank of this model group writes the same records
-            return
-        for img, rec in zip(imgs, records):
+        rows = written_rows(mesh, len(records))
+        for img, rec in zip(imgs[rows], records[rows]):
             if labels_out:
                 save(rec["name"], rec["label"])
                 continue
@@ -118,7 +121,8 @@ def main(argv=None) -> dict:
                     probs = mean_field_crf(torch.from_numpy(probs).to(engine.device),
                                            torch.from_numpy(orig).to(engine.device),
                                            t=4).cpu().numpy()
-                crf_s[0] += time.perf_counter() - t0
+                crf[0] += time.perf_counter() - t0
+                crf[1] += 1
             save(rec["name"], np.argmax(probs, axis=-1).astype(np.uint8))
 
     def load(chunk):
@@ -152,8 +156,7 @@ def main(argv=None) -> dict:
             stats.tick(done)
             print(f"{tag}{done}/{len(names)}")
     shutdown(group)
-    return stats.summary(done, crf_ms_per_image=1e3 * crf_s[0] / done
-                         if args.crf and not labels_out and done and writes else None,
+    return stats.summary(done, crf_ms_per_image=1e3 * crf[0] / crf[1] if crf[1] else None,
                          **spatial_summary(mesh, engine))
 
 

@@ -214,6 +214,18 @@ def cutout(arr: np.ndarray, mask: np.ndarray, rng: np.random.Generator,
     return arr, mask
 
 
+def rot90_with_mask(arr: np.ndarray, mask: np.ndarray, rng: np.random.Generator
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """Random +-90 degree rotation of an image and its mask, each with
+    probability 1/8 (the reference's Rot90WithMask)."""
+    p = rng.random()
+    if p < 0.125:
+        return np.rot90(arr, 1, (0, 1)).copy(), np.rot90(mask, 1, (0, 1)).copy()
+    if p > 0.875:
+        return np.rot90(arr, 3, (0, 1)).copy(), np.rot90(mask, 3, (0, 1)).copy()
+    return arr, mask
+
+
 def resize_soft_mask(mask: np.ndarray, target_hw: tuple[int, int]) -> np.ndarray:
     """Bilinear resize of an (H, W, C) float soft mask, channel by channel
     through PIL's float ('F') images."""

@@ -101,6 +101,34 @@ class VOC12ImageDataset:
         return np.asarray(self.labels[self.name_list[idx]], np.float32)
 
 
+@dataclass
+class SBDImageDataset:
+    """An image corpus without labels addressed by a name list (the
+    reference's SBD / SBDMSF): images at ``<root>/<name>.jpg`` (names may
+    carry subdirectories).  ``unit`` > 1 rounds each image's size to the
+    nearest multiple of it (at least one unit) with a bicubic resize at
+    decode, the reference SBDMSF's ``unit``."""
+
+    name_list: list[str]
+    root: str
+    unit: int = 1
+
+    def __len__(self) -> int:
+        return len(self.name_list)
+
+    def image(self, idx: int):
+        from PIL import Image
+
+        img = Image.open(os.path.join(self.root, self.name_list[idx] + ".jpg")).convert("RGB")
+        if self.unit > 1:
+            w, h = img.size
+            rw = max(self.unit, int(round(w / self.unit) * self.unit))
+            rh = max(self.unit, int(round(h / self.unit) * self.unit))
+            if (rw, rh) != (w, h):
+                img = img.resize((rw, rh), resample=T.BICUBIC)
+        return img
+
+
 class VOC12ClsPixDataset(VOC12ImageDataset):
     """MCL training set: an augmented full image and two overlapping views
     with their overlap coordinates.

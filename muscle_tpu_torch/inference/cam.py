@@ -21,11 +21,17 @@ Three modes:
   normalisation and flip on the device, and a download of the labelled
   classes only.
 
-``shard_spatial`` (the device path only, float32): the ranks of a
-``parallel.make_mesh(model_axis=k)`` model group run one batch together.
-Each builds the same scaled pairs from the whole batch, takes its stripe
-of the canvas into the model (``parallel/spatial.py``), and gets the whole
-maps back; the fusion and download then run on every rank alike.
+``mesh`` (``parallel.make_mesh``), as the JAX engines take it: every rank
+passes the same global batch and gets the whole batch's records back.
+Where the mesh's data rows divide the batch each row runs its share and
+the records are gathered over the data axis; where they do not every rank
+runs the whole batch, as the JAX engines replicate it
+(``parallel.data_share``).  ``shard_spatial`` (the device path only) with
+``make_mesh(model_axis=k)``: the k ranks of a model group run their data
+row's share together.  Each builds the same scaled pairs from it, takes
+its stripe of the canvas into the model (``parallel/spatial.py``), and
+gets the whole maps back; the fusion and download then run on every rank
+of the group alike.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from muscle_tpu_torch.data import transforms as T
 from muscle_tpu_torch.data.tta import group_by_shape, msf_batch, scaled_size
 from muscle_tpu_torch.inference.upload import start_download, to_device
 from muscle_tpu_torch.models.efficientnet import placement_offset
+from muscle_tpu_torch.parallel.mesh import data_share, gather_rows
 from muscle_tpu_torch.parallel.spatial import Stripes
 
 # stride-2 convs between the input and the CAM-mode stride-16 maps (stem +
@@ -55,19 +62,13 @@ COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 SPATIAL_AXES = (2, 4, 8, 16)
 
 
-def spatial_stripes(mesh, shard_spatial: bool, compute_dtype):
-    """The engines' ``mesh`` and ``shard_spatial``, as the JAX engines take
+def spatial_stripes(mesh, shard_spatial: bool):
+    """The engines' ``shard_spatial`` on ``mesh``, as the JAX engines take
     them: the ``Stripes`` of this rank's model group, or None without
     ``shard_spatial``.  Raises ValueError for shard_spatial without a mesh
     or on a model axis of 1 (the JAX engines' errors) or one whose stripes
-    would not split every canvas, NotImplementedError at bfloat16 and for
-    a mesh without shard_spatial (the in-process data-parallel mesh)."""
+    would not split every canvas."""
     if not shard_spatial:
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= without shard_spatial (an in-process data-parallel engine) is not "
-                "ported: run one engine per rank under torchrun, each on its rows of every "
-                "batch (cli/infer_mcl.py); ROADMAP Queue A item 2")
         return None
     if mesh is None:
         raise ValueError("shard_spatial requires a mesh")
@@ -77,10 +78,21 @@ def spatial_stripes(mesh, shard_spatial: bool, compute_dtype):
     if k not in SPATIAL_AXES:
         raise ValueError(f"shard_spatial over {k} ranks: the stripes of a canvas of 64 m rows "
                          f"halve through the stem for a model axis in {SPATIAL_AXES} only")
-    if compute_dtype != torch.float32:
-        raise NotImplementedError("shard_spatial at bfloat16 is not ported: spatial sharding "
-                                  "runs float32 (ROADMAP Queue A item 2)")
     return Stripes(mesh.model_group)
+
+
+def share_batch(mesh, batch: tuple) -> tuple[tuple, bool]:
+    """This rank's share of a global batch (images, names, ...; parts may
+    be None) under ``mesh``'s data axis, and whether the ranks' records are
+    gathered after it (``parallel.data_share``)."""
+    rows, gather = data_share(mesh, len(batch[0]))
+    return tuple(None if part is None else part[rows] for part in batch), gather
+
+
+def gather_batch(mesh, records: list, gather: bool) -> list:
+    """The whole batch's records from every data row's share, in order
+    (``records`` itself where the batch was not split)."""
+    return gather_rows(records, mesh.data_group) if gather else records
 
 
 def _scaled_np(orig_sizes, scale: float) -> np.ndarray:
@@ -182,10 +194,12 @@ class CamTTAEngine:
         with portrait images transposed.
       upload_mode: 'rgb' or 'ycbcr420' (device_tta only): 4:2:0 upload,
         reconstructed to RGB on the device.
-      mesh, shard_spatial: ``parallel.make_mesh(model_axis=k)`` and True
-        split each canvas's height over this rank's model group (module
-        docstring; ``spatial_stripes`` for what raises).  The batch's
-        split over the data axis is the caller's (``parallel.rank_rows``).
+      mesh: ``parallel.make_mesh()``: every rank passes the same global
+        batch; the engine splits it over the data axis and every rank
+        returns the whole batch's records (module docstring).
+      shard_spatial: with ``make_mesh(model_axis=k)``, also split each
+        canvas's height over this rank's model group (``spatial_stripes``
+        for what raises).
       device: where the model runs: 'cuda' (default) or 'cpu'.
     """
 
@@ -198,7 +212,8 @@ class CamTTAEngine:
                  device: str | torch.device = "cuda"):
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype}: float32 or bfloat16")
-        self.stripes = spatial_stripes(mesh, shard_spatial, compute_dtype)
+        self.mesh = mesh
+        self.stripes = spatial_stripes(mesh, shard_spatial)
         if out_side % accum_stride:
             raise ValueError("accum_stride must divide out_side")
         if download_dtype not in ("float16", "uint8"):
@@ -298,8 +313,12 @@ class CamTTAEngine:
     def run_batch(self, images, names, labels) -> list[dict]:
         """Per-image dicts: name, cam/sgc ({cls: (H, W) float16}, labelled
         classes only) and score (20,): the reference's npy contract."""
+        (images, names, labels), gather = share_batch(self.mesh, (images, names, labels))
         if self.device_tta:
-            return self._run_batch_device(images, names, labels)
+            return gather_batch(self.mesh, self._run_batch_device(images, names, labels), gather)
+        return gather_batch(self.mesh, self._run_host(images, names, labels), gather)
+
+    def _run_host(self, images, names, labels) -> list[dict]:
         self._no_stripes("the host-prep path (device_tta=False)")
         b = len(images)
         z = torch.zeros((b, self.out_side, self.out_side, self.num_classes), device=self.device)
@@ -344,6 +363,7 @@ class CamTTAEngine:
         their exact sizes (no canvas padding), the reference's per-image
         forwards batched."""
         self._no_stripes("run_batch_exact")
+        (images, names, labels), gather = share_batch(self.mesh, (images, names, labels))
         results: dict[int, dict] = {}
         nv = float(2 * len(self.scales))
         with torch.inference_mode():
@@ -378,7 +398,7 @@ class CamTTAEngine:
                         "sgc": {int(k): sgc[j, :, :, k] for k in keep},
                         "score": score[j],
                     }
-        return [results[i] for i in range(len(images))]
+        return gather_batch(self.mesh, [results[i] for i in range(len(images))], gather)
 
     # ---- device TTA path -----------------------------------------------------
 
@@ -474,13 +494,21 @@ class CamTTAEngine:
         return {"b": b, "names": list(names), "upload": upload, "orig_sizes": orig_sizes,
                 "class_idx": class_idx, "counts": counts}
 
-    def _device_pipeline(self, upload, orig_sizes: np.ndarray, class_idx: np.ndarray):
-        """Upload, unpack, every TTA scale and the fusion of one batch,
-        enqueued on the device; returns the packed result tensor."""
+    def _upload(self, prep: dict) -> dict:
+        """A prepped batch's upload arrays, sizes and class indices on the
+        device, and its host sizes (the canvases)."""
+        kind, *arrays = prep["upload"]
+        return {"kind": kind, "arrays": [self._put(a) for a in arrays],
+                "sizes": self._put(prep["orig_sizes"]), "idx": self._put(prep["class_idx"]),
+                "orig_sizes": prep["orig_sizes"]}
+
+    def _device_pipeline(self, up: dict) -> torch.Tensor:
+        """Unpack, every TTA scale and the fusion of one uploaded batch
+        (``_upload``), enqueued on the device; returns the packed result
+        tensor."""
         from muscle_tpu_torch.inference.upload import square_unpack_fn, ycbcr420_unpack_fn
 
-        kind, *arrays = upload
-        args = [self._put(a) for a in arrays]
+        kind, args, orig_sizes = up["kind"], up["arrays"], up["orig_sizes"]
         if kind == "ycbcr420":
             images = ycbcr420_unpack_fn(self.out_side)(*args)
         elif kind == "tight":
@@ -493,8 +521,7 @@ class CamTTAEngine:
                 "logits": torch.zeros((b, self.num_classes), device=self.device)}
         if self.return_cam:
             accs["cam"] = torch.zeros((b, acc, acc, k), device=self.device)
-        sizes = self._put(orig_sizes)
-        idx = self._put(class_idx)
+        sizes, idx = up["sizes"], up["idx"]
         for s in self.scales:
             self._device_scale(s, images, sizes, idx,
                                _batch_canvas(s, orig_sizes, self.max_side), accs)
@@ -513,11 +540,34 @@ class CamTTAEngine:
         compute."""
         if not self.device_tta:
             raise ValueError("run_batch_async requires device_tta")
-        return self._run_batch_device(images, names, labels, defer=True)
+        (images, names, labels), gather = share_batch(self.mesh, (images, names, labels))
+        finalize = self._run_batch_device(images, names, labels, defer=True)
+        return lambda: gather_batch(self.mesh, finalize(), gather)
+
+    def bench_device_exec(self, images, names, labels):
+        """A zero-argument closure for device-only timing (the JAX engine's
+        ``bench_device_exec``): the host prep and the upload run once, here;
+        each call re-enqueues the whole device pipeline (every TTA scale
+        and the fusion) on the resident tensors and returns the packed
+        result buffer on the device, with no download and no synchronize
+        (time chained calls with CUDA events).  Under a mesh on this rank's
+        share of the batch.  The device_tta path only."""
+        if not self.device_tta:
+            raise ValueError("bench_device_exec requires device_tta (the fused device pipeline)")
+        (images, names, labels), _ = share_batch(self.mesh, (images, names, labels))
+        prep = self._host_prep(images, names, labels)
+        with torch.inference_mode():
+            up = self._upload(prep)
+
+        def run() -> torch.Tensor:
+            with torch.inference_mode():
+                return self._device_pipeline(up)
+
+        return run
 
     def _dispatch_prepped(self, prep: dict):
         with torch.inference_mode():
-            fused = self._device_pipeline(prep["upload"], prep["orig_sizes"], prep["class_idx"])
+            fused = self._device_pipeline(self._upload(prep))
         return self._make_finalize(start_download(fused), prep["names"], prep["orig_sizes"],
                                    prep["class_idx"], prep["counts"], self.max_classes)
 
@@ -563,7 +613,9 @@ class CamTTAEngine:
 
         Three stages run concurrently: host prep (canvas packing) on a
         thread, dispatch on the caller's thread (enqueues device work), and
-        finalize (blocking download + host upsample) on a thread."""
+        finalize (blocking download + host upsample) on a thread.  Under a
+        mesh the records are gathered on the caller's thread, which issues
+        every collective in the same order on every rank."""
         import queue
         import threading
         from concurrent.futures import ThreadPoolExecutor
@@ -574,7 +626,8 @@ class CamTTAEngine:
         def produce():
             try:
                 for batch in batches:
-                    prep_q.put(self._host_prep(*batch))
+                    mine, gather = share_batch(self.mesh, tuple(batch))
+                    prep_q.put((self._host_prep(*mine), gather))
             except BaseException as e:  # re-raised in the consumer
                 prep_q.put(e)
                 return
@@ -589,8 +642,10 @@ class CamTTAEngine:
                     break
                 if isinstance(item, BaseException):
                     raise item
-                pending.append(fin_ex.submit(self._dispatch_prepped(item)))
+                prep, gather = item
+                pending.append((fin_ex.submit(self._dispatch_prepped(prep)), gather))
                 if len(pending) > finalize_ahead:
-                    yield pending.pop(0).result()
-            for fut in pending:
-                yield fut.result()
+                    fut, gather = pending.pop(0)
+                    yield gather_batch(self.mesh, fut.result(), gather)
+            for fut, gather in pending:
+                yield gather_batch(self.mesh, fut.result(), gather)

@@ -269,6 +269,23 @@ class RandomWalkRefiner:
                 cam_idx[i, j] = cls
         return y, c, transposed, cam_vals, cam_idx, sizes.astype(np.int64)
 
+    def bench_device_exec(self, images, cam_dicts):
+        """A zero-argument closure for device-only timing (the JAX
+        refiner's ``bench_device_exec``): the fast_io host packing and the
+        upload once, here; each call re-enqueues the edge forward, the walk
+        and the tail (``_refine_fast``) on the resident tensors and returns
+        the buffer the download would fetch, without downloading or
+        synchronizing.  Needs ``fast_io`` and a batch of one size bucket."""
+        if not self.fast_io:
+            raise ValueError("bench_device_exec requires fast_io")
+        crops = {self._crop_for(h, w) for w, h in map(T.image_size, images)}
+        if len(crops) != 1:
+            raise ValueError(f"bench_device_exec needs a batch of one size bucket, got {crops}")
+        crop = crops.pop()
+        args = [self._put(a) for a in self._pack_fast(crop, images, cam_dicts)]
+        labels = self.output == "labels"
+        return lambda: self._refine_fast(crop, *args, labels=labels)
+
     def _refine_group_fast(self, crop: int, images, cam_dicts) -> list[np.ndarray]:
         """fast_io path for one size bucket; the 'scores' output is
         upsampled to image size on the host (PIL bilinear, the device

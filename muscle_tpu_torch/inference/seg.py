@@ -15,9 +15,10 @@ Two input paths:
 * ``device_tta=False``: PIL-prepped canvases per scale on the host, for
   parity checks.
 
-``shard_spatial`` (the device path only, float32): as ``CamTTAEngine``'s,
-each rank of a model group runs its stripe of every canvas and gets the
-whole logits back.
+``mesh`` and ``shard_spatial`` as ``CamTTAEngine``'s: every rank passes the
+same global batch and gets the whole batch's records back, each data row
+running its share; under ``shard_spatial`` each rank of a model group runs
+its stripe of every canvas and gets the whole logits back.
 """
 
 from __future__ import annotations
@@ -32,7 +33,9 @@ from muscle_tpu_torch.inference.cam import (
     COMPUTE_DTYPES,
     _batch_canvas,
     _valid,
+    gather_batch,
     scaled_pairs,
+    share_batch,
     spatial_stripes,
 )
 from muscle_tpu_torch.inference.upload import start_download, to_device
@@ -67,10 +70,12 @@ class SegTTAEngine:
         (device_tta only) resizes to the original size and takes the
         argmax on the device and downloads one uint8 map per image (argmax
         commutes with the mean; class gating needs 'probs').
-      mesh, shard_spatial: ``parallel.make_mesh(model_axis=k)`` and True
-        split each canvas's height over this rank's model group
-        (``inference.cam.spatial_stripes`` for what raises); the batch's
-        split over the data axis is the caller's (``cli/infer_seg.py``).
+      mesh: ``parallel.make_mesh()``: every rank passes the same global
+        batch; the engine splits it over the data axis and every rank
+        returns the whole batch's records (``CamTTAEngine``).
+      shard_spatial: with ``make_mesh(model_axis=k)``, also split each
+        canvas's height over this rank's model group
+        (``inference.cam.spatial_stripes`` for what raises).
       device: where the model runs: 'cuda' (default) or 'cpu'.
     """
 
@@ -82,7 +87,8 @@ class SegTTAEngine:
                  output: str = "probs", device: str | torch.device = "cuda"):
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype}: float32 or bfloat16")
-        self.stripes = spatial_stripes(mesh, shard_spatial, compute_dtype)
+        self.mesh = mesh
+        self.stripes = spatial_stripes(mesh, shard_spatial)
         if out_side % accum_stride:
             raise ValueError("accum_stride must divide out_side")
         if download_dtype not in ("float32", "float16"):
@@ -115,7 +121,24 @@ class SegTTAEngine:
         return to_device(a, self.device)
 
     def bench_device_exec(self, images, names):
-        raise NotImplementedError("bench_device_exec waits for a device-only bench of the port")
+        """A zero-argument closure for device-only timing, as
+        ``CamTTAEngine.bench_device_exec``: the host prep and the upload
+        once, each call re-enqueues the device pipeline (every TTA scale
+        and the finish) on the resident tensors and returns the buffer the
+        download would fetch, without downloading or synchronizing.  The
+        device_tta path only."""
+        if not self.device_tta:
+            raise ValueError("bench_device_exec requires device_tta (the fused device pipeline)")
+        (images, names), _ = share_batch(self.mesh, (images, names))
+        prep = self._host_prep(images, names)
+        with torch.inference_mode():
+            up = self._upload(prep)
+
+        def run() -> torch.Tensor:
+            with torch.inference_mode():
+                return self._device_pipeline(up)
+
+        return run
 
     # ---- one scale -------------------------------------------------------------
 
@@ -179,9 +202,12 @@ class SegTTAEngine:
         backend and the argmax).  output='labels': per image {'name',
         'label' (H, W) uint8}.  cls_gates: optional per-image (C,) gates
         multiplied into the foreground probabilities."""
+        (images, names, cls_gates), gather = share_batch(self.mesh, (images, names, cls_gates))
         if self.device_tta:
-            return self._dispatch_prepped(self._host_prep(images, names, cls_gates))()
-        return self._run_host(images, names, cls_gates)
+            recs = self._dispatch_prepped(self._host_prep(images, names, cls_gates))()
+        else:
+            recs = self._run_host(images, names, cls_gates)
+        return gather_batch(self.mesh, recs, gather)
 
     def run_batch_async(self, images, names, cls_gates=None):
         """Enqueue a device_tta batch; returns a ``finalize() -> list[dict]``
@@ -190,7 +216,9 @@ class SegTTAEngine:
         compute."""
         if not self.device_tta:
             raise ValueError("run_batch_async requires device_tta")
-        return self._dispatch_prepped(self._host_prep(images, names, cls_gates))
+        (images, names, cls_gates), gather = share_batch(self.mesh, (images, names, cls_gates))
+        finalize = self._dispatch_prepped(self._host_prep(images, names, cls_gates))
+        return lambda: gather_batch(self.mesh, finalize(), gather)
 
     def _run_host(self, images, names, cls_gates):
         """The host-prep path: PIL-resized canvases per scale."""
@@ -234,20 +262,26 @@ class SegTTAEngine:
         return {"names": list(names), "upload": upload, "orig_sizes": orig_sizes,
                 "cls_gates": cls_gates}
 
-    def _device_pipeline(self, upload, orig_sizes: np.ndarray) -> torch.Tensor:
-        """Upload, unpack, every TTA scale and the finish of one batch,
-        enqueued on the device; returns the tensor to download."""
+    def _upload(self, prep: dict) -> dict:
+        """A prepped batch's upload arrays and sizes on the device, and its
+        host sizes (the canvases)."""
+        kind, *arrays = prep["upload"]
+        return {"kind": kind, "arrays": [self._put(a) for a in arrays],
+                "sizes": self._put(prep["orig_sizes"]), "orig_sizes": prep["orig_sizes"]}
+
+    def _device_pipeline(self, up: dict) -> torch.Tensor:
+        """Unpack, every TTA scale and the finish of one uploaded batch
+        (``_upload``), enqueued on the device; returns the tensor to
+        download."""
         from muscle_tpu_torch.inference.upload import square_unpack_fn, ycbcr420_unpack_fn
 
-        kind, *arrays = upload
-        args = [self._put(a) for a in arrays]
+        kind, args, orig_sizes, sizes = up["kind"], up["arrays"], up["orig_sizes"], up["sizes"]
         if kind == "ycbcr420":
             images = ycbcr420_unpack_fn(self.out_side)(*args)
         elif kind == "tight":
             images = square_unpack_fn(self.out_side)(*args)
         else:
             images = args[0]
-        sizes = self._put(orig_sizes)
         acc = self._new_acc(len(orig_sizes))
         for s in self.scales:
             canvas = _batch_canvas(s, orig_sizes, self.max_side, n_strided=N_STRIDED_DEC)
@@ -260,7 +294,7 @@ class SegTTAEngine:
 
     def _dispatch_prepped(self, prep: dict):
         with torch.inference_mode():
-            fused = self._device_pipeline(prep["upload"], prep["orig_sizes"])
+            fused = self._device_pipeline(self._upload(prep))
         fetch = start_download(fused)
         names, orig_sizes = prep["names"], prep["orig_sizes"]
         if self.output == "labels":
@@ -309,7 +343,8 @@ class SegTTAEngine:
         Three stages run concurrently: host prep (canvas packing) on a
         thread, dispatch on the caller's thread (enqueues device work), and
         finalize (blocking download + host upsample) on a thread.  Shallower
-        than the CAM engine's default: a seg batch downloads far more."""
+        than the CAM engine's default: a seg batch downloads far more.
+        Under a mesh the records are gathered on the caller's thread."""
         import queue
         import threading
         from concurrent.futures import ThreadPoolExecutor
@@ -322,7 +357,8 @@ class SegTTAEngine:
         def produce():
             try:
                 for batch in batches:
-                    prep_q.put(self._host_prep(*batch))
+                    mine, gather = share_batch(self.mesh, tuple(batch))
+                    prep_q.put((self._host_prep(*mine), gather))
             except BaseException as e:  # re-raised in the consumer
                 prep_q.put(e)
                 return
@@ -337,8 +373,10 @@ class SegTTAEngine:
                     break
                 if isinstance(item, BaseException):
                     raise item
-                pending.append(fin_ex.submit(self._dispatch_prepped(item)))
+                prep, gather = item
+                pending.append((fin_ex.submit(self._dispatch_prepped(prep)), gather))
                 if len(pending) > finalize_ahead:
-                    yield pending.pop(0).result()
-            for fut in pending:
-                yield fut.result()
+                    fut, gather = pending.pop(0)
+                    yield gather_batch(self.mesh, fut.result(), gather)
+            for fut, gather in pending:
+                yield gather_batch(self.mesh, fut.result(), gather)

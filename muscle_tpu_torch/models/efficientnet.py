@@ -26,13 +26,14 @@ is the layout cuDNN and the MBConv kernel both want.
   float32 parameters, as Flax's ``dtype=bf16`` does (``models/layers.py``):
   convolutions and their outputs in bf16, batch norms in f32 rounded to
   bf16, masks and the SE mean in bf16;
-* given ``stripes`` (``parallel/spatial.py``; float32 inference) the
-  forward runs on this rank's stripe of the canvas: each conv takes halo
-  rows from the neighbouring stripes (k//2 at stride 1, the static pad at
-  stride 2) and pads only its width, the window masks are taken in image
-  rows, and the SE means add the stripes' sums; from the first stride-2
-  conv whose stripes would not halve (``Stripes.can_halve``) the level is
-  gathered and the rest runs whole on every rank.
+* given ``stripes`` (``parallel/spatial.py``; inference, float32 or
+  bfloat16) the forward runs on this rank's stripe of the canvas: each
+  conv takes halo rows from the neighbouring stripes (k//2 at stride 1,
+  the static pad at stride 2) and pads only its width, the window masks
+  are taken in image rows, and the SE means add the stripes' float32 sums
+  (at bfloat16 rounded once after, as jnp's sum of a bf16 map); from the
+  first stride-2 conv whose stripes would not halve (``Stripes.can_halve``)
+  the level is gathered and the rest runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -504,7 +505,9 @@ class MBConvBlock(nn.Module):
         mask = _nchw(window_mask((h.shape[2], h.shape[3]), win, h.dtype,
                                  row0=stripes.row0(h.shape[2])))
         h = h * mask
-        se = stripes.sum(h.sum(dim=(2, 3), keepdim=True)) / _nchw(se_count)
+        # the stripes' float32 partials summed, then rounded once to x's dtype
+        se = stripes.sum(h.sum(dim=(2, 3), keepdim=True, dtype=torch.float32))
+        se = se.to(h.dtype) / _nchw(se_count)
         h = torch.sigmoid(self._se_expand(F.silu(self._se_reduce(se)))) * h
         out = _nhwc(self._bn2(self._project_conv(h)) * mask)
         if a.id_skip and a.stride == 1 and a.input_filters == a.output_filters:
@@ -585,9 +588,6 @@ class EfficientNet(nn.Module):
         if self.training or torch.is_grad_enabled():
             raise RuntimeError("a striped forward is inference-only: eval mode under "
                                "torch.inference_mode()")
-        if x.dtype != torch.float32:
-            raise NotImplementedError("spatial sharding runs float32 (bf16 under "
-                                      "shard_spatial: ROADMAP Queue A item 2)")
         n, s, w, _ = x.shape
         if not stripes.can_halve(s):
             raise ValueError(f"a canvas of {s * stripes.size} rows does not split into "

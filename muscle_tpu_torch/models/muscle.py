@@ -17,7 +17,7 @@ and of a 'dec' model:
   'seg_lowres' -> (logits, p3_dec)           at the stride-8 p3 grid
   'vis'        -> (seg_map, p7)
 
-Spatial sharding (``forward(..., stripes=)``, float32 inference): the
+Spatial sharding (``forward(..., stripes=)``, inference in either dtype): the
 backbone runs on this rank's stripe of the canvas
 (``models/efficientnet.py``); the heads then run whole on every rank.  In
 'enc' modes the stride-16 levels p5 and p7 are gathered, and p1 (stride 2)

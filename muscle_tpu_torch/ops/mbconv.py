@@ -113,50 +113,77 @@ class MBConvPartial:
 
 def _plain_begin(x, wd, window, *, k: int, has_expand: bool, has_skip: bool,
                  owned=None) -> MBConvPartial:
-    """The plain expand + depthwise (float32): ``d`` and its SE sums over
-    the rows ``owned`` (all rows when None), (B, 1, Cmid)."""
-    if x.dtype != torch.float32:
-        raise NotImplementedError("the bf16 plain version runs in one piece: "
-                                  "mbconv_stride1_plain")
+    """The plain expand + depthwise: ``d`` (float32) and its SE sums over
+    the rows ``owned`` (all rows when None), (B, 1, Cmid), float32 at
+    either dtype.  At bfloat16 the Pallas kernel's ``compute_dtype=bf16``
+    instantiation: bf16 operands of every product with f32 accumulation,
+    BN / swish / masks in f32, the masked expand output rounded to bf16,
+    each depthwise product rounded to bf16 before the f32 sum, and ``d``
+    kept in f32 for the SE sums (``_plain_end`` rounds it)."""
     h, w = x.shape[1:3]
     win = full_window(x) if window is None else window
     mask = window_mask((h, w), win)
-    if has_expand:
-        e = F.silu(x @ wd["w_exp"] * wd["s0"] + wd["b0"])
-    else:
-        e = x
-    e = e * mask
     cmid = wd["w_dw"].shape[1]
-    kern = wd["w_dw"].t().reshape(cmid, 1, k, k)
-    dw = F.conv2d(e.permute(0, 3, 1, 2), kern, padding=k // 2, groups=cmid)
-    d = F.silu(dw.permute(0, 2, 3, 1) * wd["s1"] + wd["b1"]) * mask
+    if x.dtype == torch.bfloat16:
+        if has_expand:
+            e = F.silu(_mm(x, wd["w_exp"]) * wd["s0"] + wd["b0"])
+        else:
+            e = x.float()
+        e = (e * mask).to(torch.bfloat16)
+        p = k // 2
+        ep = F.pad(e, (0, 0, p, p, p, p))
+        dw = torch.zeros(e.shape, dtype=torch.float32, device=x.device)
+        for ky in range(k):
+            for kx in range(k):
+                dw += ep[:, ky:ky + h, kx:kx + w] * wd["w_dw"][ky * k + kx]
+    else:
+        if has_expand:
+            e = F.silu(x @ wd["w_exp"] * wd["s0"] + wd["b0"])
+        else:
+            e = x
+        e = e * mask
+        kern = wd["w_dw"].t().reshape(cmid, 1, k, k)
+        dw = F.conv2d(e.permute(0, 3, 1, 2), kern, padding=k // 2,
+                      groups=cmid).permute(0, 2, 3, 1)
+    d = F.silu(dw * wd["s1"] + wd["b1"]) * mask
     lo, hi = (0, h) if owned is None else owned
     return MBConvPartial(x, wd, win, d, d[:, lo:hi].sum(dim=(1, 2))[:, None], has_skip, owned)
 
 
 def _plain_end(p: MBConvPartial) -> torch.Tensor:
-    """The plain SE gate from ``p.part`` and the project: y of the rows
-    ``p.owned`` (all rows when None)."""
-    wd, win = p.weights, p.win
-    mask = window_mask(p.x.shape[1:3], win)
+    """The plain SE gate from ``p.part`` (summed over its partials and
+    divided by the whole window's count) and the project: y of the rows
+    ``p.owned`` (all rows when None), in x's dtype.  At bfloat16 the SE
+    FCs' inputs and the gated ``d`` are rounded to bf16, the residual added
+    in f32 and y rounded once."""
+    wd, win, x = p.weights, p.win, p.x
+    mask = window_mask(x.shape[1:3], win)
     count = (win[:, 2] * win[:, 3]).to(torch.float32)[:, None]
     se = p.part.sum(dim=1) / count
-    sq = F.silu(se @ wd["w_se_r"] + wd["b_se_r"])
-    gate = torch.sigmoid(sq @ wd["w_se_e"] + wd["b_se_e"])
-    y = ((p.d * gate[:, None, None, :]) @ wd["w_proj"] * wd["s2"] + wd["b2"]) * mask
-    if p.has_skip:
-        y = y + p.x
+    if x.dtype == torch.bfloat16:
+        bf16 = torch.bfloat16
+        sq = F.silu(_mm(se.to(bf16), wd["w_se_r"]) + wd["b_se_r"])
+        gate = torch.sigmoid(_mm(sq.to(bf16), wd["w_se_e"]) + wd["b_se_e"])
+        dg = (p.d.to(bf16).float() * gate[:, None, None, :]).to(bf16)
+        y = (_mm(dg, wd["w_proj"]) * wd["s2"] + wd["b2"]) * mask
+        if p.has_skip:
+            y = y + x.float()
+        y = y.to(bf16)
+    else:
+        sq = F.silu(se @ wd["w_se_r"] + wd["b_se_r"])
+        gate = torch.sigmoid(sq @ wd["w_se_e"] + wd["b_se_e"])
+        y = ((p.d * gate[:, None, None, :]) @ wd["w_proj"] * wd["s2"] + wd["b2"]) * mask
+        if p.has_skip:
+            y = y + x
     return y if p.owned is None else y[:, p.owned[0]:p.owned[1]]
 
 
 def mbconv_stride1_plain(x, weights, window, *, k: int, has_expand: bool, has_skip: bool,
                          owned=None, se_sum=None) -> torch.Tensor:
     """The block in plain PyTorch ops, with the kernel's folding and
-    masking: the CPU path of ``mbconv_stride1`` and its reference on the
-    card (``owned`` and ``se_sum`` as there).  A bfloat16 ``x`` takes the
-    bf16 version (``_plain_bf16``), whole images only."""
-    if x.dtype == torch.bfloat16 and owned is None:
-        return _plain_bf16(x, weights, window, k=k, has_expand=has_expand, has_skip=has_skip)
+    masking, float32 or bfloat16 (``_plain_begin`` / ``_plain_end``): the
+    CPU path of ``mbconv_stride1`` and its reference on the card (``owned``
+    and ``se_sum`` as there)."""
     p = _plain_begin(x, weights, window, k=k, has_expand=has_expand, has_skip=has_skip,
                      owned=owned)
     if se_sum is not None:
@@ -168,40 +195,6 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a @ w of bf16 operands with f32 accumulation: the bf16 products are
     exact in f32, so this is the tensor cores' product."""
     return a.float() @ w.float()
-
-
-def _plain_bf16(x, wd, window, *, k: int, has_expand: bool, has_skip: bool) -> torch.Tensor:
-    """The Pallas kernel's ``compute_dtype=bf16`` instantiation: bf16
-    operands of every product with f32 accumulation, BN / swish / masks in
-    f32, the masked expand output and ``d`` rounded to bf16, each
-    depthwise product rounded to bf16 before the f32 sum, the SE partial
-    sums from f32 ``d``, the SE FCs' inputs and the gated ``d`` rounded to
-    bf16, the residual added in f32 and y rounded once."""
-    bf16 = torch.bfloat16
-    b, h, w, _ = x.shape
-    win = full_window(x) if window is None else window
-    mask = window_mask((h, w), win)
-    if has_expand:
-        e = F.silu(_mm(x, wd["w_exp"]) * wd["s0"] + wd["b0"])
-    else:
-        e = x.float()
-    e = (e * mask).to(bf16)
-    p = k // 2
-    ep = F.pad(e, (0, 0, p, p, p, p))
-    acc = torch.zeros(e.shape, dtype=torch.float32, device=x.device)
-    for ky in range(k):
-        for kx in range(k):
-            acc += ep[:, ky:ky + h, kx:kx + w] * wd["w_dw"][ky * k + kx]
-    d = F.silu(acc * wd["s1"] + wd["b1"]) * mask
-    count = (win[:, 2] * win[:, 3]).to(torch.float32)[:, None]
-    se = d.sum(dim=(1, 2)) / count
-    sq = F.silu(_mm(se.to(bf16), wd["w_se_r"]) + wd["b_se_r"])
-    gate = torch.sigmoid(_mm(sq.to(bf16), wd["w_se_e"]) + wd["b_se_e"])
-    dg = (d.to(bf16).float() * gate[:, None, None, :]).to(bf16)
-    y = (_mm(dg, wd["w_proj"]) * wd["s2"] + wd["b2"]) * mask
-    if has_skip:
-        y = y + x.float()
-    return y.to(bf16)
 
 
 def _check(x: torch.Tensor, weights: dict, window, k: int, has_expand: bool,
@@ -336,7 +329,7 @@ def mbconv_stride1(x: torch.Tensor, weights: dict, window: torch.Tensor | None, 
     valid windows, or None for whole images.
 
     owned: (lo, hi) when x is a stripe of a taller image with halo rows
-    above and below (float32; ``parallel/spatial.py``): only rows lo .. hi - 1
+    above and below (``parallel/spatial.py``): only rows lo .. hi - 1
     are this call's, ``window`` is in x's rows (``shift_rows``), the SE
     sums of those rows, (B, 1, Cmid') float32, go through ``se_sum`` (in
     place: ``Stripes.sum`` adds the other stripes' sums) and are divided
@@ -362,12 +355,8 @@ def _check_call(x, weights, window, *, k, has_expand, has_skip, owned) -> dict:
         raise RuntimeError("mbconv_stride1 is inference-only (the kernel has no "
                            "backward); call it under torch.inference_mode()")
     dims = _check(x, weights, window, k, has_expand, has_skip)
-    if owned is not None:
-        if x.dtype != torch.float32:
-            raise NotImplementedError("a stripe at bfloat16: spatial sharding runs float32 "
-                                      "(ROADMAP Queue A item 2)")
-        if not 0 <= owned[0] < owned[1] <= x.shape[1]:
-            raise ValueError(f"owned rows {owned} outside x's {x.shape[1]} rows")
+    if owned is not None and not 0 <= owned[0] < owned[1] <= x.shape[1]:
+        raise ValueError(f"owned rows {owned} outside x's {x.shape[1]} rows")
     return dims
 
 
@@ -377,7 +366,7 @@ def mbconv_stride1_begin(x: torch.Tensor, weights: dict, window: torch.Tensor | 
     """The block's first stage (``mbconv_stride1``'s arguments): on a card
     the kernel's launch (a), ``d`` and the SE partial sums of the rows
     ``owned`` (summed over its tiles to one per image when ``owned`` is
-    given); on the CPU the plain version's (float32)."""
+    given); on the CPU the plain version's."""
     dims = _check_call(x, weights, window, k=k, has_expand=has_expand, has_skip=has_skip,
                        owned=owned)
     if x.device.type == "cpu":

@@ -134,6 +134,31 @@ def edge_to_affinity(edge_flat: torch.Tensor, path_index: PathIndex) -> torch.Te
     return torch.cat(affs, dim=-2)
 
 
+def affinity_to_dense(aff: torch.Tensor, path_index: PathIndex) -> torch.Tensor:
+    """The symmetric dense (V, V) affinity with a unit diagonal from the
+    pairs' affinities ``aff`` (D, P) of ``edge_to_affinity`` (the
+    reference's dense build; the walks never make it)."""
+    v = path_index.n_vertices
+    src = np.broadcast_to(path_index.src_indices[None, :],
+                          path_index.dst_indices.shape).reshape(-1)
+    dst = path_index.dst_indices.reshape(-1)
+    rows = torch.as_tensor(np.concatenate([src, dst]), device=aff.device)
+    cols = torch.as_tensor(np.concatenate([dst, src]), device=aff.device)
+    dense = torch.zeros((v, v), dtype=aff.dtype, device=aff.device)
+    dense.index_put_((rows, cols), torch.cat([aff.reshape(-1)] * 2), accumulate=True)
+    return dense + torch.eye(v, dtype=aff.dtype, device=aff.device)
+
+
+def to_transition_matrix(dense_aff: torch.Tensor, beta: int, times: int) -> torch.Tensor:
+    """aff^beta normalised over each column, squared ``times`` times (the
+    reference's transition matrix)."""
+    scaled = dense_aff ** beta
+    trans = scaled / scaled.sum(dim=0, keepdim=True)
+    for _ in range(times):
+        trans = trans @ trans
+    return trans
+
+
 def _pair_weights(edge: torch.Tensor, radius: int, beta: int):
     """(rows, cols, weights (B, P), colsum (B, V)) of (B, h, w) edges: the
     off-diagonal entries T[rows, cols] = weights / colsum[cols] of the

@@ -33,8 +33,9 @@ Spatial sharding (``make_mesh(model_axis=k)``, the JAX package's
 ``spatial_sharding``): the ranks form a (W / k data) x (k model) grid, k
 consecutive ranks a model group that splits each image's height into k
 stripes (``parallel/spatial.py``: halo exchanges and cross-stripe sums in
-place of GSPMD's).  Not ported: an engine's in-process data-parallel
-``mesh=`` (a rank runs its own engine on its rows instead).
+place of GSPMD's).  The engines' ``mesh=`` shards each batch over the
+data axis as the JAX engines' does: each data row runs its share of the
+batch and the records are gathered (``data_share``, ``gather_rows``).
 """
 
 from __future__ import annotations
@@ -247,6 +248,27 @@ def draw_rows(shape, generator: torch.Generator | None = None, group=None,
     u = torch.rand((n * w, *shape[1:]), generator=generator, dtype=dtype, device=device)
     r = rank(group)
     return u[r * n: (r + 1) * n]
+
+
+def data_share(mesh, n: int) -> tuple[slice, bool]:
+    """(this rank's share of a batch of n, whether the ranks' shares are
+    gathered) under ``mesh``'s data axis, as the JAX engines place a batch:
+    sharded over 'data' where the data rows divide n (``rank_rows`` of the
+    data group), replicated (every rank the whole batch) where they do not
+    or without a mesh."""
+    if mesh is None or mesh.data_group is None or n % mesh.shape["data"]:
+        return slice(None), False
+    return rank_rows(n, mesh.data_group), True
+
+
+def gather_rows(records: list, group=None) -> list:
+    """Every rank's list of ``records`` (picklable) concatenated in rank
+    order, on every rank of ``group``; ``records`` for one process."""
+    if group is None:
+        return records
+    parts = [None] * world(group)
+    dist.all_gather_object(parts, records, group=group)
+    return [r for part in parts for r in part]
 
 
 def broadcast_object(obj, group=None, src_rank: int = 0):

@@ -1,8 +1,9 @@
-"""Wall-clock instrumentation: running averages and a progress timer with
-ETA (port of ``muscle_tpu/utils/timers.py``)."""
+"""Wall-clock instrumentation: running averages, a progress timer with
+ETA and a profiler trace scope (port of ``muscle_tpu/utils/timers.py``)."""
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 
@@ -51,3 +52,21 @@ class Timer:
     def eta_str(self) -> str:
         remain = self.elapsed() * (1.0 - self.progress) / self.progress
         return time.strftime("%H:%M:%S", time.gmtime(self.start + self.elapsed() + remain))
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str | None):
+    """A ``torch.profiler`` trace of the scope (the CPU, and the card when
+    there is one) written to ``logdir`` as a TensorBoard trace; does
+    nothing when logdir is None."""
+    if logdir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield

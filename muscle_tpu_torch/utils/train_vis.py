@@ -25,6 +25,11 @@ from muscle_tpu_torch.data.transforms import color_norm, denorm_to_uint8
 from muscle_tpu_torch.utils.visualize import save_overlay
 
 
+def denorm_uint8(img: np.ndarray) -> np.ndarray:
+    """Invert the ImageNet normalisation of one (H, W, 3) image."""
+    return denorm_to_uint8(img)
+
+
 def _first_image_u8(batch: dict) -> np.ndarray:
     """(H, W, 3) uint8 of the batch's first image, in any upload format."""
     if "img_y" in batch:

@@ -158,11 +158,12 @@ def test_seg_engine_rejects_unsupported_options(models):
         SegTTAEngine(model, compute_dtype=torch.float16, device="cpu")
     # shard_spatial without a mesh raises as the JAX engine does
     # (test_torch_spatial.py runs it on a mesh); a mesh without
-    # shard_spatial (an in-process data-parallel engine) is not ported
+    # shard_spatial is the data-parallel engine, one data row in one process
+    # (test_torch_mesh_engines.py runs it on ranks)
     with pytest.raises(ValueError, match="requires a mesh"):
         SegTTAEngine(model, shard_spatial=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        SegTTAEngine(model, mesh=make_mesh(), device="cpu")
+    one_row = SegTTAEngine(model, mesh=make_mesh(), device="cpu")
+    assert one_row.stripes is None and one_row.mesh.shape == {"data": 1, "model": 1}
     with pytest.raises(ValueError):
         SegTTAEngine(model, output="labels", device_tta=False, device="cpu")
     with pytest.raises(ValueError):
@@ -170,5 +171,8 @@ def test_seg_engine_rejects_unsupported_options(models):
     engine = SegTTAEngine(model, device="cpu", **BASE, output="labels")
     with pytest.raises(ValueError, match="cls_gates"):
         engine.run_batch(_images(5), ["a", "b"], [np.ones(21), None])
-    with pytest.raises(NotImplementedError):
-        engine.bench_device_exec(_images(5), ["a", "b"])
+    # bench_device_exec on the device_tta path only, as the JAX engine
+    # asserts (test_torch_device_exec.py runs it)
+    with pytest.raises(ValueError, match="device_tta"):
+        SegTTAEngine(model, device="cpu", device_tta=False).bench_device_exec(
+            _images(5), ["a", "b"])

@@ -226,25 +226,21 @@ def _assert_cam_close(got, want, score_atol, sgc_atol, what, f16_step=False):
 @pytest.mark.parametrize("mesh", ["1x4", "2x2"])
 def test_cam_engine_spatial_matches_one_process(spec, outs, mesh):
     """JAX's test_cam_engine_spatial_sharded_matches_single's configuration
-    (b1 enc, 4 images of 44-56 x 40, scales 0.5 and 1); every rank of a
-    model group returns the same records, each data row its rows of the
-    batch, held to one process on the same rows."""
+    (b1 enc, 4 images of 44-56 x 40, scales 0.5 and 1), every rank given
+    the whole batch: every rank returns the whole batch's records (on the
+    2 x 2 mesh each data row ran its half and the halves were gathered),
+    held to one process on the same rows."""
     d = spec["cam"]
     one = CamTTAEngine(ranks.cam_model(spec["cam_state"]), device="cpu", **CAM_KW)
     if mesh == "1x4":
         want = one.run_batch(d["images"], d["names"], d["labels"])
-        groups = [outs]
     else:
         want = one.run_batch(d["images"][:2], d["names"][:2], d["labels"][:2]) + \
             one.run_batch(d["images"][2:], d["names"][2:], d["labels"][2:])
-        groups = [outs[:2], outs[2:]]
-    got = []
-    for grp in groups:
-        recs = [o[f"cam_{mesh}"] for o in grp]
-        for r in recs[1:]:  # the ranks of a model group agree
-            _assert_cam_close(r, recs[0], 1e-6, 1e-6, f"{mesh} ranks")
-        got += recs[0]
-    _assert_cam_close(got, want, SPATIAL_SCORE_ATOL, SPATIAL_SGC_ATOL, mesh, f16_step=True)
+    recs = [o[f"cam_{mesh}"] for o in outs]
+    for r in recs[1:]:  # every rank holds the same records
+        _assert_cam_close(r, recs[0], 1e-6, 1e-6, f"{mesh} ranks")
+    _assert_cam_close(recs[0], want, SPATIAL_SCORE_ATOL, SPATIAL_SGC_ATOL, mesh, f16_step=True)
     stats = outs[0]["cam_1x4_stats"]
     assert stats["halo"]["calls"] > 0 and stats["sum"]["calls"] > 0
 
@@ -285,8 +281,10 @@ def test_seg_engine_spatial_matches_one_process_and_jax(spec, outs):
 
 
 def test_spatial_errors(spec, outs):
-    """The JAX engines' errors (test_shard_spatial_requires_model_axis), and
-    what the port does not run under shard_spatial."""
+    """The JAX engines' errors (test_shard_spatial_requires_model_axis), what
+    the port does not run under shard_spatial, and what builds as JAX's
+    engines do: bf16 under shard_spatial (stripes), a mesh alone (no
+    stripes: the in-process data-parallel engine)."""
     model = ranks.cam_model(spec["cam_state"])
     with pytest.raises(ValueError, match="requires a mesh"):
         CamTTAEngine(model, shard_spatial=True, device="cpu")
@@ -296,9 +294,10 @@ def test_spatial_errors(spec, outs):
         make_mesh(model_axis=2)  # one process
     with pytest.raises(ValueError, match="requires a mesh"):
         SegTTAEngine(ranks.seg_model(spec["seg_state"]), shard_spatial=True, device="cpu")
+    assert outs[0]["built"] == {"bf16": (torch.bfloat16, True),
+                                "data_mesh": (torch.float32, False)}
     errors = outs[0]["errors"]
-    assert errors["bf16"][0] == "NotImplementedError" and "ROADMAP" in errors["bf16"][1]
-    assert errors["data_mesh"][0] == "NotImplementedError"
+    assert set(errors) == {"exact", "host"}
     assert errors["exact"][0] == errors["host"][0] == "ValueError"
     assert [o["coords"] for o in outs] == [{4: (0, r), 2: (r // 2, r % 2)} for r in range(4)]
 
@@ -332,13 +331,14 @@ def mini_voc(tmp_path_factory, spec):
     return root, names
 
 
-def _torchrun(module: str, args: list, cwd) -> None:
-    """``torchrun --standalone --nproc_per_node 2 -m <module> <args>``."""
+def _torchrun(module: str, args: list, cwd, nproc: int = 2) -> str:
+    """``torchrun --standalone --nproc_per_node <nproc> -m <module> <args>``;
+    returns its stdout."""
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(REPO))
     proc = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
-         "-m", module, *args], cwd=str(cwd), env=env, capture_output=True, text=True,
-        timeout=600)
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         str(nproc), "-m", module, *args], cwd=str(cwd), env=env, capture_output=True,
+        text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     return proc.stdout
 
