@@ -73,7 +73,17 @@ Phases:
            4:2:0 tight upload, labels output), each with the kernel and
            with the plain blocks; counts the launches, compares, and times
            the mean-field CRF (t = 4) on the card and checks the native
-           CRF against it on one image;
+           CRF against it on one image; then the engine's parity switches
+           at --fast 0 on one batch of 4 (lowres=False: the input-size
+           'seg' logits; window_exact=False: the top-left canvas without
+           window masks, the kernel's unwindowed form; both off; and the
+           default beside them), each with the kernel and with the plain
+           blocks: 288 launches, the seg rules, batch seconds, images/s and
+           peak memory, and lowres=False within 1e-4 of lowres=True
+           through the kernel; then the four kernel engines timed in
+           turns, SWITCH_TURNS turns over the 4 batches each, with each
+           setting's median images/s, its range and its ratio to the
+           default's median;
   bf16     the bf16 serving paths, each beside f32 in the same run: the CAM
            engine at the JAX bench's CamBench configuration (b3 enc,
            compute_dtype bf16, lowres, 4 classes, stride-4 grid, uint8
@@ -87,10 +97,12 @@ Phases:
            labels agree on >= 99% of each image's pixels whose f32 top-two
            probability margin exceeds 1e-2, or disagree on at most twice
            what the plain bf16 blocks disagree with f32 there; 288 bf16
-           MBConv launches per batch; the IRN refiner with its edge model in bf16
-           and the stencil walk in f32 over 2 batches of 8, labels within
-           99% of the f32 refiner's; and the count of bf16 (and tf32)
-           HGMMA instructions in the built MBConv library (cuobjdump);
+           MBConv launches per batch; the same at window_exact=False on
+           one batch (the bf16 kernel's unwindowed form); the IRN refiner
+           with its edge model in bf16 and the stencil walk in f32 over 2
+           batches of 8, labels within 99% of the f32 refiner's; and the
+           count of bf16 (and tf32) HGMMA instructions in the built MBConv
+           library (cuobjdump);
   train_mcl
            train MuSCLe-b3 enc (float32, TF32 off, seeded random weights,
            plain blocks) at the train_mcl default, batch 16, crop 448,
@@ -189,7 +201,8 @@ Phases:
            process on card 0 (f32: the main and seg phases' rules; bf16:
            the bf16 phase's against one process's bf16 engine), 23
            MBConv launches a b3 forward and 48 a b7 forward on every rank
-           (the bf16 instantiation's for the bf16 engines); each batch's
+           (the bf16 instantiation's for the bf16 engines); a seg batch of
+           1 at lowres=False, window_exact=False (f32) likewise; each batch's
            latency beside one process's, images/s, the exchanges a
            forward (count, bytes, ms with the device synchronised around
            each) and peak memory a rank;
@@ -336,6 +349,16 @@ SEG_PER_BATCH = 4
 SEG_LAUNCHES = 48 * len(SEG_SCALES)  # fused b7 blocks per forward x forwards per batch
 SEG_PROBS_TOL = 1e-3  # f32 probabilities, kernel vs plain blocks through 55 blocks + BiFPN
 SEG_LABEL_AGREE = 0.999  # labels: kernel and plain blocks, near-ties of random weights
+# the seg engine's parity switches (the JAX engine's lowres and window_exact)
+# at --fast 0, the default beside them
+SEG_SWITCHES = {"default": {}, "lowres_false": dict(lowres=False),
+                "window_exact_false": dict(window_exact=False),
+                "both_off": dict(lowres=False, window_exact=False)}
+# lowres=False against lowres=True through the kernel, f32 probabilities: the
+# 1x1 head commutes with the bilinear upsample (the JAX package holds it to
+# 2e-5 at b1)
+SEG_LOWRES_TOL = 1e-4
+SWITCH_TURNS = 3  # timed turns of the switch engines, each over the seg phase's batches
 CRF_AGREE = 0.9  # native vs mean-field CRF labels, two-region image: the JAX package's bound
 LABEL_AGREE = 0.999  # labels: kernel and plain walk, argmax ties only
 IRN_SCORE_TOL = 1e-3  # f16 scores, kernel and plain walk
@@ -1355,6 +1378,8 @@ def phase_seg(n_batches: int = SEG_BATCHES) -> dict:
             raise AssertionError(f"seg {cname}: kernel vs plain blocks out of bounds: {rec}")
         out[cname] = rec
 
+    out["switches"] = _seg_switches(fused_model, plain_model, warm, batches)
+
     # the mean-field CRF (the --crf_backend xla default, t = 4) on the card
     # over the --fast 0 probabilities, and the native CRF on one image
     recs, imgs = probs0
@@ -1386,6 +1411,86 @@ def phase_seg(n_batches: int = SEG_BATCHES) -> dict:
         raise AssertionError(f"native vs mean-field CRF labels agree on {crf_agree} < "
                              f"{CRF_AGREE}")
     out["crf"] = crf
+    return out
+
+
+def _seg_switches(fused_model, plain_model, warm, batches) -> dict:
+    """SEG_SWITCHES at --fast 0 (f32 probabilities, RGB upload) on the
+    first of ``batches``, each with the MBConv kernel and with the plain
+    blocks: one warm-up run, then the batch with the counts zeroed and the
+    peak memory reset just before; the kernel held to the plain blocks by
+    the seg phase's rules with 288 launches, and lowres=False to
+    lowres=True through the kernel within SEG_LOWRES_TOL.  Then the kernel
+    engines timed in SWITCH_TURNS turns over all ``batches``, the settings
+    in turn within each, so a drift of the host's speed falls on all."""
+    import numpy as np
+    import torch
+
+    from muscle_tpu_torch.inference import SegTTAEngine
+
+    batch = batches[0]
+    flat = batch[0]
+    out, probs, kernel_engines = {}, {}, {}
+    for name, switches in SEG_SWITCHES.items():
+        runs = {}
+        for fuse, model in ((384, fused_model), (0, plain_model)):
+            engine = SegTTAEngine(model, scales=SEG_SCALES, device="cuda", upload_mode="rgb",
+                                  tight_upload=False, **switches)
+            if fuse:
+                kernel_engines[name] = engine
+            _seg_run(engine, warm)
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            recs, secs = _seg_run(engine, [batch])
+            runs[fuse] = (recs, secs, _launch_counts()["mbconv_stride1"],
+                          torch.cuda.max_memory_allocated() / 2 ** 30)
+        (got, k_s, launches, k_peak), (want, p_s, _, p_peak) = runs[384], runs[0]
+        err, agree = 0.0, 1.0
+        for g, w, img in zip(got, want, flat):
+            p = g["probs"]
+            assert p.shape == (*img.shape[:2], 21) and np.isfinite(p).all()
+            assert np.abs(p.sum(-1) - 1.0).max() < 1e-3
+            err = max(err, float(np.abs(p - w["probs"]).max()))
+            agree = min(agree, float((p.argmax(-1) == w["probs"].argmax(-1)).mean()))
+        probs[name] = got
+        rec = {"seg_switches": name, **switches, "images": len(flat), "launches": launches,
+               "kernel_batch_s": k_s, "kernel_images_per_s": len(flat) / k_s,
+               "plain_batch_s": p_s, "plain_images_per_s": len(flat) / p_s,
+               "kernel_peak_gib": k_peak, "plain_peak_gib": p_peak,
+               "probs_max_abs_err": err, "labels_agreement_min": agree}
+        print(json.dumps(rec), flush=True)
+        if not (launches == SEG_LAUNCHES and err <= SEG_PROBS_TOL and agree >= SEG_LABEL_AGREE):
+            raise AssertionError(f"seg switches {name}: kernel vs plain blocks out of bounds "
+                                 f"or {launches} launches, want {SEG_LAUNCHES}: {rec}")
+        out[name] = rec
+
+    def dist(a, b):
+        return max(float(np.abs(x["probs"] - y["probs"]).max()) for x, y in zip(a, b))
+
+    # lowres=False is exact; window_exact=False moves the probabilities (the
+    # SE means and the BiFPN see the canvas padding): the switch took effect
+    rec = {"seg_lowres_false_vs_true_max_abs": dist(probs["lowres_false"], probs["default"]),
+           "seg_unwindowed_vs_default_max_abs": dist(probs["window_exact_false"],
+                                                     probs["default"])}
+    print(json.dumps(rec), flush=True)
+    if not (rec["seg_lowres_false_vs_true_max_abs"] <= SEG_LOWRES_TOL
+            and rec["seg_unwindowed_vs_default_max_abs"] > 0):
+        raise AssertionError(f"seg switches: lowres=False vs True out of bounds, or "
+                             f"window_exact=False changed nothing: {rec}")
+    out["lowres"] = rec
+
+    n_img = sum(len(imgs) for imgs, _ in batches)
+    rates = {name: [] for name in kernel_engines}
+    for _ in range(SWITCH_TURNS):
+        for name, engine in kernel_engines.items():
+            rates[name].append(n_img / _seg_run(engine, batches)[1])
+    base = float(np.median(rates["default"]))
+    turns = {"seg_switch_turns": SWITCH_TURNS, "images_per_turn": n_img}
+    for name, r in rates.items():
+        turns[name] = {"median_images_per_s": float(np.median(r)), "min": min(r), "max": max(r),
+                       "median_vs_default": float(np.median(r)) / base}
+    print(json.dumps(turns), flush=True)
+    out["turns"] = turns
     return out
 
 
@@ -1480,11 +1585,11 @@ def _bf16_cam(n_batches: int) -> dict:
     return rec
 
 
-def _bf16_seg(n_batches: int) -> dict:
+def _bf16_seg(n_batches: int, window_exact: bool = True) -> dict:
     """The JAX bench's seg configuration (SegBench: b7 dec, BiFPN 3 x 256,
     bf16, stride-4 grid, tight 4:2:0 upload, labels) with the MBConv kernel
     and with the plain blocks, the same at f32, and f32 probabilities for
-    the top-two margin."""
+    the top-two margin; every engine at ``window_exact``."""
     import numpy as np
     import torch
 
@@ -1494,7 +1599,7 @@ def _bf16_seg(n_batches: int) -> dict:
     plain = _seg_model(0)
     plain.load_state_dict(fused.state_dict())
     cfg = dict(scales=SEG_SCALES, accum_stride=4, download_dtype="float16", tight_upload=True,
-               upload_mode="ycbcr420", device="cuda")
+               upload_mode="ycbcr420", window_exact=window_exact, device="cuda")
     bf16 = torch.bfloat16
     engines = {"bf16": SegTTAEngine(fused, compute_dtype=bf16, output="labels", **cfg),
                "bf16_plain": SegTTAEngine(plain, compute_dtype=bf16, output="labels", **cfg),
@@ -1527,7 +1632,7 @@ def _bf16_seg(n_batches: int) -> dict:
     # own disagreement with f32
     floors = [1 - max(1 - BF16_LABEL_AGREE, BF16_SGC_REL * (1 - o)) for o in own]
     n_img = SEG_PER_BATCH * n_batches
-    rec = {"bf16": "seg, SegBench config", "images": n_img,
+    rec = {"bf16": f"seg, SegBench config, window_exact={window_exact}", "images": n_img,
            "launches_bf16": launches["mbconv_bf16"],
            "launches_bf16_per_batch": launches["mbconv_bf16"] / n_batches,
            "bf16_images_per_s": n_img / bf16_s, "f32_images_per_s": n_img / f32_s,
@@ -1575,10 +1680,12 @@ def _bf16_irn(n_batches: int) -> dict:
 
 def phase_bf16(n_batches: int = BF16_BATCHES) -> dict:
     """The bf16 serving paths: the CAM and seg engines at the JAX bench's
-    bf16 configurations and the IRN refiner with its edge model in bf16,
+    bf16 configurations (seg also at window_exact=False, one batch) and the
+    IRN refiner with its edge model in bf16,
     each beside f32 in the same run; and the bf16 tensor-core instructions
     in the built MBConv library."""
     out = {"cam": _bf16_cam(n_batches["cam"]), "seg": _bf16_seg(n_batches["seg"]),
+           "seg_unwindowed": _bf16_seg(1, window_exact=False),
            "irn": _bf16_irn(n_batches["irn"])}
     out["sass"] = _sass_counts()
     print(json.dumps({"bf16_sass": out["sass"]}), flush=True)
@@ -3432,7 +3539,8 @@ def phase_dp(card: str) -> dict:
 def _spatial_engines(spec: dict, dev, mesh=None) -> dict:
     """The CAM (infer_mcl's defaults) and seg (infer_seg's without the CRF,
     probabilities) engines of the spatial phase, in f32 and in bf16 (on the
-    same models), each data row of ``mesh`` running its share of every
+    same models), and the f32 seg engine at lowres=False,
+    window_exact=False ('segoff'), each data row of ``mesh`` running its share of every
     batch split over its model group where given."""
     import torch
 
@@ -3445,6 +3553,9 @@ def _spatial_engines(spec: dict, dev, mesh=None) -> dict:
         out["cam" + tag] = CamTTAEngine(cam, scales=(0.5, 1.0, 1.5, 2.0), return_cam=False,
                                         **SPATIAL_CAM_FAST, **kw)
         out["seg" + tag] = SegTTAEngine(seg, scales=SEG_SCALES, **SPATIAL_SEG_FAST, **kw)
+    # the parity switches off: the input-size logits, the whole canvas the window
+    out["segoff"] = SegTTAEngine(seg, scales=SEG_SCALES, lowres=False, window_exact=False,
+                                 **SPATIAL_SEG_FAST, **dict(kw, compute_dtype=torch.float32))
     return out
 
 
@@ -3645,7 +3756,8 @@ def phase_spatial(card: str) -> dict:
                 _dp_arch("b3_cam"), torch.Generator().manual_seed(0)).state_dict().items()},
             "seg_state": {k: v.detach().cpu() for k, v in _seg_model(384).state_dict().items()},
             "cam_batches": [tuple(part[:size] for part in cam) for size in SPATIAL_CAM_SIZES],
-            "seg_batches": [tuple(part[:size] for part in seg) for size in SPATIAL_SEG_SIZES]}
+            "seg_batches": [tuple(part[:size] for part in seg) for size in SPATIAL_SEG_SIZES],
+            "segoff_batches": [tuple(part[:1] for part in seg)]}
     out = {"card": card, "ran": [f"{b} x {w}" for b, w, _ in configs]}
     dev = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3981,6 +4093,13 @@ def main(argv=None) -> int:
         # the MBConv kernel also runs on the seg path: its launches there
         entries[0]["launches_seg"] = seg_out["fast0"]["launches"] if seg_out else None
         entries[1]["launches_seg"] = bf16_out["seg"]["launches_bf16"] if bf16_out else None
+        # the seg engine's parity switches: a batch of 4 each (f32), one
+        # window_exact=False batch of 4 at bf16
+        entries[0]["launches_seg_switches"] = (
+            {k: v["launches"] for k, v in seg_out["switches"].items() if "launches" in v}
+            if seg_out else None)
+        entries[1]["launches_seg_unwindowed"] = (bf16_out["seg_unwindowed"]["launches_bf16"]
+                                                 if bf16_out else None)
         for e in entries:  # none runs in a training step; the seg eval runs MBConv
             e["launches_train_mcl"] = train_out["launches"][e["name"]] if train_out else None
             e["launches_train_seg"] = (seg_train_out["launches"][e["name"]]

@@ -54,3 +54,7 @@ gates       the fidelity-gate harness: the synthetic mini-VOC, the gates
 """
 
 __version__ = "0.1.0"
+
+from muscle_tpu_torch.core import cam_maxnorm, cam_maxnorm_with_bg, cam_softmaxnorm
+
+__all__ = ["cam_maxnorm", "cam_maxnorm_with_bg", "cam_softmaxnorm"]

@@ -17,21 +17,16 @@ IMAGENET_STD = np.array([[[0.229, 0.224, 0.225]]], dtype=np.float64)
 # (device-normalised) pipeline, which normalises on the device to
 # |x| <= 0.5/255/std ~ 0.009 where the reference has exactly 0
 IMAGENET_MEAN_U8 = np.round(IMAGENET_MEAN[0, 0] * 255.0).astype(np.uint8)
+# PIL's resample filters by value (``PIL.Image.Resampling``), so the
+# module imports without Pillow: BICUBIC is the reference's multi-scale
+# resize
+BICUBIC = 3
+BILINEAR = 2
 
 
 def color_norm(img: np.ndarray) -> np.ndarray:
     """ImageNet mean/std normalisation of an HWC uint8 image."""
     return ((np.asarray(img) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD).astype(np.float32)
-
-
-def __getattr__(name: str):
-    """``BICUBIC`` (the reference's multi-scale resize) and ``BILINEAR``:
-    PIL's resample constants, looked up on first use."""
-    if name in ("BICUBIC", "BILINEAR"):
-        from PIL import Image
-
-        return getattr(Image, name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def image_size(img) -> tuple[int, int]:

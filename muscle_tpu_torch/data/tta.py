@@ -24,6 +24,10 @@ def bucket_side(scale: float, max_side: int = VOC_MAX_SIDE, align: int = 64) -> 
     return int(math.ceil(max_side * scale / align)) * align
 
 
+# the canvas side of each TTA scale at VOC's max side
+MSF_BUCKETS = {s: bucket_side(s) for s in (0.5, 0.75, 1.0, 1.25, 1.5, 1.75, 2.0)}
+
+
 def scaled_size(w: int, h: int, scale: float) -> tuple[int, int]:
     """(w, h) after the reference's rounding."""
     return round(w * scale), round(h * scale)

@@ -134,15 +134,16 @@ def _minmax_norm(m: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 def scaled_pairs(images: torch.Tensor, orig_sizes: torch.Tensor, scale: float,
                  canvas_hw: tuple[int, int], mean: torch.Tensor, std: torch.Tensor,
-                 n_strided: int):
+                 n_strided: int | None):
     """One TTA scale of a device batch: uint8 (or [0, 255] float) originals
     (B, S, S, 3) with sizes (B, 2) -> normalised bicubic-scaled (orig, flip)
     images interleaved in a (2B, ch, cw, 3) canvas at their placement
-    offsets.  Returns (scaled sizes, offsets, images)."""
+    offsets through ``n_strided`` stride-2 convs (None: at the canvas
+    origin).  Returns (scaled sizes, offsets, images)."""
     ch, cw = canvas_hw
     in_side = images.shape[1]
     scaled = torch.round(orig_sizes.to(torch.float32) * scale).to(torch.int32)
-    off = placement_offset(scaled, n_strided)
+    off = torch.zeros_like(scaled) if n_strided is None else placement_offset(scaled, n_strided)
     x = (images.to(torch.float32) / 255.0 - mean) / std
     wh = dynamic_cubic_resize_weights(orig_sizes[:, 0], scaled[:, 0], in_side, ch,
                                       dst_off=off[:, 0])

@@ -15,6 +15,10 @@ Two input paths:
 * ``device_tta=False``: PIL-prepped canvases per scale on the host, for
   parity checks.
 
+``lowres`` and ``window_exact`` are the JAX engine's parity switches (the
+input-size 'seg' logits; the top-left canvas without window masks), on
+every path.
+
 ``mesh`` and ``shard_spatial`` as ``CamTTAEngine``'s: every rank passes the
 same global batch and gets the whole batch's records back, each data row
 running its share; under ``shard_spatial`` each rank of a model group runs
@@ -46,6 +50,18 @@ from muscle_tpu_torch.models.efficientnet import advance_window, placement_offse
 N_STRIDED_DEC = 5
 
 
+def _host_scaled(hw: np.ndarray, scale: float) -> np.ndarray:
+    """The host path's scaled (h, w) of (B, 2) sizes (``scaled_size``)."""
+    return np.asarray([scaled_size(int(w), int(h), scale)[::-1] for h, w in hw], np.int32)
+
+
+def _host_canvas(scaled: np.ndarray, off: np.ndarray) -> tuple[int, int]:
+    """The host path's canvas: the batch's max placed extent, rounded up
+    to multiples of 64."""
+    return (-(-int(np.max(scaled[:, 0] + off[:, 0])) // 64) * 64,
+            -(-int(np.max(scaled[:, 1] + off[:, 1])) // 64) * 64)
+
+
 class SegTTAEngine:
     """Runs MuSCLe seg TTA over batches of images (PIL images or HWC uint8
     arrays).
@@ -58,6 +74,10 @@ class SegTTAEngine:
       compute_dtype: torch.float32 or torch.bfloat16: the model runs in it
         and its logits are cast to float32 straight after it; the
         upsample, softmax and accumulation stay float32.
+      lowres: take the model's stride-8 logits and upsample them in the
+        engine (exact: the 1x1 head commutes with the bilinear upsample),
+        never materialising the input-size 256-channel decoder feature;
+        False takes the model's input-size 'seg' logits, for cross-checks.
       device_tta: see the module docstring.
       accum_stride: 1 accumulates the mean probabilities at the full
         original resolution; N > 1 on an out_side/N grid, upsampled to the
@@ -76,6 +96,11 @@ class SegTTAEngine:
       shard_spatial: with ``make_mesh(model_axis=k)``, also split each
         canvas's height over this rank's model group
         (``inference.cam.spatial_stripes`` for what raises).
+      window_exact: place each image at its placement offset and run the
+        model with per-image valid windows, so the padded canvas computes
+        each image's unpadded forward; False puts every image at the
+        canvas origin and runs the model without windows (the SE means and
+        the BiFPN then see the canvas's zero padding).
       device: where the model runs: 'cuda' (default) or 'cpu'.
     """
 
@@ -84,7 +109,8 @@ class SegTTAEngine:
                  device_tta: bool = True, accum_stride: int = 1,
                  download_dtype: str = "float32", tight_upload: bool = True,
                  upload_mode: str = "ycbcr420", mesh=None, shard_spatial: bool = False,
-                 output: str = "probs", device: str | torch.device = "cuda"):
+                 output: str = "probs", lowres: bool = True, window_exact: bool = True,
+                 device: str | torch.device = "cuda"):
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {compute_dtype}: float32 or bfloat16")
         self.mesh = mesh
@@ -114,6 +140,8 @@ class SegTTAEngine:
         self.tight_upload = tight_upload
         self.upload_mode = upload_mode
         self.output = output
+        self.lowres = lowres
+        self.window_exact = window_exact
         self._mean = torch.tensor(T.IMAGENET_MEAN[0, 0], dtype=torch.float32, device=self.device)
         self._std = torch.tensor(T.IMAGENET_STD[0, 0], dtype=torch.float32, device=self.device)
 
@@ -129,8 +157,8 @@ class SegTTAEngine:
         device_tta path only."""
         if not self.device_tta:
             raise ValueError("bench_device_exec requires device_tta (the fused device pipeline)")
-        (images, names), _ = share_batch(self.mesh, (images, names))
-        prep = self._host_prep(images, names)
+        (images, names), _, canvases = self._share((images, names))
+        prep = self._host_prep(images, names, canvases=canvases)
         with torch.inference_mode():
             up = self._upload(prep)
 
@@ -145,26 +173,34 @@ class SegTTAEngine:
     def _scale(self, images: torch.Tensor, off: torch.Tensor, sizes: torch.Tensor,
                orig_sizes: torch.Tensor, canvas_hw: tuple[int, int], acc: torch.Tensor):
         """One scale's (orig, flip) batch ``images`` (2B, ch, cw, 3), placed
-        at ``off`` with scaled sizes ``sizes`` (B, 2) -> the window-exact
-        forward (the padded canvas computes each image's unpadded forward)
-        -> softmax of the input-size logits -> resized to the accumulation
-        grid (un-flipped) and added into ``acc`` (B, acc, acc, C) in
-        place."""
+        at ``off`` with scaled sizes ``sizes`` (B, 2) -> the forward
+        (window-exact: the padded canvas computes each image's unpadded
+        forward) -> softmax of the input-size logits -> resized to the
+        accumulation grid (un-flipped) and added into ``acc`` (B, acc, acc,
+        C) in place."""
         ch, cw = canvas_hw
         win = torch.cat([off, sizes], dim=-1)
         kw = {}
+        if self.window_exact:
+            kw["valid_window"] = win.repeat_interleave(2, dim=0)
         if self.stripes is not None:  # this rank's stripe in, the whole logits out
             images, kw["stripes"] = self.stripes.take(images), self.stripes
-        seg, _ = self.model(images.to(self.compute_dtype), mode="seg_lowres",
-                            valid_window=win.repeat_interleave(2, dim=0), **kw)
+        seg, _ = self.model(images.to(self.compute_dtype),
+                            mode="seg_lowres" if self.lowres else "seg", **kw)
         seg = seg.float()
-        # stride-8 logits -> input-size logits, the reference's seg_map (exact:
-        # the 1x1 head commutes with the bilinear upsample)
-        boxes = win
-        for _ in range((ch // seg.shape[1]).bit_length() - 1):
-            boxes = advance_window(boxes)
-        seg = dynamic_window_resize(seg, boxes.repeat_interleave(2, dim=0), (ch, cw),
-                                    dst_hw=sizes.repeat_interleave(2, dim=0), align_corners=True)
+        if self.lowres:
+            # stride-8 logits -> input-size logits, the reference's seg_map
+            # (exact: the 1x1 head commutes with the bilinear upsample)
+            stride = ch // seg.shape[1]
+            if self.window_exact:
+                boxes = win
+                for _ in range(stride.bit_length() - 1):
+                    boxes = advance_window(boxes)
+            else:  # the whole canvas went through the ladder: ceil, not floor
+                boxes = torch.cat([torch.zeros_like(sizes), (sizes + stride - 1) // stride], -1)
+            seg = dynamic_window_resize(seg, boxes.repeat_interleave(2, dim=0), (ch, cw),
+                                        dst_hw=sizes.repeat_interleave(2, dim=0),
+                                        align_corners=True)
         probs = torch.softmax(seg, dim=-1)
         b = sizes.shape[0]
         pairs = probs.reshape(b, 2, *probs.shape[1:])
@@ -202,11 +238,11 @@ class SegTTAEngine:
         backend and the argmax).  output='labels': per image {'name',
         'label' (H, W) uint8}.  cls_gates: optional per-image (C,) gates
         multiplied into the foreground probabilities."""
-        (images, names, cls_gates), gather = share_batch(self.mesh, (images, names, cls_gates))
+        (images, names, cls_gates), gather, canvases = self._share((images, names, cls_gates))
         if self.device_tta:
-            recs = self._dispatch_prepped(self._host_prep(images, names, cls_gates))()
+            recs = self._dispatch_prepped(self._host_prep(images, names, cls_gates, canvases))()
         else:
-            recs = self._run_host(images, names, cls_gates)
+            recs = self._run_host(images, names, cls_gates, canvases)
         return gather_batch(self.mesh, recs, gather)
 
     def run_batch_async(self, images, names, cls_gates=None):
@@ -216,12 +252,33 @@ class SegTTAEngine:
         compute."""
         if not self.device_tta:
             raise ValueError("run_batch_async requires device_tta")
-        (images, names, cls_gates), gather = share_batch(self.mesh, (images, names, cls_gates))
-        finalize = self._dispatch_prepped(self._host_prep(images, names, cls_gates))
+        (images, names, cls_gates), gather, canvases = self._share((images, names, cls_gates))
+        finalize = self._dispatch_prepped(self._host_prep(images, names, cls_gates, canvases))
         return lambda: gather_batch(self.mesh, finalize(), gather)
 
-    def _run_host(self, images, names, cls_gates):
-        """The host-prep path: PIL-resized canvases per scale."""
+    def _share(self, batch: tuple) -> tuple:
+        """This rank's share of a global batch (``share_batch``), whether
+        the records are gathered after it, and, where the batch was split
+        at window_exact=False, the whole batch's canvas at each scale (else
+        None).  Without windows the canvas's padding moves the numbers, so
+        every data row runs on the canvases one process would, as JAX's
+        engine sizes its canvases before it shards the batch; window-exact
+        forwards do not see the canvas, and each row keeps its own."""
+        mine, gather = share_batch(self.mesh, batch)
+        if not gather or self.window_exact:
+            return mine, gather, None
+        hw = np.asarray([T.image_size(img)[::-1] for img in batch[0]], np.int32)
+        if self.device_tta:
+            canvases = [_batch_canvas(s, hw, self.max_side, n_strided=N_STRIDED_DEC)
+                        for s in self.scales]
+        else:
+            canvases = [_host_canvas(_host_scaled(hw, s), np.zeros((1, 2), np.int32))
+                        for s in self.scales]
+        return mine, gather, canvases
+
+    def _run_host(self, images, names, cls_gates, canvases=None):
+        """The host-prep path: PIL-resized canvases per scale (``canvases``:
+        the whole batch's, see ``_share``)."""
         if self.stripes is not None:
             raise ValueError("the host-prep path (device_tta=False) has no device canvas to "
                              "split: shard_spatial runs the device path")
@@ -229,12 +286,14 @@ class SegTTAEngine:
         acc = self._new_acc(b)
         orig_sizes = None
         with torch.inference_mode():
-            for s in self.scales:
-                scaled = np.asarray(
-                    [scaled_size(*T.image_size(img), s)[::-1] for img in images], np.int32)
-                off = placement_offset(scaled, N_STRIDED_DEC)
-                ch = -(-int(np.max(scaled[:, 0] + off[:, 0])) // 64) * 64
-                cw = -(-int(np.max(scaled[:, 1] + off[:, 1])) // 64) * 64
+            for i, s in enumerate(self.scales):
+                scaled = _host_scaled(
+                    np.asarray([T.image_size(img)[::-1] for img in images], np.int32), s)
+                if self.window_exact:
+                    off = placement_offset(scaled, N_STRIDED_DEC)
+                else:
+                    off = np.zeros_like(scaled)
+                ch, cw = _host_canvas(scaled, off) if canvases is None else canvases[i]
                 mb = msf_batch(images, names, s, canvas=(ch, cw), offsets=off)
                 orig_sizes = mb.orig_sizes
                 self._scale(self._put(mb.images), self._put(off), self._put(mb.sizes),
@@ -242,9 +301,10 @@ class SegTTAEngine:
             fused = self._finish(acc)
         return self._make_finalize(start_download(fused), names, orig_sizes, cls_gates)()
 
-    def _host_prep(self, images, names, cls_gates=None) -> dict:
+    def _host_prep(self, images, names, cls_gates=None, canvases=None) -> dict:
         """Host stage of the device path: canvas packing.  CPU only, safe on
-        a prefetch thread."""
+        a prefetch thread.  ``canvases``: the whole batch's (``_share``),
+        None to size them from this batch."""
         from muscle_tpu_torch.data.tta import pack_canvas, pack_canvas_ycbcr
 
         if self.output == "labels" and cls_gates is not None:
@@ -260,14 +320,15 @@ class SegTTAEngine:
             canvas, orig_sizes, _ = pack_canvas(images, names, self.out_side, False)
             upload = ("rgb", canvas)
         return {"names": list(names), "upload": upload, "orig_sizes": orig_sizes,
-                "cls_gates": cls_gates}
+                "cls_gates": cls_gates, "canvases": canvases}
 
     def _upload(self, prep: dict) -> dict:
         """A prepped batch's upload arrays and sizes on the device, and its
         host sizes (the canvases)."""
         kind, *arrays = prep["upload"]
         return {"kind": kind, "arrays": [self._put(a) for a in arrays],
-                "sizes": self._put(prep["orig_sizes"]), "orig_sizes": prep["orig_sizes"]}
+                "sizes": self._put(prep["orig_sizes"]), "orig_sizes": prep["orig_sizes"],
+                "canvases": prep["canvases"]}
 
     def _device_pipeline(self, up: dict) -> torch.Tensor:
         """Unpack, every TTA scale and the finish of one uploaded batch
@@ -283,10 +344,11 @@ class SegTTAEngine:
         else:
             images = args[0]
         acc = self._new_acc(len(orig_sizes))
-        for s in self.scales:
-            canvas = _batch_canvas(s, orig_sizes, self.max_side, n_strided=N_STRIDED_DEC)
+        for i, s in enumerate(self.scales):
+            canvas = (_batch_canvas(s, orig_sizes, self.max_side, n_strided=N_STRIDED_DEC)
+                      if up["canvases"] is None else up["canvases"][i])
             scaled, off, pairs = scaled_pairs(images, sizes, s, canvas, self._mean, self._std,
-                                              N_STRIDED_DEC)
+                                              N_STRIDED_DEC if self.window_exact else None)
             self._scale(pairs, off, scaled, sizes, canvas, acc)
         if self.output == "labels":
             return self._labels_finish(acc, sizes)
@@ -357,8 +419,8 @@ class SegTTAEngine:
         def produce():
             try:
                 for batch in batches:
-                    mine, gather = share_batch(self.mesh, tuple(batch))
-                    prep_q.put((self._host_prep(*mine), gather))
+                    mine, gather, canvases = self._share(tuple(batch))
+                    prep_q.put((self._host_prep(*mine, canvases=canvases), gather))
             except BaseException as e:  # re-raised in the consumer
                 prep_q.put(e)
                 return

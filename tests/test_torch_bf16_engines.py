@@ -2,7 +2,7 @@
 the JAX package's at ``compute_dtype=jnp.bfloat16`` (its models at
 ``dtype=jnp.bfloat16``), on the same weights and synthetic images: the CAM
 engine (b1, two scales, the f32 fusion and the JAX bench's fast IO), the
-seg engine (b1 dec, one BiFPN layer, labels), the IRN refiner (the edge
+seg engine (b1 dec, one BiFPN layer, labels, window-exact and not), the IRN refiner (the edge
 model in bf16, the walk in f32), and ``infer_irn --bf16 1`` on the
 mini-VOC of test_torch_cli_irn.py."""
 
@@ -39,8 +39,15 @@ BF16 = torch.bfloat16
 # 0.5-1.1 of it).
 MEAN_TOL, REL_TOL = 0.02, 2.0
 # seg labels: where JAX's f32 top-two margin exceeds MARGIN, the labels
-# agree on at least LABEL_AGREE of the pixels
-MARGIN, LABEL_AGREE = 1e-2, 0.99
+# agree on at least LABEL_AGREE of the pixels.  At window_exact=False JAX's
+# own bf16 labels leave its f32 ones on up to 3% of those pixels here, and
+# the port's bf16 labels leave f32 as far, in other places: there the
+# labels agree on LABEL_AGREE or disagree on at most OWN_REL times JAX's
+# own bf16-vs-f32 share (PERF.md section 2, the card's bf16 rule).  An f32
+# port would pass that, so there the port's own bf16 probabilities also lie
+# at least ROUNDED times JAX's own bf16-vs-f32 mean distance from its f32
+# ones (measured: 0.70-0.73 of it on these images; an f32 port's is 0)
+MARGIN, LABEL_AGREE, OWN_REL, ROUNDED = 1e-2, 0.99, 2.0, 0.5
 
 
 # ---- CAM ------------------------------------------------------------------------
@@ -114,28 +121,54 @@ def test_cam_engine_bf16_matches_jax(models, case):
 
 # ---- seg --------------------------------------------------------------------------
 
-def test_seg_engine_bf16_labels_match_jax(seg_models):
+def _seg_bf16_labels_check(seg_models, relative: bool = False, **kw):
+    """The port's bf16 seg labels against the JAX package's bf16 engine's,
+    on the pixels where JAX's f32 top-two margin exceeds MARGIN (relative:
+    or within OWN_REL times JAX's own bf16-vs-f32 disagreement there, JAX's
+    labels the argmax of its bf16 probabilities, and the port's bf16
+    rounding at least ROUNDED of JAX's)."""
     model, jm, v = seg_models
-    kw = dict(scales=(0.5, 1.0), out_side=64, max_side=60, upload_mode="rgb",
-              tight_upload=False)
+    kw = dict(scales=(0.5, 1.0), out_side=64, max_side=60, **kw)
     j16 = JMuSCLe(backbone_name="efficientnet-b1", mode="dec", bifpn_layers=1,
                   dtype=jnp.bfloat16)
     imgs, names = seg_images(3), ["a", "b"]
     # JAX's f32 probabilities give the margin; the labels at bf16 on both sides
     probs32 = JSegEngine(jm, v, **kw).run_batch(imgs, names)
-    want = JSegEngine(j16, v, compute_dtype=jnp.bfloat16, output="labels", **kw).run_batch(
-        imgs, names)
+    want = JSegEngine(j16, v, compute_dtype=jnp.bfloat16, output="probs" if relative else "labels",
+                      **kw).run_batch(imgs, names)
+    arrays = [np.asarray(i) for i in imgs]
     got = SegTTAEngine(model, compute_dtype=BF16, output="labels", device="cpu", **kw).run_batch(
-        [np.asarray(i) for i in imgs], names)
-    for g, w, p, (h, wd) in zip(got, want, probs32, SEG_SIZES):
+        arrays, names)
+    if relative:
+        port16, port32 = (SegTTAEngine(model, compute_dtype=dt, device="cpu", **kw).run_batch(
+            arrays, names) for dt in (BF16, torch.float32))
+    for i, (g, w, p, (h, wd)) in enumerate(zip(got, want, probs32, SEG_SIZES)):
         assert g["name"] == w["name"]
         assert g["label"].shape == (h, wd) and g["label"].dtype == np.uint8
         top2 = np.sort(p["probs"], axis=-1)[..., -2:]
         clear = (top2[..., 1] - top2[..., 0]) > MARGIN
         assert clear.mean() > 0.5
-        agree = (g["label"] == w["label"])[clear].mean()
-        assert agree >= LABEL_AGREE, (g["name"], float(agree))
+        wl = w["probs"].argmax(-1) if relative else w["label"]
+        agree = (g["label"] == wl)[clear].mean()
+        own = (wl == p["probs"].argmax(-1))[clear].mean()
+        floor = min(LABEL_AGREE, 1 - OWN_REL * (1 - own)) if relative else LABEL_AGREE
+        assert agree >= floor, (g["name"], float(agree), float(own))
+        if relative:
+            jax_d = np.abs(w["probs"] - p["probs"]).mean()
+            port_d = np.abs(port16[i]["probs"] - port32[i]["probs"]).mean()
+            assert port_d >= ROUNDED * jax_d, (g["name"], float(port_d), float(jax_d))
     assert len(np.unique(np.concatenate([g["label"].ravel() for g in got]))) > 1
+
+
+def test_seg_engine_bf16_labels_match_jax(seg_models):
+    _seg_bf16_labels_check(seg_models, upload_mode="rgb", tight_upload=False)
+
+
+def test_seg_engine_bf16_unwindowed_labels_match_jax(seg_models):
+    """window_exact=False: the unwindowed bf16 blocks on the top-left
+    canvas."""
+    _seg_bf16_labels_check(seg_models, relative=True, upload_mode="rgb", tight_upload=False,
+                           window_exact=False)
 
 
 # ---- IRN --------------------------------------------------------------------------

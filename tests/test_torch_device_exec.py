@@ -76,11 +76,8 @@ def test_cam_bench_device_exec_equals_run_batch(models, case):  # noqa: F811
     assert len(calls) == 1  # no host prep in the calls
 
 
-@pytest.mark.parametrize("output", ["probs", "labels"])
-def test_seg_bench_device_exec_equals_run_batch(seg_models, output):  # noqa: F811
-    model, _, _ = seg_models
-    engine = SegTTAEngine(model, device="cpu", output=output, accum_stride=4,
-                          download_dtype="float16", **SEG_BASE)
+def _seg_exec_check(engine):
+    """The seg closure's buffer, twice, against ``run_batch``."""
     imgs, names = [np.asarray(i) for i in seg_images(3)], ["a", "b"]
     want = engine.run_batch(imgs, names)
     sizes = engine._host_prep(imgs, names)["orig_sizes"]
@@ -88,7 +85,7 @@ def test_seg_bench_device_exec_equals_run_batch(seg_models, output):  # noqa: F8
     run = engine.bench_device_exec(imgs, names)
     assert len(calls) == 1
     for buf in _two_calls(run):
-        if output == "labels":
+        if engine.output == "labels":
             for i, w in enumerate(want):
                 np.testing.assert_array_equal(buf[i, :sizes[i][0], :sizes[i][1]], w["label"])
         else:
@@ -96,6 +93,21 @@ def test_seg_bench_device_exec_equals_run_batch(seg_models, output):  # noqa: F8
             for g, w in zip(got, want):
                 np.testing.assert_array_equal(g["probs"], w["probs"])
     assert len(calls) == 1
+
+
+@pytest.mark.parametrize("output", ["probs", "labels"])
+def test_seg_bench_device_exec_equals_run_batch(seg_models, output):  # noqa: F811
+    model, _, _ = seg_models
+    _seg_exec_check(SegTTAEngine(model, device="cpu", output=output, accum_stride=4,
+                                 download_dtype="float16", **SEG_BASE))
+
+
+def test_seg_bench_device_exec_switches_off_equals_run_batch(seg_models):  # noqa: F811
+    """The full-resolution logits on the unwindowed canvas."""
+    model, _, _ = seg_models
+    _seg_exec_check(SegTTAEngine(model, device="cpu", output="labels", accum_stride=4,
+                                 download_dtype="float16", lowres=False, window_exact=False,
+                                 **SEG_BASE))
 
 
 @pytest.mark.parametrize("output", ["scores", "labels"])

@@ -15,7 +15,13 @@ mesh:
   by PERF.md's bf16 rules; the owned-row plain bf16 MBConv block on 2 and
   4 stripes against the whole block;
 * the f32 2 x 2 mesh (data rows and stripes) against one process and JAX's
-  2 x 4 (the CLIs on it: test_torch_cli_mesh.py).
+  2 x 4 (the CLIs on it: test_torch_cli_mesh.py);
+* the seg engine at lowres=False, window_exact=False on the data mesh and
+  under shard_spatial on 1 x 2, 1 x 4 and 2 x 2, and at each switch alone
+  on 1 x 2, against one process at the same switches; at
+  window_exact=False, a batch of landscape and portrait images on the data
+  mesh (device and host paths) and the 2 x 2, against one process on the
+  whole batch.
 
 Tolerances: one process vs the data mesh, f32: equal to one process on
 each data row's share (the whole batch where every rank ran it), and to
@@ -55,6 +61,7 @@ import torch_mesh_ranks as ranks
 import torch_spatial_ranks
 from test_torch_cam import SCORE_ATOL, SGC_ATOL, _plain, _randomize_bn
 from test_torch_kernels_cuda import stripes_by_hand
+from test_torch_spatial import PROBS_ATOL as SPATIAL_PROBS_ATOL
 from test_torch_spatial import SPATIAL_SCORE_ATOL, SPATIAL_SGC_ATOL, _fused_close
 
 BF16 = torch.bfloat16
@@ -66,6 +73,11 @@ BF16_MARGIN, BF16_LABEL_AGREE, BF16_REL = 1e-2, 0.99, 2.0 ** -7
 # tests/test_sharding.py's engine configurations
 CAM_KW = dict(scales=(0.5, 1.0), out_side=64, max_side=62, device_tta=True)
 SEG_KW = dict(scales=(0.5, 1.0), out_side=64, max_side=56, device_tta=True)
+# the mixed seg batch: two landscape images then two portrait ones, so each
+# data row's own canvas at scale 1 (64 x 128, 128 x 64) is not the whole
+# batch's (128 x 128)
+SEG_MIXED_KW = dict(SEG_KW, out_side=128, max_side=72)
+SEG_MIXED_SIZES = [(40, 72), (44, 70), (72, 40), (70, 44)]
 
 
 @pytest.fixture(scope="module")
@@ -75,7 +87,7 @@ def spec():
     b1 dec (BiFPN 1) with its head calibrated so labels vary; the batches of
     test_sharding.py's mesh tests (8 CAM images of 48-62 x 40, seg images
     of 50 x 40), of which the tests take the first 3 or 4 (CAM), 2 or 3
-    (seg)."""
+    (seg); the mixed seg batch of SEG_MIXED_SIZES."""
     jm = JMuSCLe(backbone_name="efficientnet-b1", mode="enc", last_pooling=False)
     v = _plain(jm.init({"params": jax.random.key(3)}, jnp.zeros((1, 32, 32, 3)), mode="cam"))
     _randomize_bn(v["params"], v["batch_stats"], np.random.default_rng(3))
@@ -88,6 +100,7 @@ def spec():
         labels.append(lab)
     rng = np.random.default_rng(22)
     seg_images = [rng.integers(0, 255, (50, 40, 3), dtype=np.uint8) for _ in range(3)]
+    mixed = [rng.integers(0, 255, hw + (3,), dtype=np.uint8) for hw in SEG_MIXED_SIZES]
     seg = init_weights(MuSCLe(backbone_name="efficientnet-b1", mode="dec", bifpn_layers=1,
                               fuse_mbconv=384), torch.Generator().manual_seed(6)).eval()
     with torch.inference_mode():
@@ -97,7 +110,9 @@ def spec():
             "seg_state": seg.state_dict(), "cam_kw": CAM_KW, "seg_kw": SEG_KW,
             "cam": {"images": cam_images, "names": [f"i{i}" for i in range(8)],
                     "labels": labels},
-            "seg": {"images": seg_images, "names": ["a", "b", "c"]}}
+            "seg": {"images": seg_images, "names": ["a", "b", "c"]},
+            "seg_mixed": {"images": mixed, "names": ["l0", "l1", "p0", "p1"]},
+            "seg_mixed_kw": SEG_MIXED_KW}
 
 
 def _sent(spec):
@@ -228,6 +243,55 @@ def test_data_mesh_stream_and_async_gather_every_batch(outs2):
             _identical([want, got], "sgc")
         for got, want in zip(o["seg_stream"], [o["seg"][2], o["seg"][3]]):
             _identical([want, got], "probs")
+
+
+@pytest.mark.parametrize("case", ["data-both_off", "1x2-both_off", "1x4-both_off",
+                                  "2x2-both_off", "1x2-lowres_off", "1x2-window_off"])
+def test_seg_switches_off_on_meshes_match_one_process(spec, outs2, outs4, case):
+    """The seg switches away from their defaults on the data mesh (each row
+    runs one image) and under shard_spatial on 1 x 2 (each switch), 1 x 4
+    and 2 x 2 (each rank a stripe; without windows the whole canvas is the
+    window): every rank returns the whole batch's probabilities, held to
+    one process's engine at the same switches; window_exact=False moved
+    them from the default engine's."""
+    mesh, switches = case.split("-")
+    outs = outs2 if mesh in ("data", "1x2") else outs4
+    recs = [o["seg_switches"][case] for o in outs]
+    _identical(recs, "probs")
+    one = SegTTAEngine(torch_spatial_ranks.seg_model(spec["seg_state"]), device="cpu",
+                       **ranks.SWITCHES[switches], **SEG_KW)
+    want = one.run_batch(*_seg_batch(spec, 2))
+    atol = DP_PROBS_ATOL if mesh == "data" else SPATIAL_PROBS_ATOL
+    for g, w, d in zip(recs[0], want, outs2[0]["seg"][2]):
+        assert g["name"] == w["name"] and g["probs"].shape == (50, 40, 21)
+        np.testing.assert_allclose(g["probs"], w["probs"], atol=atol)
+        if switches != "lowres_off":
+            assert np.abs(g["probs"] - d["probs"]).max() > 1e-3
+
+
+@pytest.mark.parametrize("case", ["data", "data_host", "2x2"])
+def test_seg_unwindowed_mesh_rows_share_the_batch_canvas(spec, outs2, outs4, case):
+    """window_exact=False on the mixed batch (landscape images on data row
+    0, portrait on row 1) on the data mesh, through the device and the host
+    paths, and on the 2 x 2 under shard_spatial: every row runs on the
+    whole batch's canvases, so each rank's probabilities equal one
+    process's on the whole batch (1e-5; the stripes' bound on the 2 x 2).
+    A row's share run alone, on its own canvases, moves them by more than
+    twice that bound, so the check sees a row that sized its own."""
+    outs = outs4 if case == "2x2" else outs2
+    recs = [o["seg_mixed"][case] for o in outs]
+    _identical(recs, "probs")
+    kw = dict(SEG_MIXED_KW, window_exact=False, device_tta=case != "data_host")
+    one = SegTTAEngine(torch_spatial_ranks.seg_model(spec["seg_state"]), device="cpu", **kw)
+    d = spec["seg_mixed"]
+    want = one.run_batch(d["images"], d["names"])
+    alone = (one.run_batch(d["images"][:2], d["names"][:2])
+             + one.run_batch(d["images"][2:], d["names"][2:]))
+    atol = SPATIAL_PROBS_ATOL if case == "2x2" else DP_PROBS_ATOL
+    for g, w, a, hw in zip(recs[0], want, alone, SEG_MIXED_SIZES):
+        assert g["name"] == w["name"] and g["probs"].shape == hw + (21,)
+        np.testing.assert_allclose(g["probs"], w["probs"], atol=atol)
+        assert np.abs(a["probs"] - w["probs"]).max() > 2 * atol, g["name"]
 
 
 # ---- bf16 under shard_spatial --------------------------------------------------------

@@ -1,7 +1,9 @@
 """The port's SegTTAEngine (muscle_tpu_torch/inference/seg.py) against the
 JAX package's on the same weights and synthetic images (b1, one BiFPN
 layer, scales 0.5 and 1, 64-px canvases), in every output, upload and
-accumulation mode."""
+accumulation mode, and under both parity switches (lowres, window_exact)."""
+
+import inspect
 
 import numpy as np
 import pytest
@@ -66,18 +68,36 @@ CASES = {
 }
 
 
+# the parity switches: the full-resolution 'seg' logits (lowres=False) and
+# the top-left canvas without window masks (window_exact=False), alone and
+# together, on a host, a device, the fast and a labels path; the image
+# sizes are not multiples of 8, so the unwindowed low-resolution upsample's
+# ceil boxes show
+SWITCHES = {
+    "full_res": dict(lowres=False),
+    "unwindowed": dict(window_exact=False),
+    "full_res_unwindowed": dict(lowres=False, window_exact=False),
+}
+SWITCH_PATHS = ("host_prep", "device_f32_rgb", "fast", "labels_stride4")
+# the defaults keep the plain case names
+ENGINE_CASES = ([pytest.param(case, None, id=case) for case in sorted(CASES)]
+                + [pytest.param(case, sw, id=f"{case}-{sw}")
+                   for case in SWITCH_PATHS for sw in SWITCHES])
+
+
 @pytest.fixture(scope="module")
 def engines(models):
-    """(port, JAX) engine pairs by case, made once (the JAX engines compile
-    per instance)."""
+    """(port, JAX) engine pairs by case and switches, made once (the JAX
+    engines compile per instance)."""
     model, jm, v = models
     cache = {}
 
-    def get(case):
-        if case not in cache:
-            kw = dict(BASE, **CASES[case])
-            cache[case] = (SegTTAEngine(model, device="cpu", **kw), JEngine(jm, v, **kw))
-        return cache[case]
+    def get(case, switches=None):
+        if (case, switches) not in cache:
+            kw = dict(BASE, **CASES[case], **SWITCHES.get(switches, {}))
+            cache[case, switches] = (SegTTAEngine(model, device="cpu", **kw),
+                                     JEngine(jm, v, **kw))
+        return cache[case, switches]
 
     return get
 
@@ -99,9 +119,9 @@ def _assert_labels_agree(got, want, agree, what):
     assert len(np.unique(np.concatenate([g["label"].ravel() for g in got]))) > 1
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_seg_engine_matches_jax(engines, case):
-    teng, jeng = engines(case)
+@pytest.mark.parametrize("case,switches", ENGINE_CASES)
+def test_seg_engine_matches_jax(engines, case, switches):
+    teng, jeng = engines(case, switches)
     imgs, names = _images(3), ["a", "b"]
     want = jeng.run_batch(imgs, names)
     # the port also takes HWC uint8 arrays
@@ -114,6 +134,24 @@ def test_seg_engine_matches_jax(engines, case):
         _assert_probs_close(got, want, atol, case)
         for g in got:
             np.testing.assert_allclose(g["probs"].sum(-1), 1.0, atol=atol * 21)
+
+
+def test_seg_engine_switches_take_jax_defaults():
+    want = inspect.signature(JEngine).parameters
+    got = inspect.signature(SegTTAEngine).parameters
+    for name in ("lowres", "window_exact"):
+        assert got[name].default is want[name].default is True
+
+
+def test_seg_lowres_false_equals_lowres_true(engines):
+    """The port's input-size 'seg' logits equal its stride-8 logits
+    upsampled in the engine, window-exact, at the JAX package's bound
+    (tests/test_inference.py)."""
+    imgs, names = _images(6), ["a", "b"]
+    low = engines("device_f32_rgb")[0].run_batch(imgs, names)
+    full = engines("device_f32_rgb", "full_res")[0].run_batch(imgs, names)
+    for lo, fu in zip(low, full):
+        np.testing.assert_allclose(fu["probs"], lo["probs"], atol=2e-5)
 
 
 def test_seg_engine_cls_gates_match_jax(engines):

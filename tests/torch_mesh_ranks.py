@@ -11,9 +11,15 @@ records the engine gave it.  Two launches:
   rows divide it) and of 3 (they do not: every rank runs it whole), the
   same batches through ``run_stream`` and ``run_batch_async``, a seg
   batch of 2 and of 3; then ``make_mesh(2)`` (1 x 2) at bf16 under
-  shard_spatial, a CAM batch of 4 and a seg batch of 2;
+  shard_spatial, a CAM batch of 4 and a seg batch of 2; at f32, the seg
+  batch of 2 at lowres=False, window_exact=False on ``make_mesh()``, and
+  at each of SWITCHES under shard_spatial on ``make_mesh(2)``; the mixed
+  seg batch of 4 (landscape, then portrait) at window_exact=False on
+  ``make_mesh()``, through the device and the host paths;
 * 4 ranks: ``make_mesh(4)`` (1 x 4) and ``make_mesh(2)`` (2 x 2) at bf16
-  under shard_spatial on the same batches, and the 2 x 2 at f32."""
+  under shard_spatial on the same batches, and the 2 x 2 at f32; the seg
+  batch of 2 at lowres=False, window_exact=False (f32) on both meshes, and
+  the mixed batch at window_exact=False on the 2 x 2."""
 
 from __future__ import annotations
 
@@ -23,6 +29,9 @@ from muscle_tpu_torch import parallel
 from torch_spatial_ranks import cam_model, seg_model
 
 BF16 = torch.bfloat16
+# the seg engine's parity switches away from their defaults
+SWITCHES = {"both_off": dict(lowres=False, window_exact=False),
+            "lowres_off": dict(lowres=False), "window_off": dict(window_exact=False)}
 
 
 def _engines(spec: dict, **kw) -> tuple:
@@ -40,6 +49,16 @@ def _seg(batch: dict, n: int) -> tuple:
     return batch["images"][:n], batch["names"][:n]
 
 
+def _seg_switches(spec: dict, switches: str, batch: str = "seg", **kw) -> list:
+    """A seg batch (``spec[batch]``, 2 images of "seg" or the 4 of
+    "seg_mixed") at SWITCHES[switches], f32."""
+    from muscle_tpu_torch.inference import SegTTAEngine
+
+    seg = SegTTAEngine(seg_model(spec["seg_state"]), device="cpu",
+                       **{**spec[f"{batch}_kw"], **SWITCHES[switches], **kw})
+    return seg.run_batch(*_seg(spec[batch], 2 if batch == "seg" else 4))
+
+
 def checks2(group, spec: dict) -> dict:
     """The 2-rank launch (module docstring)."""
     data, mesh = parallel.make_mesh(), parallel.make_mesh(2)
@@ -54,6 +73,14 @@ def checks2(group, spec: dict) -> dict:
         cam, seg = _engines(spec, mesh=mesh, shard_spatial=True, compute_dtype=BF16)
         out["bf16_1x2"] = {"cam": cam.run_batch(*_cam(spec["cam"], 4)),
                            "seg": seg.run_batch(*_seg(spec["seg"], 2))}
+        out["seg_switches"] = {"data-both_off": _seg_switches(spec, "both_off", mesh=data)}
+        for sw in SWITCHES:
+            out["seg_switches"][f"1x2-{sw}"] = _seg_switches(spec, sw, mesh=mesh,
+                                                             shard_spatial=True)
+        out["seg_mixed"] = {
+            "data": _seg_switches(spec, "window_off", "seg_mixed", mesh=data),
+            "data_host": _seg_switches(spec, "window_off", "seg_mixed", mesh=data,
+                                       device_tta=False)}
     return out
 
 
@@ -69,4 +96,9 @@ def checks4(group, spec: dict) -> dict:
         cam, seg = _engines(spec, mesh=meshes["2x2"], shard_spatial=True)
         out["f32_2x2"] = {"cam": cam.run_batch(*_cam(spec["cam"], 4)),
                           "seg": seg.run_batch(*_seg(spec["seg"], 2))}
+        out["seg_switches"] = {f"{tag}-both_off": _seg_switches(spec, "both_off", mesh=mesh,
+                                                                shard_spatial=True)
+                               for tag, mesh in meshes.items()}
+        out["seg_mixed"] = {"2x2": _seg_switches(spec, "window_off", "seg_mixed",
+                                                 mesh=meshes["2x2"], shard_spatial=True)}
     return out
