@@ -53,7 +53,17 @@ Phases:
            partials of the stripes' own rows summed by hand between the
            kernel's two stages) against the plain version (1e-4), and the
            bf16 instantiation on stripes the same way against the bf16
-           plain version (2^-7 of its output's largest value);
+           plain version (2^-7 of its output's largest value); every
+           windowed MBConv (block, scale) record of both instantiations
+           also gives the device ms of each of the kernel's launches by
+           name (torch.profiler: expand_dw, se, project, and any other
+           device work of the call), the CUDA-event ms of the wrapper's
+           two entries, the wrapper's host µs with the device idle and
+           whether the call padded x, a weight or y, summed in the totals;
+           and the bf16 kernel at the edges of its channel granularity
+           (widths 24, 40, 136, 232, a width that still pads, one K
+           chunk, k 5 on a ragged grid) against the bf16 plain version,
+           repeating itself bit for bit;
   main     run CamTTAEngine over synthetic VOC-shaped images at scales
            0.5/1/1.5/2 with MuSCLe-b3 (fuse_mbconv=384, float32, seeded
            random weights), count the kernel launches, and hold the
@@ -251,6 +261,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -314,6 +325,22 @@ KERNEL_TOL = 1e-4  # f32 kernel vs f32 plain: summation order only
 BF16_REL = 2.0 ** -7
 SCORE_TOL, SGC_TOL = 1e-4, 5e-3  # the JAX package's engine bounds
 KERNEL_REPS = 10  # timed launches per kernel shape, after one warm-up
+# the MBConv readings of each (block, scale) call: block calls under the
+# profiler (device ms by launch), host timings with the device idle
+SPLIT_REPS, HOST_REPS = 3, 5
+# the bf16 kernel at its channel granularity's edges, each held to the
+# bf16 plain version and repeating bit for bit: (Cin, Cout, expand ratio,
+# k, H, W, valid (h, w) per image or None), two images
+MBCONV_BF16_EDGES = (
+    (24, 24, 6, 3, 37, 45, ((37, 40), (29, 45))),   # b3 width 24, Cin <= 64: one K chunk
+    (40, 24, 1, 3, 50, 70, ((50, 66), (41, 70))),   # b3 _blocks_0: no expand, 40 -> 24
+    (40, 40, 6, 3, 23, 29, None),                   # 40: 5 of a K step's 8-channel halves
+    (96, 136, 6, 5, 19, 27, ((19, 25), (13, 27))),  # Cout 136, k 5 on a grid of no tile
+    (136, 136, 6, 5, 13, 21, ((13, 20), (9, 21))),  # 136 in and out
+    (232, 232, 6, 5, 11, 19, ((11, 17), (11, 19))),  # 232 in and out
+    (20, 24, 6, 3, 21, 35, ((21, 30), (15, 35))),   # Cin 20 (Cmid 120): padded to 24 / 128
+    (5, 7, 6, 3, 11, 37, None),                     # every count padded, Csq 1
+)
 MAIN_BATCHES = 4  # timed TTA batches of 8 images per engine
 FLIP_TOL = 0.01  # share of a map's pixels whose pre-normalisation zeroing may flip
 
@@ -565,6 +592,71 @@ def _windows(stride: int, scale: float, device, batch: int = TTA_BATCH,
     return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
+def _mbconv_readings(x, wd, win, kw: dict, cout: int) -> dict:
+    """Where a block call's time goes: the device ms of each of the
+    kernel's stages, (a) ``expand_dw``, (b) ``se`` (its launches together),
+    (c) ``project``, and of any other device work of the call (``other``:
+    the wrapper's pads and copies), by kernel name from torch.profiler's
+    device activity over SPLIT_REPS calls; the CUDA-event ms of the wrapper's two entries
+    (``mbconv_stride1_begin`` / ``_end``) beside them; the wrapper's host
+    µs for a call with the device idle (median of HOST_REPS); and whether
+    the call padded x, a weight (a tensor the call made, not one of
+    ``wd``'s) or y."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from muscle_tpu_torch.ops import mbconv as M
+
+    def call():
+        return M.mbconv_stride1_end(M.mbconv_stride1_begin(x, wd, win, **kw))
+
+    with torch.inference_mode():
+        p = M.mbconv_stride1_begin(x, wd, win, **kw)
+        begin_ms = time_ms(lambda: M.mbconv_stride1_begin(x, wd, win, **kw), KERNEL_REPS)
+        end_ms = time_ms(lambda: M.mbconv_stride1_end(p), KERNEL_REPS)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(SPLIT_REPS):
+                call()
+            torch.cuda.synchronize()
+        host = []
+        for _ in range(HOST_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            host.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+    split = {"expand_dw": 0.0, "se": 0.0, "project": 0.0, "other": 0.0}
+    other_launches = 0
+    gc.collect()  # the profile's garbage, before the next record's timings
+    for ms, calls, name in _device_rows(prof):
+        key = next((k for k in ("expand_dw", "se", "project") if f"::{k}_" in name),
+                   "other")
+        split[key] += ms / SPLIT_REPS
+        other_launches += calls if key == "other" else 0
+    made = {t.data_ptr() for t in wd.values()}
+    padded = {"x": p.x.data_ptr() != x.data_ptr(),
+              "weights": any(t.data_ptr() not in made for t in p.weights.values()),
+              "y": p.weights["w_proj"].shape[1] != cout}
+    return {"split_ms": split, "other_launches": other_launches / SPLIT_REPS,
+            "begin_ms": begin_ms, "end_ms": end_ms, "host_us": statistics.median(host),
+            "padded": padded}
+
+
+def _add_readings(total: dict, r: dict) -> None:
+    """Sum one call's ``_mbconv_readings`` into a phase total."""
+    for k, v in r["split_ms"].items():
+        total["split_ms"][k] = total["split_ms"].get(k, 0.0) + v
+    for k in ("begin_ms", "end_ms", "host_us"):
+        total[k] += r[k]
+    total["padded_calls"] += any(r["padded"].values())
+
+
+def _readings_total() -> dict:
+    return {"split_ms": {}, "begin_ms": 0.0, "end_ms": 0.0, "host_us": 0.0, "padded_calls": 0}
+
+
 def _check_mbconv(blocks: dict, batch: int, scales, canvas,
                   sizes=(VOC_HW, (300, 400))) -> dict:
     """The MBConv kernel at ``blocks``' shapes on ``batch`` versions at each
@@ -579,7 +671,7 @@ def _check_mbconv(blocks: dict, batch: int, scales, canvas,
     gen = torch.Generator().manual_seed(0)
     xgen = torch.Generator(device=dev).manual_seed(0)
     total = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0, "product_flops": 0,
-             "depthwise_flops": 0, "max_abs_err": 0.0, "shape_ms": {}}
+             "depthwise_flops": 0, "max_abs_err": 0.0, "shape_ms": {}, **_readings_total()}
     for name, (stride, cin, cout, expand, k) in blocks.items():
         block = _random_block(cin, cout, expand, k, gen, dev)
         wd = block.fused_weights()
@@ -611,6 +703,9 @@ def _check_mbconv(blocks: dict, batch: int, scales, canvas,
                        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                        "bound_tc_ms": bound_tc, "bound_tc_by": by_tc,
                        "launches": M.mbconv_stride1.launches - before}
+                if windowed:
+                    rec.update(_mbconv_readings(x, wd, win, kw, cout))
+                    _add_readings(total, rec)
                 print(json.dumps(rec), flush=True)
                 if not err <= KERNEL_TOL:
                     raise AssertionError(f"{name} scale {scale} windowed={windowed}: "
@@ -644,7 +739,8 @@ def _check_mbconv_bf16(blocks: dict, batch: int, scales, canvas, f32_ms: dict) -
     gen = torch.Generator().manual_seed(0)
     xgen = torch.Generator(device=dev).manual_seed(0)
     total = {"ms": 0.0, "plain_ms": 0.0, "f32_ms": 0.0, "bytes": 0, "product_flops": 0,
-             "depthwise_flops": 0, "max_abs_err": 0.0, "max_rel_err": 0.0}
+             "depthwise_flops": 0, "max_abs_err": 0.0, "max_rel_err": 0.0,
+             "slower_than_f32": [], **_readings_total()}
     for name, (stride, cin, cout, expand, k) in blocks.items():
         block = _random_block(cin, cout, expand, k, gen, dev)
         wd = block.fused_weights(bf16)
@@ -678,7 +774,11 @@ def _check_mbconv_bf16(blocks: dict, batch: int, scales, canvas, f32_ms: dict) -
                    "max_abs_err": err, "plain_max_abs": scale_max,
                    "tol": BF16_REL * scale_max, "repeats_bitwise": same, "ms": ms,
                    "plain_ms": plain_ms, "f32_ms": f32_ms.get((name, scale)),
-                   "bound_ms": bound, "bound_by": by, "launches": launches}
+                   "bound_ms": bound, "bound_by": by, "launches": launches,
+                   **_mbconv_readings(x, wd, win, kw, cout)}
+            _add_readings(total, rec)
+            if rec["f32_ms"] is not None and ms > rec["f32_ms"]:
+                total["slower_than_f32"].append(f"{name}@{scale}")
             print(json.dumps(rec), flush=True)
             if not (ok and same and err <= BF16_REL * scale_max):
                 raise AssertionError(f"bf16 {name} scale {scale}: max_abs_err {err} > "
@@ -695,6 +795,44 @@ def _check_mbconv_bf16(blocks: dict, batch: int, scales, canvas, f32_ms: dict) -
         del block, wd
         torch.cuda.empty_cache()
     return total
+
+
+def _check_mbconv_bf16_edges() -> float:
+    """The bf16 kernel at MBCONV_BF16_EDGES, each held to the bf16 plain
+    version (max |diff| <= BF16_REL of its largest value), repeating bit
+    for bit; returns the largest error relative to that value."""
+    import torch
+
+    from muscle_tpu_torch.ops import mbconv as M
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator().manual_seed(4)
+    xgen = torch.Generator(device=dev).manual_seed(4)
+    worst = 0.0
+    for cin, cout, expand, k, h, w, sizes in MBCONV_BF16_EDGES:
+        block = _random_block(cin, cout, expand, k, gen, dev)
+        wd = block.fused_weights(bf16)
+        kw = dict(k=k, has_expand=expand != 1, has_skip=cin == cout)
+        x = torch.randn((2, h, w, cin), generator=xgen, device=dev).to(bf16)
+        win = None if sizes is None else torch.tensor(
+            [[0, 0, a, b] for a, b in sizes], dtype=torch.int32, device=dev)
+        with torch.inference_mode():
+            got = M.mbconv_stride1(x, wd, win, **kw)
+            again = M.mbconv_stride1(x, wd, win, **kw)
+            want = M.mbconv_stride1_plain(x, wd, win, **kw)
+            torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        scale_max = float(want.float().abs().max())
+        same = bool(torch.equal(got, again))
+        ok = got.dtype == bf16 and tuple(got.shape) == tuple(want.shape)
+        print(json.dumps({"kernel": "mbconv_bf16", "edge": [cin, cout, expand, k, h, w],
+                          "windowed": sizes is not None, "max_abs_err": err,
+                          "tol": BF16_REL * scale_max, "repeats_bitwise": same}), flush=True)
+        if not (ok and same and err <= BF16_REL * scale_max):
+            raise AssertionError(f"bf16 edge {(cin, cout, expand, k, h, w)}: max_abs_err {err} "
+                                 f"> {BF16_REL} * {scale_max}, repeats bit for bit: {same}")
+        worst = max(worst, err / scale_max)
+    return worst
 
 
 def _check_mbconv_owned(blocks: dict, batch: int, scales, canvas,
@@ -935,11 +1073,14 @@ def phase_kernels() -> dict:
     from muscle_tpu_torch.inference.cam import _batch_canvas
     from muscle_tpu_torch.ops.mbconv import bound_ms, bound_tc_ms
 
+    readings = ("split_ms", "begin_ms", "end_ms", "host_us", "padded_calls")
+
     def summary(mb: dict) -> dict:
         bound, by = bound_ms(mb["bytes"], mb["flops"])
         bound_tc, _ = bound_tc_ms(mb["bytes"], mb["product_flops"], mb["depthwise_flops"])
         return {"max_abs_err": mb["max_abs_err"], "ms": mb["ms"], "plain_ms": mb["plain_ms"],
-                "bound_ms": bound, "bound_by": by, "bound_tc_ms": bound_tc}
+                "bound_ms": bound, "bound_by": by, "bound_tc_ms": bound_tc,
+                **{k: mb[k] for k in readings}}
 
     def summary_bf16(mb: dict) -> dict:
         # the bound with each operation at its type's peak: bf16 products on
@@ -948,7 +1089,8 @@ def phase_kernels() -> dict:
                                 torch.bfloat16)
         return {"max_abs_err": mb["max_abs_err"], "max_rel_err": mb["max_rel_err"],
                 "ms": mb["ms"], "plain_ms": mb["plain_ms"], "f32_kernel_ms": mb["f32_ms"],
-                "bound_ms": bound, "bound_by": by}
+                "bound_ms": bound, "bound_by": by, "slower_than_f32": mb["slower_than_f32"],
+                **{k: mb[k] for k in readings}}
 
     b3_canvas = lambda s: _batch_canvas(s, [VOC_HW] * 8, 500)  # noqa: E731
     b7_canvas = lambda s: (bucket_side(s), bucket_side(s))  # noqa: E731
@@ -963,6 +1105,7 @@ def phase_kernels() -> dict:
                                             b3_raw["shape_ms"]))
     b7_16 = summary_bf16(_check_mbconv_bf16(B7_BLOCKS, SEG_BATCH, (1.0, 1.75), b7_canvas,
                                             b7_raw["shape_ms"]))
+    edges_16 = _check_mbconv_bf16_edges()
     owned = max(_check_mbconv_owned(B3_BLOCKS, TTA_BATCH, (1.0, 2.0), b3_canvas),
                 _check_mbconv_owned(B7_BLOCKS, SEG_BATCH, (1.0, 1.75), b7_canvas))
     owned_16 = max(_check_mbconv_owned(B3_BLOCKS, TTA_BATCH, (1.0, 2.0), b3_canvas, "bfloat16"),
@@ -971,6 +1114,7 @@ def phase_kernels() -> dict:
     print(json.dumps({"mbconv_b3_cam_windowed_total": b3, "mbconv_b7_seg_windowed_total": b7,
                       "mbconv_owned_rows_max_abs_err": owned,
                       "mbconv_bf16_owned_rows_max_rel_err": owned_16,
+                      "mbconv_bf16_edges_max_rel_err": edges_16,
                       "mbconv_b1_gates_windowed_total": b1,
                       "mbconv_bf16_b3_cam_windowed_total": b3_16,
                       "mbconv_bf16_b7_seg_windowed_total": b7_16}), flush=True)
@@ -985,7 +1129,7 @@ def phase_kernels() -> dict:
                            "library_ms": None, "b7_seg": b7, "b1_gates": b1},
         "mbconv_bf16": {**b3_16, "max_abs_err": max(b3_16["max_abs_err"], b7_16["max_abs_err"]),
                         "max_rel_err": max(b3_16["max_rel_err"], b7_16["max_rel_err"]),
-                        "owned_rows_max_rel_err": owned_16,
+                        "owned_rows_max_rel_err": owned_16, "edges_max_rel_err": edges_16,
                         "library_ms": None, "b7_seg": b7_16},
         "stencil_walk": {k: stencil[k] for k in keys},
         "banded_walk": {k: banded[k] for k in keys},

@@ -14,13 +14,16 @@
 //   y = ((d * g) @ w_proj * s2 + b2) * mask  (+ x when Cin == Cout)
 //
 // with the batch norms folded to per-channel f32 scale and bias, and every
-// channel count a multiple of 8 at f32 or 16 at bf16 (the wrapper
-// zero-pads odd ones, which is exact: TMA wants 16-byte strides, a bf16
-// wgmma K step 16 values).  The two 1x1 weights come K-major, as
-// ops/mbconv.py's kernel_operands makes them: wgmma takes non-16-bit
-// operands from shared memory only K-major.  At f32 they are split for
-// 3xTF32 (w_exp_kt = (hi, lo) of w_exp^T, (2, Cmid, Cin); w_proj_kt
-// likewise (2, Cout, Cmid)); at bf16 they are w_exp^T and w_proj^T.
+// channel count a multiple of 8 at both types (TMA wants 16-byte strides;
+// the wrapper zero-pads other counts, which is exact).  A K chunk's tail
+// beyond Cin or Cmid arrives zero-filled by TMA (a bf16 wgmma K step of 16
+// values may hold 8 real ones); the N and channel tails are guarded in the
+// tiles, the depthwise, the SE and the epilogue.  The two 1x1 weights come
+// K-major, as ops/mbconv.py's kernel_operands makes them: wgmma takes
+// non-16-bit operands from shared memory only K-major.  At f32 they are
+// split for 3xTF32 (w_exp_kt = (hi, lo) of w_exp^T, (2, Cmid, Cin);
+// w_proj_kt likewise (2, Cout, Cmid)); at bf16 they are w_exp^T and
+// w_proj^T.
 //
 // Element type T (float or bf16).  x, the expand's halo tiles, e, d and y
 // are T; so are the five weight matrices.  Every product runs on the
@@ -31,9 +34,11 @@
 // kernel's: e is rounded to bf16 after BN0 + swish + mask, d after BN1 +
 // swish + mask (the SE partial sums are taken from f32 d before that), the
 // SE FCs' inputs and the gated d before their products, y once after the
-// residual.  One difference: the Pallas kernel rounds each depthwise
+// residual.  One difference stays: the Pallas kernel rounds each depthwise
 // product e * w_dw to bf16 before its f32 sum; this kernel keeps the exact
-// product (bf16 x bf16 fits f32) in its f32 FMA.
+// product (bf16 x bf16 fits f32) in its f32 FMA.  The bf16 swishes of BN0
+// and BN1 take the fast exponential and division (a few f32 ulps, below
+// the bf16 rounding that follows them).
 //
 // Bound on the card.  The ideal kernel moves x in and y out and does the
 // 1x1 products (2*px*(Cin*Cmid + Cmid*Cout) FLOPs) on the tensor cores and
@@ -44,9 +49,9 @@
 // the products run at 989 TFLOP/s and the activations move half the bytes,
 // so the depthwise on the f32 pipes sets the bound at most shapes.
 //
-// Design: three launches, because the SE gate needs a reduction over the
-// whole image before the project can start.  A K chunk is one 128-byte
-// row: 32 channels at f32, 64 at bf16.
+// Design: (a), (b) and (c) are separate launches, because the SE gate
+// needs a reduction over the whole image before the project can start.  A
+// K chunk is one 128-byte row: 32 channels at f32, 64 at bf16.
 //
 //   a. expand_dw: one CTA per (image, TH x 16 output tile, 64 mid
 //      channels), TH = 12 at k = 3 and 8 at k = 5, so the halo (252 or 240
@@ -62,25 +67,33 @@
 //      (one weight tile a stage), so two CTAs share an SM at both.
 //      Without an expand, 32 channels of x go by TMA straight into e.  The
 //      depthwise reads e from shared memory with the k*k taps in registers
-//      and a sliding window along each row (k shared reads per output, not
-//      k*k), then BN1 + swish + mask, SE partial sums in a fixed order (no
-//      atomics), and d to HBM.
-//   b. se: one CTA per image reduces the partials and runs both SE FCs.
-//      (a) and (b + c) are separate entries: on a stripe of an image split
-//      over several cards (parallel/spatial.py) x carries halo rows, (a)
-//      sums only the stripe's own rows [row_lo, row_hi) into the partials,
-//      and the caller adds the partials over the cards between the two.
-//      The window's oy is then in the stripe's rows and its h stays the
+//      (k shared reads per output, not k*k), then BN1 + swish + mask, SE
+//      partial sums in a fixed order (no atomics), and d to HBM.  At f32 a
+//      thread runs one channel along whole rows; at bf16 (depthwise_pairs)
+//      two channels a 32-bit shared load along 8-column units, storing d
+//      as bf16 pairs, 128 contiguous bytes a warp.  On the H100 the bf16
+//      (a) is bound by these f32-pipe instructions (the depthwise and the
+//      two swishes), not by its products or its bytes (PERF.md).
+//   b. se, in two launches over (image, 128-channel slice): b1 reduces the
+//      slice's partials to its mean and its share of FC1; b2 adds the
+//      shares and runs FC2 for the slice's channels.  (a) and (b + c) are
+//      separate entries: on a stripe of an image split over several cards
+//      (parallel/spatial.py) x carries halo rows, (a) sums only the
+//      stripe's own rows [row_lo, row_hi) into the partials, and the
+//      caller adds the partials over the cards between the two.  The
+//      window's oy is then in the stripe's rows and its h stays the
 //      image's, so (b) divides by the whole window's pixel count.
-//   c. project: per-image 64-pixel x 64-channel tiles; a producer warp
-//      keeps a ring of up to 4 stages of TMA tiles (d and w_proj_kt) in
-//      flight; a consumer warpgroup runs the wgmma with A (d) from
-//      registers, where the SE gate is applied (and, at f32, the hi/lo
-//      split; at bf16 the gated d is rounded there), which costs nothing
-//      and avoids writing a gated W per image (57 MB at _blocks_25), and B
-//      from shared memory; BN2, the mask and the residual in the epilogue,
-//      staged through shared memory and stored as 16-byte (f32) or 8-byte
-//      (bf16) writes.
+//   c. project: 64-pixel x 64-channel tiles; a producer warp keeps a ring
+//      of up to 4 stages of TMA tiles (d and w_proj_kt) in flight; a
+//      consumer warpgroup runs the wgmma with A (d) from registers, where
+//      the SE gate is applied (and, at f32, the hi/lo split; at bf16 the
+//      gated d is rounded there), which costs nothing and avoids writing a
+//      gated W per image (57 MB at _blocks_25), and B from shared memory;
+//      BN2, the mask and the residual in the epilogue.  At f32 a CTA owns
+//      one tile and stages its epilogue through shared memory for 16-byte
+//      stores; at bf16 (project_bf16_kernel) a CTA walks up to 16 tiles
+//      with the ring running on across them and stores bf16 pairs from
+//      registers.
 //
 // d makes one round trip through HBM.  Keeping it on chip instead, by
 // rebuilding e and d per project tile from x, measured ~3x slower than
@@ -149,6 +162,16 @@ __device__ __forceinline__ void store4(bf16* p, float4 v) {
 
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
 __device__ __forceinline__ float swishf_(float v) { return v * sigmoidf_(v); }
+// The swish of BN0 and BN1 in type T's kernel: at bf16 with the fast
+// exponential and division (a few f32 ulps from swishf_, far below the bf16
+// rounding that follows it), at f32 swishf_.
+template <class T>
+__device__ __forceinline__ float swish_t(float v) {
+  if constexpr (std::is_same<T, float>::value)
+    return swishf_(v);
+  else
+    return __fdividef(v, 1.f + __expf(-v));
+}
 
 __device__ __forceinline__ bool in_window(const int* w, int y, int x) {
   return y >= w[0] && y < w[0] + w[2] && x >= w[1] && x < w[1] + w[3];
@@ -160,11 +183,11 @@ __device__ __forceinline__ char* align1024(char* p) {
 
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
-// The depthwise k x k + BN1 + swish over the TH x TW tile from e_s: thread
-// (c = tid % TC, row group tid / TC) runs along its rows with the k*k taps
-// in registers and a k x k window of e sliding along the row, in f32 (at
-// bf16 each product of two bf16 values is exact in the FMA).  Calls
-// out(ly, lx, c, v) for every output pixel of its rows, v before the mask.
+// The depthwise k x k + BN1 + swish over the TH x TW tile from e_s at f32
+// (bf16 takes depthwise_pairs): thread (c = tid % TC, row group tid / TC)
+// runs along its rows with the k*k taps in registers and a k x k window of
+// e sliding along the row.  Calls out(ly, lx, c, v) for every output pixel
+// of its rows, v before the mask.
 template <int K, int TH, int TC, int ESP, class T, class Out>
 __device__ __forceinline__ void depthwise_tile(const T* e_s, const T* __restrict__ w_dw,
                                                const float* __restrict__ s1,
@@ -205,6 +228,78 @@ __device__ __forceinline__ void depthwise_tile(const T* e_s, const T* __restrict
   }
 }
 
+// The depthwise at bf16, two channels a thread: thread (pair q = tid % NP,
+// group tid / NP) computes channels c0 + 2q and c0 + 2q + 1 (one 32-bit
+// shared load brings both) over units of 8 output columns of one row of the
+// TH x TW tile, the units dealt to the NT / NP groups in turn.  Per unit it
+// walks the k rows of e, each value read once into the sums of every
+// output it touches (in the order of depthwise_tile: ky, then kx), in f32
+// (each product of two bf16 values is exact in the FMA); then BN1 + swish +
+// mask, d to HBM as one bf16 pair (a warp of 32 pairs writes 128 contiguous
+// bytes a pixel), and the f32 d of rows [row_lo, row_hi) into psum.
+template <int K, int TH, int NP, int ESP>
+__device__ __forceinline__ void depthwise_pairs(const bf16* e_s, const bf16* __restrict__ w_dw,
+                                                const float* __restrict__ s1,
+                                                const float* __restrict__ b1,
+                                                bf16* __restrict__ d, const int* win_s, int b,
+                                                int ty0, int tx0, int c0, int H, int W, int Cmid,
+                                                int row_lo, int row_hi, float2& psum) {
+  constexpr int HW = TW + 2 * (K / 2), UW = 8, UPR = TW / UW, UNITS = TH * UPR;
+  const int q = threadIdx.x % NP, grp = threadIdx.x / NP;
+  const int c = c0 + 2 * q;
+  const bool cok = c < Cmid;  // Cmid is even: both channels or neither
+  float2 wk[K * K];
+#pragma unroll
+  for (int i = 0; i < K * K; ++i) {
+    const uint32_t r = cok ? *reinterpret_cast<const uint32_t*>(w_dw + (size_t)i * Cmid + c) : 0u;
+    wk[i] = make_float2(bf16_lo(r), bf16_hi(r));
+  }
+  const float2 sc = cok ? *reinterpret_cast<const float2*>(s1 + c) : make_float2(0.f, 0.f);
+  const float2 bi = cok ? *reinterpret_cast<const float2*>(b1 + c) : make_float2(0.f, 0.f);
+  const int oy = win_s[0], ox = win_s[1], wy1 = win_s[0] + win_s[2], wx1 = win_s[1] + win_s[3];
+#pragma unroll 1
+  for (int u = grp; u < UNITS; u += NT / NP) {
+    const int ly = u / UPR, lx0 = (u % UPR) * UW, gy = ty0 + ly;
+    if (gy >= H) continue;
+    float2 acc[UW];
+#pragma unroll
+    for (int o = 0; o < UW; ++o) acc[o] = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int ky = 0; ky < K; ++ky) {
+      const bf16* row = e_s + ((ly + ky) * HW + lx0) * ESP + 2 * q;
+#pragma unroll
+      for (int xx = 0; xx < UW + K - 1; ++xx) {
+        const uint32_t r = *reinterpret_cast<const uint32_t*>(row + xx * ESP);
+        const float vx = bf16_lo(r), vy = bf16_hi(r);
+#pragma unroll
+        for (int kx = 0; kx < K; ++kx) {
+          const int o = xx - kx;
+          if (o >= 0 && o < UW) {
+            acc[o].x = fmaf(vx, wk[ky * K + kx].x, acc[o].x);
+            acc[o].y = fmaf(vy, wk[ky * K + kx].y, acc[o].y);
+          }
+        }
+      }
+    }
+    const bool rowin = gy >= oy && gy < wy1, own = gy >= row_lo && gy < row_hi;
+    bf16* dp = d + (((size_t)b * H + gy) * W + tx0 + lx0) * Cmid + c;
+#pragma unroll
+    for (int o = 0; o < UW; ++o) {
+      const int gx = tx0 + lx0 + o;
+      if (gx < W) {
+        const bool keep = rowin && gx >= ox && gx < wx1;
+        const float vx = keep ? swish_t<bf16>(acc[o].x * sc.x + bi.x) : 0.f;
+        const float vy = keep ? swish_t<bf16>(acc[o].y * sc.y + bi.y) : 0.f;
+        if (cok) *reinterpret_cast<uint32_t*>(dp + (size_t)o * Cmid) = pack_bf16(vx, vy);
+        if (own) {  // f32 d, before the rounding; own rows only
+          psum.x += vx;
+          psum.y += vy;
+        }
+      }
+    }
+  }
+}
+
 // expand_dw's tiles: TH x 16 output pixels, 64 mid channels with an
 // expand (the halo, 252 or 240 rows, fills four 64-row wgmma tiles), 32
 // channels of x without one.
@@ -233,10 +328,12 @@ __device__ void load_x_tile(const CUtensorMap* xmap, T* e_s, uint64_t* bar, cons
     tma_load_4d(e_s, xmap, bar, c0, tx0 - P, ty0 - P, b);
   }
   mbar_wait(bar, 0);
-  for (int i = threadIdx.x; i < N; i += NT) {
-    const int pix = i / TC;
-    if (!in_window(win_s, ty0 - P + pix / HW, tx0 - P + pix % HW)) e_s[i] = from_f<T>(0.f);
-  }
+  for (int pix = threadIdx.x; pix < N / TC; pix += NT)
+    if (!in_window(win_s, ty0 - P + pix / HW, tx0 - P + pix % HW)) {
+      uint4* row = reinterpret_cast<uint4*>(e_s + pix * TC);  // TC values: 64 or 128 bytes
+#pragma unroll
+      for (int i = 0; i < TC * (int)sizeof(T) / 16; ++i) row[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
   __syncthreads();
 }
 
@@ -367,8 +464,8 @@ __device__ void expand_tile(const CUtensorMap* xmap, const CUtensorMap* wmap,
         if (row < Tile::HP) {
           const int gy = ty0 - Tile::P + row / Tile::HW, gx = tx0 - Tile::P + row % Tile::HW;
           const bool keep = gy >= 0 && gy < H && gx >= 0 && gx < W && in_window(win_s, gy, gx);
-          const float ex = keep ? swishf_(acc[m][4 * j + 2 * h] * sc.x + bi.x) : 0.f;
-          const float ey = keep ? swishf_(acc[m][4 * j + 2 * h + 1] * sc.y + bi.y) : 0.f;
+          const float ex = keep ? swish_t<T>(acc[m][4 * j + 2 * h] * sc.x + bi.x) : 0.f;
+          const float ey = keep ? swish_t<T>(acc[m][4 * j + 2 * h + 1] * sc.y + bi.y) : 0.f;
           if constexpr (std::is_same<T, float>::value)
             *reinterpret_cast<float2*>(e_s + row * Tile::ESP + col) = make_float2(ex, ey);
           else
@@ -384,7 +481,7 @@ template <int K, bool EXPAND, class T>
 constexpr size_t expand_dw_smem() {
   constexpr int region = EXPAND ? WgTile<K, dw_th<K, EXPAND>(), T>::REGION
                                 : x_tile_bytes<K, dw_th<K, EXPAND>(), dw_tc<EXPAND>(), T>();
-  return 1024 + region + NT * 4 + 16 + 16;
+  return 1024 + region + NT * 8 + 16 + 16;  // + the partials (a float2 a thread at bf16)
 }
 
 template <int K, bool EXPAND, class T>
@@ -400,7 +497,7 @@ __global__ void __launch_bounds__(NT, 2) expand_dw_kernel(
   extern __shared__ char smem_raw[];
   char* base = align1024(smem_raw);
   float* red_s = reinterpret_cast<float*>(base + REGION);
-  int* win_s = reinterpret_cast<int*>(red_s + NT);
+  int* win_s = reinterpret_cast<int*>(red_s + 2 * NT);
   uint64_t* xbar = reinterpret_cast<uint64_t*>(win_s + 4);
 
   const int tid = threadIdx.x;
@@ -422,76 +519,151 @@ __global__ void __launch_bounds__(NT, 2) expand_dw_kernel(
                               c0);
   }
 
-  const size_t img = (size_t)b * H * W;
-  float psum = 0.f;
-  depthwise_tile<K, TH, TC, ESP, T>(reinterpret_cast<const T*>(base), w_dw, s1, b1, c0, Cmid,
-                                    [&](int ly, int lx, int c, float v) {
-                                      const int gy = ty0 + ly, gx = tx0 + lx;
-                                      if (gy < H && gx < W) {
-                                        v = in_window(win_s, gy, gx) ? v : 0.f;
-                                        if (c0 + c < Cmid)
-                                          d[(img + (size_t)gy * W + gx) * Cmid + c0 + c] =
-                                              from_f<T>(v);
-                                        // f32 d, before the rounding; own rows only
-                                        if (gy >= row_lo && gy < row_hi) psum += v;
-                                      }
-                                    });
-  red_s[tid] = psum;  // row group tid / TC, channel tid % TC
-  __syncthreads();
-  if (tid < TC && c0 + tid < Cmid) {
-    float s = 0.f;
+  if constexpr (std::is_same<T, bf16>::value) {
+    constexpr int NP = TC / 2;
+    float2 ps = make_float2(0.f, 0.f);
+    depthwise_pairs<K, TH, NP, ESP>(reinterpret_cast<const bf16*>(base), w_dw, s1, b1, d, win_s,
+                                    b, ty0, tx0, c0, H, W, Cmid, row_lo, row_hi, ps);
+    float2* red2 = reinterpret_cast<float2*>(red_s);
+    red2[tid] = ps;  // group tid / NP, channel pair tid % NP
+    __syncthreads();
+    if (tid < NP && c0 + 2 * tid < Cmid) {
+      float2 s = make_float2(0.f, 0.f);
 #pragma unroll
-    for (int r = 0; r < NT / TC; ++r) s += red_s[r * TC + tid];
-    part[((size_t)b * gridDim.x + blockIdx.x) * Cmid + c0 + tid] = s;
+      for (int r = 0; r < NT / NP; ++r) {
+        s.x += red2[r * NP + tid].x;
+        s.y += red2[r * NP + tid].y;
+      }
+      *reinterpret_cast<float2*>(part + ((size_t)b * gridDim.x + blockIdx.x) * Cmid + c0 +
+                                 2 * tid) = s;
+    }
+  } else {
+    const size_t img = (size_t)b * H * W;
+    float psum = 0.f;
+    depthwise_tile<K, TH, TC, ESP, T>(reinterpret_cast<const T*>(base), w_dw, s1, b1, c0, Cmid,
+                                      [&](int ly, int lx, int c, float v) {
+                                        const int gy = ty0 + ly, gx = tx0 + lx;
+                                        if (gy < H && gx < W) {
+                                          v = in_window(win_s, gy, gx) ? v : 0.f;
+                                          if (c0 + c < Cmid)
+                                            d[(img + (size_t)gy * W + gx) * Cmid + c0 + c] = v;
+                                          // own rows only
+                                          if (gy >= row_lo && gy < row_hi) psum += v;
+                                        }
+                                      });
+    red_s[tid] = psum;  // row group tid / TC, channel tid % TC
+    __syncthreads();
+    if (tid < TC && c0 + tid < Cmid) {
+      float s = 0.f;
+#pragma unroll
+      for (int r = 0; r < NT / TC; ++r) s += red_s[r * TC + tid];
+      part[((size_t)b * gridDim.x + blockIdx.x) * Cmid + c0 + tid] = s;
+    }
   }
 }
 
-constexpr int SE_NT = 1024;
+// (b) in two launches over (image, slice of SE_C channels), so the SE of a
+// wide block runs on many SMs; the FC1 shares of the slices meet in
+// scratch after the gates: gate (B, gate_floats(Cmid, Csq)) holds the
+// gates (Cmid) and then the shares (se_slices(Cmid) x Csq) of each image.
+constexpr int SE_C = 128, SE_NT = 512;
 
-// One CTA per image: gate[b] = sigmoid(swish(mean @ w_r + b_r) @ w_e + b_e),
-// each FC's input rounded to T (the Pallas kernel's bf16 operands).
+__host__ __device__ constexpr int se_slices(int Cmid) { return (Cmid + SE_C - 1) / SE_C; }
+__host__ __device__ constexpr int gate_floats(int Cmid, int Csq) {
+  return Cmid + se_slices(Cmid) * Csq;
+}
+
+// b1, CTA (slice s, image b): the mean of channels c0 .. c0 + SE_C - 1 over
+// the partial sums of the tiles (thread (channel, row group), the groups'
+// sums added through shared memory), rounded to T (the Pallas kernel's
+// bf16 FC1 operand), and the slice's share of FC1, sum over its channels
+// of mean[c] * w_r[c, j], for every squeeze channel j (thread (j, channel
+// group): neighbouring lanes read neighbouring j of a row of w_r).  Every
+// sum in a fixed order.
 template <class T>
-__global__ void __launch_bounds__(SE_NT) se_kernel(
+__global__ void __launch_bounds__(SE_NT) se_squeeze_kernel(
     const float* __restrict__ part, int ntiles, const int* __restrict__ win,
-    const T* __restrict__ w_r, const float* __restrict__ b_r, const T* __restrict__ w_e,
-    const float* __restrict__ b_e, float* __restrict__ gate, int Cmid, int Csq) {
-  extern __shared__ float sm[];
-  float* mean = sm;       // Cmid
-  float* sq = sm + Cmid;  // Csq
-  __shared__ float red[32][33];
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31, row = threadIdx.x >> 5;  // 32 rows of 32
+    const T* __restrict__ w_r, float* __restrict__ gate, int Cmid, int Csq) {
+  __shared__ float mean[SE_C], red[SE_NT];
+  const int s = blockIdx.x, b = blockIdx.y, tid = threadIdx.x, c0 = s * SE_C;
+  const int nc = min(SE_C, Cmid - c0);
   const float count = (float)(win[4 * b + 2] * win[4 * b + 3]);
-  const float* pb = part + (size_t)b * ntiles * Cmid;
+  const float* pb = part + (size_t)b * ntiles * Cmid + c0;
 
-  for (int cb = 0; cb < Cmid; cb += 32) {
-    const int c = cb + lane;
-    float s = 0.f;
-    if (c < Cmid)
-      for (int t = row; t < ntiles; t += 32) s += pb[(size_t)t * Cmid + c];
-    red[row][lane] = s;
-    __syncthreads();
-    if (row == 0 && c < Cmid) {
-      float tot = 0.f;
-      for (int r = 0; r < 32; ++r) tot += red[r][lane];
-      mean[c] = round_as<T>(tot / count);
+  const int CW = (nc + 31) & ~31, R = SE_NT / CW;  // lanes a row group, row groups
+  {
+    const int c = tid % CW, r = tid / CW;
+    float sum = 0.f;
+    if (c < nc && r < R) {
+#pragma unroll 16
+      for (int t = r; t < ntiles; t += R) sum += pb[(size_t)t * Cmid + c];
     }
-    __syncthreads();
+    red[tid] = sum;
   }
-
-  for (int j = row; j < Csq; j += 32) {
-    float s = 0.f;
-    for (int c = lane; c < Cmid; c += 32) s = fmaf(mean[c], to_f(w_r[(size_t)c * Csq + j]), s);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) sq[j] = round_as<T>(swishf_(s + b_r[j]));
+  __syncthreads();
+  if (tid < SE_C) {
+    float tot = 0.f;
+    if (tid < nc)
+      for (int i = 0; i < R; ++i) tot += red[i * CW + tid];
+    mean[tid] = round_as<T>(tot / count);
   }
   __syncthreads();
 
-  for (int c = threadIdx.x; c < Cmid; c += SE_NT) {
-    float s = 0.f;
-    for (int j = 0; j < Csq; ++j) s = fmaf(sq[j], to_f(w_e[(size_t)j * Cmid + c]), s);
-    gate[(size_t)b * Cmid + c] = sigmoidf_(s + b_e[c]);
+  float* share = gate + (size_t)b * gate_floats(Cmid, Csq) + Cmid + (size_t)s * Csq;
+  const int JW = min(SE_NT, (Csq + 31) & ~31), G = SE_NT / JW;
+  for (int j0 = 0; j0 < Csq; j0 += JW) {
+    const int j = j0 + tid % JW, grp = tid / JW;
+    float sum = 0.f;
+    if (j < Csq && grp < G) {
+#pragma unroll 8
+      for (int c = grp; c < nc; c += G)
+        sum = fmaf(mean[c], to_f(w_r[(size_t)(c0 + c) * Csq + j]), sum);
+    }
+    __syncthreads();  // red is free
+    red[tid] = sum;
+    __syncthreads();
+    if (tid < JW && j0 + tid < Csq) {
+      float tot = 0.f;
+      for (int i = 0; i < G; ++i) tot += red[i * JW + tid];
+      share[j0 + tid] = tot;
+    }
+  }
+}
+
+// b2, CTA (slice s, image b): FC1 from the slices' shares (added in slice
+// order) + b_r, swish, rounded to T, then the gates of the slice's
+// channels, gate[b, c] = sigmoid(sum_j sq[j] * w_e[j, c] + b_e[c]): thread
+// (channel, j group) sums every fourth j, the groups added through shared
+// memory.
+template <class T>
+__global__ void __launch_bounds__(SE_NT) se_kernel(const T* __restrict__ w_e,
+                                                   const float* __restrict__ b_r,
+                                                   const float* __restrict__ b_e,
+                                                   float* __restrict__ gate, int Cmid, int Csq) {
+  constexpr int JG = SE_NT / SE_C;
+  extern __shared__ float sq[];  // Csq
+  __shared__ float red[SE_NT];
+  const int s = blockIdx.x, b = blockIdx.y, tid = threadIdx.x, ns = se_slices(Cmid);
+  float* gb = gate + (size_t)b * gate_floats(Cmid, Csq);
+  for (int j = tid; j < Csq; j += SE_NT) {
+    float tot = 0.f;
+    for (int i = 0; i < ns; ++i) tot += gb[Cmid + (size_t)i * Csq + j];
+    sq[j] = round_as<T>(swishf_(tot + b_r[j]));
+  }
+  __syncthreads();
+  const int c = s * SE_C + tid % SE_C, jg = tid / SE_C;
+  float sum = 0.f;
+  if (c < Cmid) {
+#pragma unroll 8
+    for (int j = jg; j < Csq; j += JG) sum = fmaf(sq[j], to_f(w_e[(size_t)j * Cmid + c]), sum);
+  }
+  red[tid] = sum;
+  __syncthreads();
+  if (tid < SE_C && c < Cmid) {
+    float tot = 0.f;
+#pragma unroll
+    for (int i = 0; i < JG; ++i) tot += red[i * SE_C + tid];
+    gb[c] = sigmoidf_(tot + b_e[c]);
   }
 }
 
@@ -524,17 +696,18 @@ __device__ __forceinline__ void named_sync(int id, int n) {
 }
 
 // y[b, p, n] = ((d[b, p, :] * gate[b, :]) @ W_proj[:, n]) * s2[n] + b2[n],
-// masked, plus x[b, p, n] with the residual; a CTA owns pixels p0 .. p0 +
-// 63 of image b and channels n0 .. n0 + 63.  (A CTA that walks several
-// pixel tiles, with the ring running on across them, measured slower at
-// every b3 shape: it needs a staging buffer beside the ring, which halves
-// the CTAs an SM holds.)
+// masked, plus x[b, p, n] with the residual, at f32; a CTA owns pixels p0
+// .. p0 + 63 of image b and channels n0 .. n0 + 63.  (A CTA that walks
+// several pixel tiles, with the ring running on across them, measured
+// slower at every b3 shape at f32: it needs a staging buffer beside the
+// ring, which halves the CTAs an SM holds.  bf16 takes project_bf16_kernel.)
 template <class T>
 __global__ void __launch_bounds__(P_THREADS) project_kernel(
     const __grid_constant__ CUtensorMap dmap, const __grid_constant__ CUtensorMap wmap,
     const float* __restrict__ gate, const float* __restrict__ s2, const float* __restrict__ b2,
     const T* __restrict__ x, const int* __restrict__ win, T* __restrict__ y, int H, int W,
-    int Cmid, int Cout, int has_skip, int stages) {
+    int Cmid, int Csq, int Cout, int has_skip, int stages) {
+  static_assert(std::is_same<T, float>::value, "bf16 takes project_bf16_kernel");
   constexpr int KC = kchunk<T>(), NW = Elem<T>::NW, STAGE = pstage_bytes<T>();
   extern __shared__ char smem_raw[];
   char* ring = align1024(smem_raw);
@@ -547,7 +720,7 @@ __global__ void __launch_bounds__(P_THREADS) project_kernel(
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n0 = blockIdx.x * PBN, p0 = blockIdx.y * PBM, b = blockIdx.z;
   for (int i = tid; i < nk * KC; i += P_THREADS)
-    gate_s[i] = i < Cmid ? gate[(size_t)b * Cmid + i] : 0.f;
+    gate_s[i] = i < Cmid ? gate[(size_t)b * gate_floats(Cmid, Csq) + i] : 0.f;
   if (tid < 4) win_s[tid] = win[4 * b + tid];
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -585,68 +758,41 @@ __global__ void __launch_bounds__(P_THREADS) project_kernel(
     const int s = kc % stages;
     mbar_wait(&full[s], (kc / stages) & 1);
     const char* st = ring + s * STAGE;
-    if constexpr (std::is_same<T, float>::value) {
-      uint32_t ah[4][4], al[4][4];
+    uint32_t ah[4][4], al[4][4];
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        const int k0 = ks * 8 + t;
-        const float g0 = gate_s[kc * KC + k0], g1 = gate_s[kc * KC + k0 + 4];
-        uint32_t a[4];
-        ldsm_x4(smem_addr(st) + a_row * 128 + (((2 * ks + (lj >> 1)) ^ lr) << 4), a);
-        const float gq[4] = {g0, g0, g1, g1};
+    for (int ks = 0; ks < 4; ++ks) {
+      const int k0 = ks * 8 + t;
+      const float g0 = gate_s[kc * KC + k0], g1 = gate_s[kc * KC + k0 + 4];
+      uint32_t a[4];
+      ldsm_x4(smem_addr(st) + a_row * 128 + (((2 * ks + (lj >> 1)) ^ lr) << 4), a);
+      const float gq[4] = {g0, g0, g1, g1};
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          split_tf32(__uint_as_float(a[q]) * gq[q], ah[ks][q], al[ks][q]);
-      }
-      // this stage's 32-deep product in a fresh accumulator (the tensor
-      // cores' accumulation truncates), added to acc in f32
-      float part[32];
+      for (int q = 0; q < 4; ++q)
+        split_tf32(__uint_as_float(a[q]) * gq[q], ah[ks][q], al[ks][q]);
+    }
+    // this stage's 32-deep product in a fresh accumulator (the tensor
+    // cores' accumulation truncates), added to acc in f32
+    float part[32];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        part[i] = 0.f;
-        reg_fence(part[i]);
-      }
-      wgmma_fence();
+    for (int i = 0; i < 32; ++i) {
+      part[i] = 0.f;
+      reg_fence(part[i]);
+    }
+    wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        const uint64_t dh = desc_sw128(st + PA_BYTES + ks * 32);
-        const uint64_t dl = desc_sw128(st + PA_BYTES + PB_BYTES + ks * 32);
-        wgmma_m64n64k8_rs(part, al[ks], dh, ks > 0);
-        wgmma_m64n64k8_rs(part, ah[ks], dl, 1);
-        wgmma_m64n64k8_rs(part, ah[ks], dh, 1);
-      }
-      wgmma_commit();
-      wgmma_wait0();
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint64_t dh = desc_sw128(st + PA_BYTES + ks * 32);
+      const uint64_t dl = desc_sw128(st + PA_BYTES + PB_BYTES + ks * 32);
+      wgmma_m64n64k8_rs(part, al[ks], dh, ks > 0);
+      wgmma_m64n64k8_rs(part, ah[ks], dl, 1);
+      wgmma_m64n64k8_rs(part, ah[ks], dh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait0();
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        reg_fence(part[i]);
-        acc[i] += part[i];
-      }
-    } else {
-      // A: d (bf16 pairs) times the gate, rounded to bf16 again; a0/a1 hold
-      // columns 2t, 2t + 1 of the 16-deep step, a2/a3 columns 2t + 8, 2t + 9
-      uint32_t a[4][4];
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        const float* gk = gate_s + kc * KC + ks * 16 + 2 * t;
-        uint32_t r[4];
-        ldsm_x4(smem_addr(st) + a_row * 128 + (((2 * ks + (lj >> 1)) ^ lr) << 4), r);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int o = q < 2 ? 0 : 8;
-          a[ks][q] = pack_bf16(bf16_lo(r[q]) * gk[o], bf16_hi(r[q]) * gk[o + 1]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 32; ++i) reg_fence(acc[i]);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        wgmma_m64n64k16_bf16_rs(acc, a[ks], desc_sw128(st + PA_BYTES + ks * 32), 1);
-      wgmma_commit();
-      wgmma_wait0();
-#pragma unroll
-      for (int i = 0; i < 32; ++i) reg_fence(acc[i]);
+    for (int i = 0; i < 32; ++i) {
+      reg_fence(part[i]);
+      acc[i] += part[i];
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
@@ -690,6 +836,153 @@ __global__ void __launch_bounds__(P_THREADS) project_kernel(
   }
 }
 
+// ---- c at bf16: several pixel tiles a CTA, the epilogue from registers -----
+
+constexpr int PB16_STAGES = 4;
+
+size_t project_bf16_smem(int Cmid) {
+  const int nk = (Cmid + 63) / 64;
+  return 1024 + PB16_STAGES * (PA_BYTES + PB_BYTES) + (size_t)nk * 64 * 4 + 2 * PBN * 4 + 16 +
+         2 * PB16_STAGES * 8;
+}
+
+// project_kernel's product at bf16: a CTA owns channels n0 .. n0 + 63 of
+// image b and the `tiles` pixel tiles (64 pixels each) from t0 on.  The
+// producer warp runs the ring on across the tiles, so the next tiles' loads
+// fly during a tile's product and epilogue; the consumer warpgroup gates and
+// rounds A (d) in registers as project_kernel does, and applies BN2, the
+// mask and the residual to its accumulators and stores y as bf16 pairs
+// straight from registers: no staging buffer beside the ring, whose stages
+// then hold four tiles ahead where a block's K is one chunk.
+__global__ void __launch_bounds__(P_THREADS) project_bf16_kernel(
+    const __grid_constant__ CUtensorMap dmap, const __grid_constant__ CUtensorMap wmap,
+    const float* __restrict__ gate, const float* __restrict__ s2, const float* __restrict__ b2,
+    const bf16* __restrict__ x, const int* __restrict__ win, bf16* __restrict__ y, int H, int W,
+    int Cmid, int Csq, int Cout, int has_skip, int tiles) {
+  constexpr int KC = 64, STAGE = PA_BYTES + PB_BYTES;
+  extern __shared__ char smem_raw[];
+  char* ring = align1024(smem_raw);
+  const int nk = (Cmid + KC - 1) / KC;
+  float* gate_s = reinterpret_cast<float*>(ring + PB16_STAGES * STAGE);
+  float* s2_s = gate_s + nk * KC;
+  float* b2_s = s2_s + PBN;
+  int* win_s = reinterpret_cast<int*>(b2_s + PBN);
+  uint64_t* full = reinterpret_cast<uint64_t*>(win_s + 4);
+  uint64_t* empty = full + PB16_STAGES;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.x * PBN, b = blockIdx.z, HWn = H * W;
+  const int t0 = blockIdx.y * tiles;
+  const int nt = min(tiles, (HWn + PBM - 1) / PBM - t0);
+  for (int i = tid; i < nk * KC; i += P_THREADS)
+    gate_s[i] = i < Cmid ? gate[(size_t)b * gate_floats(Cmid, Csq) + i] : 0.f;
+  for (int i = tid; i < PBN; i += P_THREADS) {
+    s2_s[i] = n0 + i < Cout ? s2[n0 + i] : 0.f;
+    b2_s[i] = n0 + i < Cout ? b2[n0 + i] : 0.f;
+  }
+  if (tid < 4) win_s[tid] = win[4 * b + tid];
+  if (tid == 0) {
+    for (int s = 0; s < PB16_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // one arrival per consumer warp
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // producer: chunk kc of tile i is load it = i * nk + kc
+    if (lane == 0) {
+      for (int it = 0; it < nt * nk; ++it) {
+        const int s = it % PB16_STAGES, i = it / nk, kc = it % nk;
+        if (it >= PB16_STAGES) mbar_wait(&empty[s], ((it / PB16_STAGES) - 1) & 1);
+        char* st = ring + s * STAGE;
+        // with one K chunk every tile takes the same w_proj tile: each stage
+        // keeps the one its first load brought
+        const bool w = nk > 1 || it < PB16_STAGES;
+        mbar_expect_tx(&full[s], w ? STAGE : PA_BYTES);
+        tma_load_3d(st, &dmap, &full[s], kc * KC, (t0 + i) * PBM, b);
+        if (w) tma_load_3d(st + PA_BYTES, &wmap, &full[s], kc * KC, n0, 0);
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2, t = lane & 3, lr = lane & 7, lj = lane >> 3;
+  // ldmatrix rows of A (d): warp's 16 rows, +8 for odd j, next chunk for j >= 2
+  const int a_row = warp * 16 + lr + 8 * (lj & 1);
+  for (int i = 0, it = 0; i < nt; ++i) {
+    // the residual of this thread's outputs (rows 16 warp + g and + 8,
+    // columns 8j + 2t, + 1), loaded before the product hides its latency
+    const int pr = (t0 + i) * PBM + warp * 16 + g;
+    uint32_t xr[2][8];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int n = n0 + 8 * j + 2 * t;
+        xr[h][j] = has_skip && pr + 8 * h < HWn && n < Cout
+                       ? *reinterpret_cast<const uint32_t*>(
+                             x + ((size_t)b * HWn + pr + 8 * h) * Cout + n)
+                       : 0u;
+      }
+    float acc[32];
+#pragma unroll
+    for (int r = 0; r < 32; ++r) acc[r] = 0.f;
+    for (int kc = 0; kc < nk; ++kc, ++it) {
+      const int s = it % PB16_STAGES;
+      mbar_wait(&full[s], (it / PB16_STAGES) & 1);
+      const char* st = ring + s * STAGE;
+      // A: d (bf16 pairs) times the gate, rounded to bf16 again; a0/a1 hold
+      // columns 2t, 2t + 1 of the 16-deep step, a2/a3 columns 2t + 8, 2t + 9
+      uint32_t a[4][4];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        const float* gk = gate_s + kc * KC + ks * 16 + 2 * t;
+        uint32_t r[4];
+        ldsm_x4(smem_addr(st) + a_row * 128 + (((2 * ks + (lj >> 1)) ^ lr) << 4), r);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int o = q < 2 ? 0 : 8;
+          a[ks][q] = pack_bf16(bf16_lo(r[q]) * gk[o], bf16_hi(r[q]) * gk[o + 1]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 32; ++r) reg_fence(acc[r]);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_m64n64k16_bf16_rs(acc, a[ks], desc_sw128(st + PA_BYTES + ks * 32), 1);
+      wgmma_commit();
+      wgmma_wait0();
+#pragma unroll
+      for (int r = 0; r < 32; ++r) reg_fence(acc[r]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    // epilogue: rows 16 warp + g and + 8 of the tile, columns 8j + 2t, + 1
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = pr + 8 * h;
+      if (p >= HWn) continue;
+      const bool keep = in_window(win_s, p / W, p % W);
+      const size_t o = ((size_t)b * HWn + p) * Cout + n0 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (n0 + col < Cout) {  // Cout is even: both channels or neither
+          float vx = keep ? acc[4 * j + 2 * h] * s2_s[col] + b2_s[col] : 0.f;
+          float vy = keep ? acc[4 * j + 2 * h + 1] * s2_s[col + 1] + b2_s[col + 1] : 0.f;
+          if (has_skip) {
+            vx += bf16_lo(xr[h][j]);
+            vy += bf16_hi(xr[h][j]);
+          }
+          *reinterpret_cast<uint32_t*>(y + o + 8 * j) = pack_bf16(vx, vy);
+        }
+      }
+    }
+  }
+}
+
 // ---- host ---------------------------------------------------------------------
 
 // The pointers of one call: x, d, y, the weight matrices and the K-major
@@ -727,9 +1020,22 @@ bool kt_map(CUtensorMap* map, const void* w, int rows, int K, int rows_box) {
   return make_tensor_map(map, Elem<T>::MAP, sizeof(T), w, 3, dims, box, true);
 }
 
+// Raises `kernel`'s dynamic shared memory limit to `bytes` where `done`
+// (the size set so far on each device, one array per kernel) is below it,
+// and asks for the largest shared-memory carveout, so that as many CTAs as
+// the shared memory allows share an SM.
 template <class F>
-cudaError_t set_smem(F* kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+cudaError_t set_smem(F* kernel, size_t bytes, size_t* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= 64) return err != cudaSuccess ? err : cudaErrorInvalidDevice;
+  if (done[dev] >= bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) done[dev] = bytes;
+  return err;
 }
 
 template <int K, bool EXPAND, class T>
@@ -744,7 +1050,8 @@ cudaError_t launch_expand_dw(const Args& a) {
   const int tiles_w = (a.W + TW - 1) / TW, tiles_h = (a.H + TH - 1) / TH;
   const dim3 grid(tiles_h * tiles_w, (a.Cmid + TC - 1) / TC, a.B);
   constexpr size_t smem = expand_dw_smem<K, EXPAND, T>();
-  cudaError_t err = set_smem(expand_dw_kernel<K, EXPAND, T>, smem);
+  static size_t done[64] = {};
+  cudaError_t err = set_smem(expand_dw_kernel<K, EXPAND, T>, smem, done);
   if (err != cudaSuccess) return err;
   expand_dw_kernel<K, EXPAND, T><<<grid, NT, smem, a.st>>>(
       xm, wm, a.win, a.s0, a.b0, static_cast<const T*>(a.w_dw), a.s1, a.b1,
@@ -760,13 +1067,31 @@ cudaError_t launch_project(const Args& a) {
   if (!make_tensor_map(&dmap, Elem<T>::MAP, sizeof(T), a.d, 3, ddims, dbox, true) ||
       !kt_map<T>(&wmap, a.w_proj_kt, a.Cout, a.Cmid, PBN))
     return cudaErrorInvalidValue;
-  const dim3 grid((a.Cout + PBN - 1) / PBN, (a.H * a.W + PBM - 1) / PBM, a.B);
-  const size_t smem = project_smem<T>(a.Cmid);
-  cudaError_t err = set_smem(project_kernel<T>, smem);
-  if (err != cudaSuccess) return err;
-  project_kernel<T><<<grid, P_THREADS, smem, a.st>>>(
-      dmap, wmap, a.gate, a.s2, a.b2, static_cast<const T*>(a.x), a.win, static_cast<T*>(a.y),
-      a.H, a.W, a.Cmid, a.Cout, a.has_skip, project_stages<T>(a.Cmid));
+  const int ntp = (a.H * a.W + PBM - 1) / PBM, nn = (a.Cout + PBN - 1) / PBN;
+  if constexpr (std::is_same<T, bf16>::value) {
+    // pixel tiles a CTA: enough CTAs for about two waves of three an SM, at most 16 tiles each
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    const long per = (long)ntp * nn * a.B / (6L * sms);
+    const int tiles = per < 1 ? 1 : per > 16 ? 16 : (int)per;
+    const size_t smem = project_bf16_smem(a.Cmid);
+    static size_t done[64] = {};
+    err = set_smem(project_bf16_kernel, smem, done);
+    if (err != cudaSuccess) return err;
+    project_bf16_kernel<<<dim3(nn, (ntp + tiles - 1) / tiles, a.B), P_THREADS, smem, a.st>>>(
+        dmap, wmap, a.gate, a.s2, a.b2, static_cast<const bf16*>(a.x), a.win,
+        static_cast<bf16*>(a.y), a.H, a.W, a.Cmid, a.Csq, a.Cout, a.has_skip, tiles);
+  } else {
+    const size_t smem = project_smem<T>(a.Cmid);
+    static size_t done[64] = {};
+    cudaError_t err = set_smem(project_kernel<T>, smem, done);
+    if (err != cudaSuccess) return err;
+    project_kernel<T><<<dim3(nn, ntp, a.B), P_THREADS, smem, a.st>>>(
+        dmap, wmap, a.gate, a.s2, a.b2, static_cast<const T*>(a.x), a.win, static_cast<T*>(a.y),
+        a.H, a.W, a.Cmid, a.Csq, a.Cout, a.has_skip, project_stages<T>(a.Cmid));
+  }
   return cudaGetLastError();
 }
 
@@ -780,7 +1105,7 @@ int partials_per_image(int H, int W, int k, int has_expand) {
 // granularity), 0 on success.
 template <class T>
 int run_expand_dw(const Args& a, int k, int has_expand) {
-  constexpr int MULT = std::is_same<T, float>::value ? 8 : 16;  // channel granularity
+  constexpr int MULT = 8;  // channel granularity: 16-byte TMA strides at both types
   if ((k != 3 && k != 5) || a.Cin % MULT || a.Cmid % MULT) return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (k == 3)
@@ -794,12 +1119,17 @@ int run_expand_dw(const Args& a, int k, int has_expand) {
 // success.
 template <class T>
 int run_se_project(const Args& a) {
-  constexpr int MULT = std::is_same<T, float>::value ? 8 : 16;
+  constexpr int MULT = 8;
   if (a.Cmid % MULT || a.Cout % MULT || a.ntiles < 1) return (int)cudaErrorInvalidValue;
-  se_kernel<T><<<a.B, SE_NT, (size_t)(a.Cmid + a.Csq) * sizeof(float), a.st>>>(
-      a.part, a.ntiles, a.win, static_cast<const T*>(a.w_se_r), a.b_se_r,
-      static_cast<const T*>(a.w_se_e), a.b_se_e, a.gate, a.Cmid, a.Csq);
-  const cudaError_t err = cudaGetLastError();
+  const dim3 grid(se_slices(a.Cmid), a.B);
+  se_squeeze_kernel<T><<<grid, SE_NT, 0, a.st>>>(a.part, a.ntiles, a.win,
+                                                 static_cast<const T*>(a.w_se_r), a.gate, a.Cmid,
+                                                 a.Csq);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  se_kernel<T><<<grid, SE_NT, (size_t)a.Csq * sizeof(float), a.st>>>(
+      static_cast<const T*>(a.w_se_e), a.b_se_r, a.b_se_e, a.gate, a.Cmid, a.Csq);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_project<T>(a);
 }
@@ -841,6 +1171,10 @@ int mbconv_partials_per_image(int H, int W, int k, int has_expand) {
   return partials_per_image(H, W, k, has_expand);
 }
 
+// Floats per image of the gate scratch of mbconv_se_project_*: the gates,
+// then the SE's FC1 shares of each channel slice.
+int mbconv_gate_floats(int Cmid, int Csq) { return gate_floats(Cmid, Csq); }
+
 const char* mbconv_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
@@ -848,7 +1182,7 @@ const char* mbconv_error_string(int code) {
 // A block call is two entries on `stream`, each returning its first launch
 // error (cudaGetLastError after each launch; an invalid value when a tensor
 // map is refused or a channel count is off), 0 on success.  Channel counts
-// are multiples of 8 (f32) or 16 (bf16).
+// are multiples of 8.
 //
 // mbconv_expand_dw_*: launch (a), d (B, H, W, Cmid) and the SE partial sums
 // part (B, mbconv_partials_per_image, Cmid) of the rows [row_lo, row_hi)
@@ -862,7 +1196,8 @@ int mbconv_expand_dw_f32(const float* x, const int* win, const float* w_exp_kt, 
 }
 
 // mbconv_se_project_*: launches (b) and (c), the gate from `ntiles` partial
-// sums per image in part (B, ntiles, Cmid), then y (B, H, W, Cout).
+// sums per image in part (B, ntiles, Cmid), then y (B, H, W, Cout); gate is
+// scratch of (B, mbconv_gate_floats(Cmid, Csq)).
 int mbconv_se_project_f32(const float* x, const int* win, const float* part,
                           const float* w_se_r, const float* b_se_r, const float* w_se_e,
                           const float* b_se_e, const float* w_proj_kt, const float* s2,

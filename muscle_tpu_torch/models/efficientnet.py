@@ -376,11 +376,12 @@ class MBConvBlock(nn.Module):
         version counters move); refolding on every forward costs ~15 small
         launches per block.  Modules built under inference mode keep no
         version counters and refold every time."""
-        srcs = [t for _, t in self.named_parameters()] + [
-            t for n, t in self.named_buffers() if not n.endswith("num_batches_tracked")]
+        srcs = [t for m in self.modules() for n, t in (*m._parameters.items(),
+                                                       *m._buffers.items())
+                if t is not None and n != "num_batches_tracked"]
         key = None
         if not any(t.is_inference() for t in srcs):
-            key = tuple((t.data_ptr(), t._version) for t in srcs)
+            key = tuple([(t.data_ptr(), t._version) for t in srcs])
         hit = self._fused.get(dtype)
         if key is None or hit is None or hit[0] != key:
             hit = (key, self._fold(dtype))

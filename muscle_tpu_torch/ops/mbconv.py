@@ -5,13 +5,14 @@ Replaces the Pallas TPU kernel ``muscle_tpu/ops/pallas/mbconv.py``
 (``fused_mbconv_stride1``): expand 1x1 + BN0 + swish, depthwise k x k +
 BN1 + swish, squeeze-excite over the valid window, project 1x1 + BN2, the
 window mask after every BN, and the residual iff Cin == Cout.  The kernel
-(``csrc/mbconv.cu``) runs it as three launches: expand + depthwise with SE
-partial sums, the SE gate, and the project with BN2, the mask and the
-residual in its epilogue.  At float32 its 1x1 products run on the tensor
-cores in the 3xTF32 split (f32 accuracy); at bfloat16 (the Pallas kernel's
-``compute_dtype=bf16`` instantiation) as one bf16 product each, with f32
-accumulation.  The depthwise output ``d`` goes to HBM once, in x's dtype,
-and comes back through a TMA ring into the project's ``wgmma``.
+(``csrc/mbconv.cu``) runs it as expand + depthwise with SE partial sums,
+the SE gate (two launches over channel slices), and the project with BN2,
+the mask and the residual in its epilogue.  At float32 its 1x1 products
+run on the tensor cores in the 3xTF32 split (f32 accuracy); at bfloat16
+(the Pallas kernel's ``compute_dtype=bf16`` instantiation) as one bf16
+product each, with f32 accumulation.  The depthwise output ``d`` goes to
+HBM once, in x's dtype, and comes back through a TMA ring into the
+project's ``wgmma``.
 
 Bounds on an H100 SXM, bytes = x in + y out + the weights (the ideal
 kernel keeps the expanded map on chip): ``bound_ms`` takes every FLOP on
@@ -23,9 +24,11 @@ products each) or 989 TFLOP/s in bf16, and the depthwise on the f32 pipes
 Layout: NHWC, like the JAX package; x and y float32 or bfloat16.  The BNs
 arrive folded to float32 (scale, bias) pairs (``fold_bn``); at bfloat16
 the five weight matrices (``MATRIX_WEIGHTS``) are bfloat16 and the scales
-and biases stay float32, as the Pallas kernel takes them.  Channel counts
-are zero-padded for the kernel to multiples of 8 (f32) or 16 (bf16)
-(exact; TMA wants 16-byte strides, bf16 ``wgmma`` 16-deep K steps).
+and biases stay float32, as the Pallas kernel takes them.  The kernel
+takes channel counts that are multiples of 8 at both dtypes (TMA's
+16-byte strides; the K tail of a chunk arrives zero-filled); others are
+zero-padded, which is exact (no EfficientNet width needs it: its widths
+round to multiples of 8).
 """
 
 from __future__ import annotations
@@ -96,7 +99,9 @@ def shift_rows(win: torch.Tensor, dy: int) -> torch.Tensor:
 class MBConvPartial:
     """A block call between its two stages: ``part`` (B, n, Cmid') float32
     holds the SE sums of the depthwise output ``d`` over the call's own
-    rows, ``n`` per image (the kernel's tiles, or 1).  Made by
+    rows, ``n`` per image (the kernel's tiles, or 1); on a card x and the
+    weights are the kernel's (padded where a channel count needs it, with
+    the K-major operands).  Made by
     ``mbconv_stride1_begin`` or ``_plain_begin``; where x is a stripe of
     an image split over several ranks, the caller adds ``part`` over them
     before ``mbconv_stride1_end``."""
@@ -108,7 +113,6 @@ class MBConvPartial:
     has_skip: bool
     owned: tuple[int, int] | None
     cout: int = 0
-    kernel: dict | None = None  # the kernel's operands on a card
 
 
 def _plain_begin(x, wd, window, *, k: int, has_expand: bool, has_skip: bool,
@@ -197,6 +201,12 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a.float() @ w.float()
 
 
+# (name, axes) of the weights a block takes, with and without an expand
+_WEIGHT_AXES = {True: tuple(WEIGHT_SHAPES.items()),
+                False: tuple((n, a) for n, a in WEIGHT_SHAPES.items()
+                             if n not in ("w_exp", "s0", "b0"))}
+
+
 def _check(x: torch.Tensor, weights: dict, window, k: int, has_expand: bool,
            has_skip: bool) -> dict:
     if x.dtype not in DTYPES or x.ndim != 4 or not x.is_contiguous():
@@ -207,27 +217,29 @@ def _check(x: torch.Tensor, weights: dict, window, k: int, has_expand: bool,
     cin = x.shape[3]
     dims = {"Cin": cin, "Cmid": weights["w_dw"].shape[1], "kk": k * k,
             "Csq": weights["w_se_r"].shape[1], "Cout": weights["w_proj"].shape[1]}
-    names = [n for n in WEIGHT_SHAPES if has_expand or n not in ("w_exp", "s0", "b0")]
-    for n in names:
+    device, f32 = x.get_device(), torch.float32
+    for n, axes in _WEIGHT_AXES[has_expand]:
         t = weights[n]
-        want = tuple(dims[s] for s in WEIGHT_SHAPES[n])
-        dtype = x.dtype if n in MATRIX_WEIGHTS else torch.float32
-        if (t.device != x.device or t.dtype != dtype or not t.is_contiguous()
-                or tuple(t.shape) != want):
+        dtype = x.dtype if n in MATRIX_WEIGHTS else f32
+        if (t.get_device() != device or t.dtype != dtype or not t.is_contiguous()
+                or t.shape != tuple([dims[a] for a in axes])):
+            want = tuple(dims[a] for a in axes)
             raise ValueError(f"weight {n}: want contiguous {dtype} {want} on {x.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     if not has_expand and dims["Cmid"] != cin:
         raise ValueError("a block without expand has Cmid == Cin")
     if has_skip != (cin == dims["Cout"]):
         raise ValueError("the residual is taken iff Cin == Cout")
-    if window is not None and (window.device != x.device or window.dtype != torch.int32
-                               or tuple(window.shape) != (x.shape[0], 4)
+    if window is not None and (window.get_device() != device or window.dtype != torch.int32
+                               or window.shape != (x.shape[0], 4)
                                or not window.is_contiguous()):
         raise ValueError("window must be a contiguous (B, 4) int32 tensor on x's device")
     return dims
 
 
 def _lib():
+    if _LIB:
+        return _LIB[0]
     from muscle_tpu_torch.ops import build
 
     lib = build.load("mbconv")
@@ -241,19 +253,24 @@ def _lib():
             fn.restype = i32
         lib.mbconv_partials_per_image.argtypes = [i32] * 4
         lib.mbconv_partials_per_image.restype = i32
+        lib.mbconv_gate_floats.argtypes = [i32] * 2
+        lib.mbconv_gate_floats.restype = i32
         lib.mbconv_error_string.argtypes = [i32]
         lib.mbconv_error_string.restype = ctypes.c_char_p
         lib._typed = True
+    _LIB.append(lib)
     return lib
 
 
-def channel_multiple(dtype: torch.dtype) -> int:
-    """The kernel's channel granularity: 8 at float32 (TMA's 16-byte
-    strides), 16 at bfloat16 (one bf16 ``wgmma`` K step)."""
-    return 16 if dtype == torch.bfloat16 else 8
+_LIB = []  # the typed library, once loaded
 
 
-def _pad_dims(t: torch.Tensor, names, dims: dict, multiple: int = 8) -> torch.Tensor:
+# the kernel's channel granularity at both dtypes: TMA's 16-byte strides
+CHANNEL_MULTIPLE = 8
+
+
+def _pad_dims(t: torch.Tensor, names, dims: dict,
+              multiple: int = CHANNEL_MULTIPLE) -> torch.Tensor:
     """``t`` (axes ``names``) zero-padded so that each axis named in
     ``dims`` has a multiple of ``multiple`` entries."""
     shape = tuple(-(-t.shape[i] // multiple) * multiple if n in dims else t.shape[i]
@@ -267,12 +284,11 @@ def _pad_dims(t: torch.Tensor, names, dims: dict, multiple: int = 8) -> torch.Te
 
 def _pad_channels(weights: dict, has_expand: bool) -> dict:
     """The weights zero-padded to channel counts that are multiples of
-    ``channel_multiple`` of their dtype: padded input and mid channels stay
-    0 through every stage (zero weights, scale and bias; swish(0) = 0),
-    padded output channels are dropped by the caller.  Exact."""
+    ``CHANNEL_MULTIPLE``: padded input and mid channels stay 0 through
+    every stage (zero weights, scale and bias; swish(0) = 0), padded output
+    channels are dropped by the caller.  Exact."""
     dims = {"Cin", "Cmid", "Cout"}
-    multiple = channel_multiple(weights["w_dw"].dtype)
-    return {n: _pad_dims(weights[n], WEIGHT_SHAPES[n], dims, multiple) for n in WEIGHT_SHAPES
+    return {n: _pad_dims(weights[n], WEIGHT_SHAPES[n], dims) for n in WEIGHT_SHAPES
             if has_expand or n not in ("w_exp", "s0", "b0")}
 
 
@@ -294,6 +310,8 @@ def split_tf32(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 # the kernel's extra operands: the 1x1 weights K-major at padded channel
 # counts; at float32 split for 3xTF32 and stacked (hi, lo)
 KERNEL_OPERANDS = ("w_exp_kt", "w_proj_kt")
+# the suffix of a weight's zero-padded copy for the kernel (kernel_operands)
+PADDED = "_padded"
 
 
 def _kernel_operand_shapes(cin: int, cmid: int, cout: int, dtype: torch.dtype) -> dict:
@@ -303,18 +321,40 @@ def _kernel_operand_shapes(cin: int, cmid: int, cout: int, dtype: torch.dtype) -
 
 def kernel_operands(weights: dict, has_expand: bool) -> dict:
     """``w_exp_kt`` (Cmid', Cin') and ``w_proj_kt`` (Cout', Cmid'): the
-    transposed 1x1 weights as the kernel's TMA loads them, at the padded
-    channel counts; at float32 (hi, lo) of the 3xTF32 split stacked in a
-    leading axis of 2, at bfloat16 the weights themselves.
-    ``MBConvBlock.fused_weights`` caches them beside the folded weights;
-    the wrapper makes them when a dict lacks them."""
+    transposed 1x1 weights as the kernel's TMA loads them, at the channel
+    counts padded to multiples of ``CHANNEL_MULTIPLE``; at float32 (hi, lo)
+    of the 3xTF32 split stacked in a leading axis of 2, at bfloat16 the
+    weights themselves.  Where a count needs padding, also each weight's
+    padded copy as ``<name>_padded``.  ``MBConvBlock.fused_weights``
+    caches them beside the folded weights, so a call pads no weight; the
+    wrapper makes them when a dict lacks them."""
     wd = _pad_channels(weights, has_expand)
     names = {"w_proj_kt": "w_proj"} | ({"w_exp_kt": "w_exp"} if has_expand else {})
     out = {}
     for kt, n in names.items():
         t = wd[n].t().contiguous()
         out[kt] = torch.stack(split_tf32(t)) if t.dtype == torch.float32 else t
+    out.update({n + PADDED: t for n, t in wd.items() if t is not weights[n]})
     return out
+
+
+def _kernel_weights(weights: dict, x: torch.Tensor, dims: dict, has_expand: bool) -> dict:
+    """The tensors the kernel takes, by weight name: ``weights`` itself
+    when its K-major operands are there (``fused_weights``' cache) and no
+    channel count needs padding; else with the padded copies in place of
+    the weights, made here when the dict lacks them."""
+    pad = lambda c: -(-c // CHANNEL_MULTIPLE) * CHANNEL_MULTIPLE  # noqa: E731
+    cin, cmid, cout = pad(dims["Cin"]), pad(dims["Cmid"]), pad(dims["Cout"])
+    padded = (cin, cmid, cout) != (dims["Cin"], dims["Cmid"], dims["Cout"])
+    want = _kernel_operand_shapes(cin, cmid, cout, x.dtype)
+    names = KERNEL_OPERANDS if has_expand else ("w_proj_kt",)
+    if (padded and "w_dw" + PADDED not in weights) or any(
+            n not in weights or weights[n].shape != want[n] or weights[n].dtype != x.dtype
+            or weights[n].device != x.device for n in names):
+        weights = {**weights, **kernel_operands(weights, has_expand)}
+    if not padded:
+        return weights
+    return weights | {n: weights[n + PADDED] for n in WEIGHT_SHAPES if n + PADDED in weights}
 
 
 def mbconv_stride1(x: torch.Tensor, weights: dict, window: torch.Tensor | None, *,
@@ -376,28 +416,23 @@ def mbconv_stride1_begin(x: torch.Tensor, weights: dict, window: torch.Tensor | 
         raise ValueError(f"mbconv_stride1 runs on cpu or cuda, not {x.device}")
     lib = _lib()
     win = full_window(x) if window is None else window
-    x8 = _pad_dims(x, ("B", "H", "W", "Cin"), {"Cin"}, channel_multiple(x.dtype))
-    wd = _pad_channels(weights, has_expand)
-    b, h, w, cin8 = x8.shape
-    cmid8, cout8 = wd["w_dw"].shape[1], wd["w_proj"].shape[1]
-    want = _kernel_operand_shapes(cin8, cmid8, cout8, x.dtype)
-    kt = {n: weights.get(n) for n in KERNEL_OPERANDS if has_expand or n != "w_exp_kt"}
-    if any(t is None or tuple(t.shape) != want[n] or t.device != x.device
-           or t.dtype != x.dtype for n, t in kt.items()):
-        kt = kernel_operands(weights, has_expand)
+    wd = _kernel_weights(weights, x, dims, has_expand)
+    xk = _pad_dims(x, ("B", "H", "W", "Cin"), {"Cin"})
+    b, h, w, cin = xk.shape
+    cmid = wd["w_dw"].shape[1]
     ntiles = lib.mbconv_partials_per_image(h, w, k, int(has_expand))
-    d = torch.empty((b, h, w, cmid8), dtype=x.dtype, device=x.device)
-    part = torch.empty((b, ntiles, cmid8), dtype=torch.float32, device=x.device)
+    d = torch.empty((b, h, w, cmid), dtype=x.dtype, device=x.device)
+    part = torch.empty((b, ntiles, cmid), dtype=torch.float32, device=x.device)
     lo, hi = (0, h) if owned is None else owned
     rc = (lib.mbconv_expand_dw_bf16 if x.dtype == torch.bfloat16 else lib.mbconv_expand_dw_f32)(
-        _ptr(x8), _ptr(win), _ptr(kt.get("w_exp_kt")), _ptr(wd.get("s0")), _ptr(wd.get("b0")),
+        _ptr(xk), _ptr(win), _ptr(wd.get("w_exp_kt")), _ptr(wd.get("s0")), _ptr(wd.get("b0")),
         _ptr(wd["w_dw"]), _ptr(wd["s1"]), _ptr(wd["b1"]), _ptr(d), _ptr(part),
-        b, h, w, cin8, cmid8, k, int(has_expand), lo, hi, _stream(x))
+        b, h, w, cin, cmid, k, int(has_expand), lo, hi, _stream(x))
     if rc != 0:
         raise RuntimeError(f"mbconv kernel launch failed: {lib.mbconv_error_string(rc).decode()}")
     if owned is not None:  # one partial per image, for the sum over the stripes
         part = part.sum(dim=1, keepdim=True)
-    return MBConvPartial(x8, wd, win, d, part, has_skip, owned, cout=dims["Cout"], kernel=kt)
+    return MBConvPartial(xk, wd, win, d, part, has_skip, owned, cout=dims["Cout"])
 
 
 def mbconv_stride1_end(p: MBConvPartial) -> torch.Tensor:
@@ -407,17 +442,18 @@ def mbconv_stride1_end(p: MBConvPartial) -> torch.Tensor:
     if p.x.device.type == "cpu":
         return _plain_end(p)
     lib = _lib()
-    wd, x8 = p.weights, p.x
-    b, h, w, _ = x8.shape
-    cmid8, cout8, csq = wd["w_dw"].shape[1], wd["w_proj"].shape[1], wd["w_se_r"].shape[1]
-    gate = torch.empty((b, cmid8), dtype=torch.float32, device=x8.device)
-    y = torch.empty((b, h, w, cout8), dtype=x8.dtype, device=x8.device)
-    bf16 = x8.dtype == torch.bfloat16
+    wd, xk = p.weights, p.x
+    b, h, w, _ = xk.shape
+    cmid, cout, csq = wd["w_dw"].shape[1], wd["w_proj"].shape[1], wd["w_se_r"].shape[1]
+    gate = torch.empty((b, lib.mbconv_gate_floats(cmid, csq)), dtype=torch.float32,
+                       device=xk.device)
+    y = torch.empty((b, h, w, cout), dtype=xk.dtype, device=xk.device)
+    bf16 = xk.dtype == torch.bfloat16
     rc = (lib.mbconv_se_project_bf16 if bf16 else lib.mbconv_se_project_f32)(
-        _ptr(x8), _ptr(p.win), _ptr(p.part), _ptr(wd["w_se_r"]), _ptr(wd["b_se_r"]),
-        _ptr(wd["w_se_e"]), _ptr(wd["b_se_e"]), _ptr(p.kernel["w_proj_kt"]), _ptr(wd["s2"]),
+        _ptr(xk), _ptr(p.win), _ptr(p.part), _ptr(wd["w_se_r"]), _ptr(wd["b_se_r"]),
+        _ptr(wd["w_se_e"]), _ptr(wd["b_se_e"]), _ptr(wd["w_proj_kt"]), _ptr(wd["s2"]),
         _ptr(wd["b2"]), _ptr(p.d), _ptr(gate), _ptr(y),
-        b, h, w, cmid8, csq, cout8, p.part.shape[1], int(p.has_skip), _stream(x8))
+        b, h, w, cmid, csq, cout, p.part.shape[1], int(p.has_skip), _stream(xk))
     if rc != 0:
         raise RuntimeError(f"mbconv kernel launch failed: {lib.mbconv_error_string(rc).decode()}")
     if bf16:
@@ -426,15 +462,16 @@ def mbconv_stride1_end(p: MBConvPartial) -> torch.Tensor:
         mbconv_stride1.launches += 1
     if p.owned is not None:
         y = y[:, p.owned[0]:p.owned[1]]
-    return y if cout8 == p.cout else y[..., :p.cout].contiguous()
+    return y if cout == p.cout else y[..., :p.cout].contiguous()
 
 
-def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+def _ptr(t: torch.Tensor | None) -> int:
+    """A tensor's address for a ``c_void_p`` argument (0 for None)."""
+    return 0 if t is None else t.data_ptr()
 
 
-def _stream(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 mbconv_stride1.launches = 0

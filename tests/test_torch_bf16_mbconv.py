@@ -132,15 +132,29 @@ def test_mbconv_bf16_matches_jax(case):
         assert float((got.float() - f32).abs().max()) > CONTROL_REL * scale, case
 
 
-@pytest.mark.parametrize("has_expand", [True, False])
-def test_kernel_operands_bf16_are_k_major_and_padded_to_16(has_expand):
-    # b3's 24- and 40-channel widths: multiples of 8, not of 16
-    cin, cout, expand = (24, 40, 6) if has_expand else (40, 24, 1)
-    block = TMBConvBlock(TBlockArgs(3, 1, cin, cout, expand, 1)).eval()
-    gen = torch.Generator().manual_seed(2)
+def _random_block(cin, cout, expand, k=3, seed=2):
+    block = TMBConvBlock(TBlockArgs(k, 1, cin, cout, expand, 1)).eval()
+    gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for t in block.parameters():
             t.copy_(0.3 * torch.randn(t.shape, generator=gen))
+    return block, gen
+
+
+def _padded_weights(wd: dict, ops: dict) -> dict:
+    """The weights as the kernel takes them: each padded copy of
+    ``kernel_operands`` (``<name>_padded``) in place of its weight."""
+    return {n: ops.get(n + M.PADDED, t) for n, t in wd.items()}
+
+
+# (Cin, Cout, expand ratio): b3's widths, multiples of 8 and not of 16 (24,
+# 40), and 20, which still pads (to 24; Cmid 120 or 20 -> 24)
+@pytest.mark.parametrize("cin,cout,expand", [(24, 40, 6), (40, 24, 1), (20, 24, 6), (20, 20, 1)])
+def test_kernel_operands_bf16_are_k_major_and_padded_to_16(cin, cout, expand):
+    # the kernel's channel granularity is 8 at bf16 as at f32 (the name
+    # keeps the 16 it had before); only counts off a multiple of 8 are padded
+    has_expand = expand != 1
+    block, gen = _random_block(cin, cout, expand)
     wd = block.fused_weights(torch.bfloat16)
     for n in M.WEIGHT_SHAPES:
         if n in wd:
@@ -148,11 +162,13 @@ def test_kernel_operands_bf16_are_k_major_and_padded_to_16(has_expand):
             assert wd[n].dtype == want, n
     ops = M.kernel_operands(wd, has_expand)
     names = {"w_proj": "w_proj_kt"} | ({"w_exp": "w_exp_kt"} if has_expand else {})
-    assert sorted(ops) == sorted(names.values())
+    pads = cin % 8 != 0
+    assert sorted(n for n in ops if not n.endswith(M.PADDED)) == sorted(names.values())
+    assert any(n.endswith(M.PADDED) for n in ops) == pads
     for n, kt in names.items():
         rows, cols = wd[n].t().shape
-        padded = (-(-rows // 16) * 16, -(-cols // 16) * 16)
-        # K-major (out, in), both sides padded to 16 with zeros, no split
+        padded = (-(-rows // 8) * 8, -(-cols // 8) * 8)
+        # K-major (out, in), both sides padded to 8 with zeros, no split
         assert ops[kt].dtype == torch.bfloat16 and tuple(ops[kt].shape) == padded
         assert torch.equal(ops[kt][:rows, :cols], wd[n].t())
         assert not ops[kt][rows:].any() and not ops[kt][:, cols:].any()
@@ -160,12 +176,63 @@ def test_kernel_operands_bf16_are_k_major_and_padded_to_16(has_expand):
     x = torch.randn((2, 9, 21, cin), generator=gen).to(torch.bfloat16)
     win = torch.tensor([[0, 0, 9, 17], [0, 0, 6, 21]], dtype=torch.int32)
     kw = dict(k=3, has_expand=has_expand, has_skip=cin == cout)
-    wd16 = M._pad_channels(wd, has_expand)
-    x16 = M._pad_dims(x, ("B", "H", "W", "Cin"), {"Cin"}, M.channel_multiple(x.dtype))
-    assert x16.shape[-1] % 16 == 0 and wd16["w_dw"].shape[1] % 16 == 0
+    wdk = _padded_weights(wd, ops)
+    xk = M._pad_dims(x, ("B", "H", "W", "Cin"), {"Cin"})
+    assert xk.shape[-1] % 8 == 0 and wdk["w_dw"].shape[1] % 8 == 0
+    assert (xk is x) == (not pads)
     want = M.mbconv_stride1_plain(x, wd, win, **kw)
-    got = M.mbconv_stride1_plain(x16, wd16, win, **kw)
+    got = M.mbconv_stride1_plain(xk, wdk, win, **kw)
     torch.testing.assert_close(got[..., :cout], want, atol=0, rtol=0)
+    assert not got[..., cout:].any()
+
+
+# every stride-1 block width of MuSCLe-b3 (Cin, Cout, expand ratio)
+B3_WIDTHS = [(40, 24, 1), (24, 24, 1), (32, 32, 6), (48, 48, 6), (96, 96, 6), (96, 136, 6),
+             (136, 136, 6), (136, 232, 6), (232, 232, 6), (232, 384, 6), (384, 384, 6)]
+
+
+@pytest.mark.parametrize("cin,cout,expand", B3_WIDTHS)
+def test_fused_weights_bf16_at_b3_widths_need_no_padding(cin, cout, expand):
+    # with the kernel operands that fused_weights caches on a card, the
+    # wrapper hands the kernel the cached dict itself and x as it is: a b3
+    # call copies no weight, no x and no y
+    has_expand = expand != 1
+    block, gen = _random_block(cin, cout, expand)
+    wd = block.fused_weights(torch.bfloat16)
+    ops = M.kernel_operands(wd, has_expand)
+    assert not any(n.endswith(M.PADDED) for n in ops)
+    cmid = cin * expand
+    want = M._kernel_operand_shapes(cin, cmid, cout, torch.bfloat16)
+    for n, t in ops.items():
+        assert tuple(t.shape) == want[n] and t.dtype == torch.bfloat16, n
+    cached = {**wd, **ops}
+    x = torch.zeros((1, 4, 4, cin), dtype=torch.bfloat16)
+    dims = M._check(x, cached, None, 3, has_expand, cin == cout)
+    assert M._kernel_weights(cached, x, dims, has_expand) is cached
+    assert M._pad_dims(x, ("B", "H", "W", "Cin"), {"Cin"}) is x
+    assert cached["w_proj"].shape[1] == cout  # y is made at its own width
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,expand,k", [(5, 7, 6, 3), (20, 24, 6, 5), (20, 20, 1, 3)])
+def test_plain_block_at_padded_widths_is_bit_exact(cin, cout, expand, k, dtype):
+    # the plain block on the zero-padded x and weights the kernel takes
+    # gives the unpadded block's outputs, and zeros beyond Cout: at bf16 bit
+    # for bit; at f32 to the summation order of a BLAS product whose K grew
+    # by zeros (test_torch_mbconv.py's test_channel_padding_is_exact)
+    has_expand = expand != 1
+    block, gen = _random_block(cin, cout, expand, k, seed=5)
+    wd = block.fused_weights(dtype)
+    ops = M.kernel_operands(wd, has_expand)
+    x = torch.randn((2, 11, 19, cin), generator=gen).to(dtype)
+    win = torch.tensor([[0, 0, 11, 15], [0, 0, 8, 19]], dtype=torch.int32)
+    kw = dict(k=k, has_expand=has_expand, has_skip=cin == cout)
+    want = M.mbconv_stride1_plain(x, wd, win, **kw)
+    got = M.mbconv_stride1_plain(M._pad_dims(x, ("B", "H", "W", "Cin"), {"Cin"}),
+                                 _padded_weights(wd, ops), win, **kw)
+    assert got.shape[-1] == -(-cout // 8) * 8
+    tol = 0 if dtype == torch.bfloat16 else 1e-6
+    torch.testing.assert_close(got[..., :cout], want, atol=tol, rtol=tol)
     assert not got[..., cout:].any()
 
 

@@ -60,6 +60,18 @@ CASES = {
     "b7_no_expand_no_skip": (BlockArgs(3, 1, 64, 32, 1, 1), 64, 96, [(64, 90), (47, 96)]),
     # a 448 x 448 grid (stride 2 of the 896 canvas: _blocks_1-3)
     "b7_grid448": (BlockArgs(3, 1, 32, 32, 1, 1), 448, 448, [(448, 336), (336, 448)]),
+    # the channel granularity of 8 (b3's widths are multiples of 8, not of
+    # 16): 40 -> 24 without an expand (_blocks_0), windowed
+    "b3_40_to_24": (BlockArgs(3, 1, 40, 24, 1, 1), 50, 70, [(50, 66), (41, 70)]),
+    # Cin 40: one K chunk whose last 16-deep step holds 8 real channels
+    "b3_cin40": (BlockArgs(3, 1, 40, 40, 6, 1), 23, 29, None),
+    # Cout 136, k 5 on a grid that is a multiple of no tile (_blocks_13)
+    "b3_cout136_k5": (BlockArgs(5, 1, 96, 136, 6, 1), 19, 27, [(19, 25), (13, 27)]),
+    # 136 and 232 in and out (_blocks_14, _blocks_19)
+    "b3_136": (BlockArgs(5, 1, 136, 136, 6, 1), 13, 21, [(13, 20), (9, 21)]),
+    "b3_232": (BlockArgs(5, 1, 232, 232, 6, 1), 11, 19, [(11, 17), (11, 19)]),
+    # Cin 20 (Cmid 120): a width that still needs padding, to 24 / 128
+    "pad_cin20": (BlockArgs(3, 1, 20, 24, 6, 1), 21, 35, [(21, 30), (15, 35)]),
 }
 
 
@@ -106,13 +118,15 @@ def stripes_by_hand(x, wd, win, kw, n):
     split): each stripe with its k//2 halo rows (zeros beyond the image)
     and its window in stripe rows, the first stage on every stripe, the SE
     partials of the stripes' own rows summed by hand, then the second
-    stage; the stripes' rows concatenated."""
+    stage; the stripes' rows concatenated.  Rows that ``n`` does not
+    divide go to the last stripe."""
     p, h = kw["k"] // 2, x.shape[1]
     s = h // n
+    rows = [(r * s, h if r == n - 1 else r * s + s) for r in range(n)]
     xp = torch.nn.functional.pad(x, (0, 0, 0, 0, p, p))
-    parts = [M.mbconv_stride1_begin(xp[:, r * s: r * s + s + 2 * p].contiguous(), wd,
-                                    M.shift_rows(win, r * s - p).contiguous(),
-                                    owned=(p, p + s), **kw) for r in range(n)]
+    parts = [M.mbconv_stride1_begin(xp[:, lo: hi + 2 * p].contiguous(), wd,
+                                    M.shift_rows(win, lo - p).contiguous(),
+                                    owned=(p, p + hi - lo), **kw) for lo, hi in rows]
     total = sum(q.part for q in parts)
     for q in parts:
         q.part = total
