@@ -41,9 +41,10 @@ training    MCL steps A and B, seg and IRN steps, Adam and checkpoints,
             schedules, liveness
 parallel    data parallelism over torch.distributed: one process per card
             (torchrun), the global batch's semantics across the ranks
-utils       timers, metric and tensorboard logs, training overlays
-inference   CamTTAEngine, RandomWalkRefiner, SegTTAEngine, the transfers and
-            device-side upload unpackers
+utils       timers, the span recorder, metric and tensorboard logs, training
+            overlays
+inference   CamTTAEngine, RandomWalkRefiner, SegTTAEngine, their shared stream,
+            the transfers and device-side upload unpackers
 evaluation  vectorised mIoU with threshold sweep
 cli         infer_mcl, evaluate, infer_irn, infer_seg, cam_to_label, train_mcl,
             train_muscle, train_irn, gates, real_run

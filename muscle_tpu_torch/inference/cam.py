@@ -47,6 +47,7 @@ from muscle_tpu_torch.core.resize import (
 )
 from muscle_tpu_torch.data import transforms as T
 from muscle_tpu_torch.data.tta import group_by_shape, msf_batch, scaled_size
+from muscle_tpu_torch.inference import stream
 from muscle_tpu_torch.inference.upload import start_download, to_device
 from muscle_tpu_torch.models.efficientnet import placement_offset
 from muscle_tpu_torch.parallel.mesh import data_share, gather_rows
@@ -608,45 +609,21 @@ class CamTTAEngine:
 
         return finalize
 
+    def _prepare(self, batch: tuple) -> tuple[dict, bool]:
+        """A fed batch's host prep (this rank's share) and whether the
+        ranks' records are gathered after it."""
+        mine, gather = share_batch(self.mesh, batch)
+        return self._host_prep(*mine), gather
+
     def run_stream(self, batches, prep_ahead: int = 2, finalize_ahead: int = 2):
         """Overlapped pipeline over an iterable of ``(images, names,
         labels)`` batches; yields each batch's result list in order.
 
-        Three stages run concurrently: host prep (canvas packing) on a
-        thread, dispatch on the caller's thread (enqueues device work), and
-        finalize (blocking download + host upsample) on a thread.  Under a
-        mesh the records are gathered on the caller's thread, which issues
-        every collective in the same order on every rank."""
-        import queue
-        import threading
-        from concurrent.futures import ThreadPoolExecutor
-
-        prep_q: queue.Queue = queue.Queue(maxsize=max(1, prep_ahead))
-        sentinel = object()
-
-        def produce():
-            try:
-                for batch in batches:
-                    mine, gather = share_batch(self.mesh, tuple(batch))
-                    prep_q.put((self._host_prep(*mine), gather))
-            except BaseException as e:  # re-raised in the consumer
-                prep_q.put(e)
-                return
-            prep_q.put(sentinel)
-
-        threading.Thread(target=produce, daemon=True).start()
-        with ThreadPoolExecutor(max_workers=1) as fin_ex:
-            pending: list = []
-            while True:
-                item = prep_q.get()
-                if item is sentinel:
-                    break
-                if isinstance(item, BaseException):
-                    raise item
-                prep, gather = item
-                pending.append((fin_ex.submit(self._dispatch_prepped(prep)), gather))
-                if len(pending) > finalize_ahead:
-                    fut, gather = pending.pop(0)
-                    yield gather_batch(self.mesh, fut.result(), gather)
-            for fut, gather in pending:
-                yield gather_batch(self.mesh, fut.result(), gather)
+        Three stages run concurrently (``inference/stream.py``): host prep
+        (canvas packing) on a thread, dispatch on the caller's thread
+        (enqueues device work), and finalize (blocking download + host
+        upsample) on a thread.  Under a mesh the records are gathered on
+        the caller's thread, which issues every collective in the same
+        order on every rank."""
+        yield from stream.run_stream(batches, self._prepare, self._dispatch_prepped, self.mesh,
+                                     prep_ahead, finalize_ahead)

@@ -33,6 +33,7 @@ import torch
 from muscle_tpu_torch.core.resize import dynamic_window_resize
 from muscle_tpu_torch.data import transforms as T
 from muscle_tpu_torch.data.tta import msf_batch, scaled_size
+from muscle_tpu_torch.inference import stream
 from muscle_tpu_torch.inference.cam import (
     COMPUTE_DTYPES,
     _batch_canvas,
@@ -398,47 +399,23 @@ class SegTTAEngine:
                  for c in range(m.shape[-1])]
         return np.stack(chans, axis=-1)
 
+    def _prepare(self, batch: tuple) -> tuple[dict, bool]:
+        """A fed batch's host prep (this rank's share, ``_share``) and
+        whether the ranks' records are gathered after it."""
+        mine, gather, canvases = self._share(batch)
+        return self._host_prep(*mine, canvases=canvases), gather
+
     def run_stream(self, batches, prep_ahead: int = 1, finalize_ahead: int = 1):
         """Overlapped pipeline over an iterable of ``(images, names[,
         cls_gates])`` batches; yields each batch's result list in order.
 
-        Three stages run concurrently: host prep (canvas packing) on a
-        thread, dispatch on the caller's thread (enqueues device work), and
-        finalize (blocking download + host upsample) on a thread.  Shallower
-        than the CAM engine's default: a seg batch downloads far more.
-        Under a mesh the records are gathered on the caller's thread."""
-        import queue
-        import threading
-        from concurrent.futures import ThreadPoolExecutor
-
+        Three stages run concurrently (``inference/stream.py``): host prep
+        (canvas packing) on a thread, dispatch on the caller's thread
+        (enqueues device work), and finalize (blocking download + host
+        upsample) on a thread.  Shallower than the CAM engine's default: a
+        seg batch downloads far more.  Under a mesh the records are
+        gathered on the caller's thread."""
         if not self.device_tta:
             raise ValueError("run_stream requires device_tta")
-        prep_q: queue.Queue = queue.Queue(maxsize=max(1, prep_ahead))
-        sentinel = object()
-
-        def produce():
-            try:
-                for batch in batches:
-                    mine, gather, canvases = self._share(tuple(batch))
-                    prep_q.put((self._host_prep(*mine, canvases=canvases), gather))
-            except BaseException as e:  # re-raised in the consumer
-                prep_q.put(e)
-                return
-            prep_q.put(sentinel)
-
-        threading.Thread(target=produce, daemon=True).start()
-        with ThreadPoolExecutor(max_workers=1) as fin_ex:
-            pending: list = []
-            while True:
-                item = prep_q.get()
-                if item is sentinel:
-                    break
-                if isinstance(item, BaseException):
-                    raise item
-                prep, gather = item
-                pending.append((fin_ex.submit(self._dispatch_prepped(prep)), gather))
-                if len(pending) > finalize_ahead:
-                    fut, gather = pending.pop(0)
-                    yield gather_batch(self.mesh, fut.result(), gather)
-            for fut, gather in pending:
-                yield gather_batch(self.mesh, fut.result(), gather)
+        yield from stream.run_stream(batches, self._prepare, self._dispatch_prepped, self.mesh,
+                                     prep_ahead, finalize_ahead)

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from muscle_tpu_torch.core.ycbcr import ycbcr420_to_rgb
+from muscle_tpu_torch.utils.timers import span
 
 
 def to_device(a, device: torch.device) -> torch.Tensor:
@@ -30,16 +31,21 @@ def to_device(a, device: torch.device) -> torch.Tensor:
 
 def start_download(t: torch.Tensor):
     """Start copying ``t`` to the host; returns a function that waits for
-    the copy and returns it as a numpy array."""
+    the copy (the span ``fetch``) and returns it as a numpy array."""
     if t.device.type != "cuda":
-        return t.numpy
+        def fetch() -> np.ndarray:
+            with span("fetch"):
+                return t.numpy()
+
+        return fetch
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     done = torch.cuda.Event()
     done.record()
 
     def wait() -> np.ndarray:
-        done.synchronize()
+        with span("fetch"):
+            done.synchronize()
         return host.numpy()
 
     return wait

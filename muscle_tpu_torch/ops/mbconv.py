@@ -39,6 +39,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from muscle_tpu_torch.utils.timers import span
+
 # weight names of one block, as the wrapper takes them (shapes for a block
 # with Cin -> Cmid -> Cout channels, Csq squeeze channels, a k x k depthwise)
 WEIGHT_SHAPES = {
@@ -379,15 +381,17 @@ def mbconv_stride1(x: torch.Tensor, weights: dict, window: torch.Tensor | None, 
     (building it on first use) or raises.  ``mbconv_stride1.launches``
     counts float32 kernel calls, ``mbconv_stride1.launches_bf16`` the
     bfloat16 ones: one a block call, its two entries (``_begin``, ``_end``)
-    together."""
+    together.  The span ``mbconv`` (``utils/timers.py``) covers a card
+    call's host work: the checks, the weights, the two C entries."""
     kw = dict(k=k, has_expand=has_expand, has_skip=has_skip, owned=owned)
     if x.device.type == "cpu":
         _check_call(x, weights, window, **kw)
         return mbconv_stride1_plain(x, weights, window, se_sum=se_sum, **kw)
-    p = mbconv_stride1_begin(x, weights, window, **kw)
-    if se_sum is not None:
-        se_sum(p.part)
-    return mbconv_stride1_end(p)
+    with span("mbconv"):  # the host's time a kernel call
+        p = mbconv_stride1_begin(x, weights, window, **kw)
+        if se_sum is not None:
+            se_sum(p.part)
+        return mbconv_stride1_end(p)
 
 
 def _check_call(x, weights, window, *, k, has_expand, has_skip, owned) -> dict:

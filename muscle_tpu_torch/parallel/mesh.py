@@ -36,6 +36,15 @@ stripes (``parallel/spatial.py``: halo exchanges and cross-stripe sums in
 place of GSPMD's).  The engines' ``mesh=`` shards each batch over the
 data axis as the JAX engines' does: each data row runs its share of the
 batch and the records are gathered (``data_share``, ``gather_rows``).
+
+``stats`` counts the tensor exchanges this module issues over a group,
+{"all_reduce", "all_gather", "broadcast"} -> {"calls", "bytes"}, the bytes
+being the payload this rank hands the backend (an all-gather's own part):
+``all_reduce_sum``, ``all_reduce_flat`` (one call a flat buffer), the
+``all_gather`` function and its backward's sum, ``replicate``'s
+broadcast.  Always on, as the kernels' launch counters are; read it as a
+difference, or ``reset_stats()``.  The object exchanges
+(``gather_rows``, ``broadcast_object``) and ``barrier`` are not counted.
 """
 
 from __future__ import annotations
@@ -139,6 +148,20 @@ def per_rank_batch(global_batch: int, group=None) -> int:
     return global_batch // w
 
 
+stats = {kind: {"calls": 0, "bytes": 0} for kind in ("all_reduce", "all_gather", "broadcast")}
+
+
+def reset_stats() -> None:
+    for counts in stats.values():
+        counts["calls"] = counts["bytes"] = 0
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    counts = stats[kind]
+    counts["calls"] += 1
+    counts["bytes"] += t.numel() * t.element_size()
+
+
 def _coalesced(tensors, op) -> None:
     """Apply ``op`` (in place, on one flat tensor) to ``tensors`` grouped by
     dtype and device, and copy the results back."""
@@ -163,10 +186,14 @@ def replicate(module: torch.nn.Module, group=None) -> torch.nn.Module:
         return module
     with torch.no_grad():
         _coalesced(list(module.parameters()) + list(module.buffers()),
-                   lambda flat: dist.broadcast(flat, dist.get_global_rank(group, 0),
-                                               group=group))
+                   lambda flat: _broadcast(flat, dist.get_global_rank(group, 0), group))
     set_group(module, group)
     return module
+
+
+def _broadcast(flat: torch.Tensor, src: int, group) -> None:
+    _count("broadcast", flat)
+    dist.broadcast(flat, src, group=group)
 
 
 def set_group(module: torch.nn.Module, group) -> None:
@@ -180,6 +207,7 @@ def set_group(module: torch.nn.Module, group) -> None:
 def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
     """Sum ``t`` over the ranks, in place; returns it."""
     if group is not None:
+        _count("all_reduce", t)
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
@@ -188,7 +216,7 @@ def all_reduce_flat(tensors, group=None) -> None:
     """Sum every tensor of ``tensors`` over the ranks in place, one
     collective per dtype."""
     if group is not None and tensors:
-        _coalesced(tensors, lambda flat: dist.all_reduce(flat, group=group))
+        _coalesced(tensors, lambda flat: all_reduce_sum(flat, group))
 
 
 def reduced(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -218,7 +246,9 @@ class _AllGather(torch.autograd.Function):
         ctx.group = group
         ctx.rows = x.shape[0]
         parts = [torch.empty_like(x) for _ in range(world(group))]
-        dist.all_gather(parts, x.contiguous(), group=group)
+        x = x.contiguous()
+        _count("all_gather", x)
+        dist.all_gather(parts, x, group=group)
         return torch.cat(parts)
 
     @staticmethod

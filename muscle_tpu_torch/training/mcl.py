@@ -20,6 +20,10 @@ over the ranks, and the metrics are the global batch's on every rank.
 Every rank seeds its ``generator`` alike.  The liveness probes stay
 rank-local.
 
+Spans (``utils/timers.py``): each step is a ``step`` (its number, its
+images) holding ``forward`` (the loss terms), ``minimize``'s
+``backward``, ``exchange`` and ``update``, and ``metrics``.
+
 compute_dtype: float32, or bfloat16 as the JAX package's
 ``MuSCLe(dtype=jnp.bfloat16)`` trains: the image is decoded in float32
 and cast at the model's input (where Flax's first ``nn.Conv`` casts it),
@@ -33,6 +37,7 @@ gradients through the casts' backward.  Metrics come back float32.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import torch
 
@@ -51,6 +56,10 @@ from muscle_tpu_torch.losses import (
 from muscle_tpu_torch.parallel.mesh import all_reduce_sum, batch_mean, reduced
 from muscle_tpu_torch.training.liveness import term_liveness
 from muscle_tpu_torch.training.state import batch_stats_train, minimize
+from muscle_tpu_torch.utils.timers import span
+
+# the steps' numbers in their spans (``step``), counted over the process
+_steps = itertools.count()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,9 +140,10 @@ def _terms_b(forward, view1: torch.Tensor, view2: torch.Tensor, batch: dict, cfg
 def _metrics(terms: dict[str, torch.Tensor], group=None) -> dict[str, torch.Tensor]:
     """The detached terms as float32 0-d tensors; with a ``group``, the
     ranks' shares summed (one all-reduce): the global batch's values."""
-    vals = all_reduce_sum(torch.stack([v.detach().to(torch.float32) for v in terms.values()]),
-                          group)
-    return dict(zip(terms, vals.unbind()))
+    with span("metrics"):
+        vals = all_reduce_sum(torch.stack([v.detach().to(torch.float32)
+                                           for v in terms.values()]), group)
+        return dict(zip(terms, vals.unbind()))
 
 
 def mcl_train_step(model, opt: torch.optim.Optimizer, batch: dict, cfg: MCLConfig,
@@ -143,17 +153,19 @@ def mcl_train_step(model, opt: torch.optim.Optimizer, batch: dict, cfg: MCLConfi
     """Step A: puts ``model`` in train mode, updates its parameters and BN
     statistics; ``generator`` feeds drop-connect.  Returns the detached
     metrics (float32 0-d tensors)."""
-    model.train()
-    t = _terms_a(model, decode_image(batch, "img").to(compute_dtype), batch["label"], cfg,
-                 generator, group)
-    loss = t["focal"] + t["softmargin"] + t["pair"] + t["er"]
-    if cfg.use_imc:
-        loss = loss + t["imc"]
-    minimize(opt, loss, group=group)
-    zero = torch.zeros((), device=loss.device)
-    return _metrics({"loss": loss, "loss_focal": t["focal"], "loss_softmargin": t["softmargin"],
-                     "loss_pair": t["pair"], "loss_er": t["er"],
-                     "loss_imc": t.get("imc", zero)}, group)
+    with span("step", step=next(_steps), images=len(batch["label"])):
+        model.train()
+        with span("forward"):
+            t = _terms_a(model, decode_image(batch, "img").to(compute_dtype), batch["label"],
+                         cfg, generator, group)
+            loss = t["focal"] + t["softmargin"] + t["pair"] + t["er"]
+            if cfg.use_imc:
+                loss = loss + t["imc"]
+        minimize(opt, loss, group=group)
+        zero = torch.zeros((), device=loss.device)
+        return _metrics({"loss": loss, "loss_focal": t["focal"],
+                         "loss_softmargin": t["softmargin"], "loss_pair": t["pair"],
+                         "loss_er": t["er"], "loss_imc": t.get("imc", zero)}, group)
 
 
 def mcl_views_step(model, opt: torch.optim.Optimizer, batch: dict, cfg: MCLConfig,
@@ -165,16 +177,18 @@ def mcl_views_step(model, opt: torch.optim.Optimizer, batch: dict, cfg: MCLConfi
     drop-connect, as the reference's model.eval()) and keeps gradients for
     view 1.  ``crop_frac``: EMD's (N, 2) crop fractions, drawn from
     ``generator`` when None."""
-    model.eval()
-    t = _terms_b(model, decode_image(batch, "view1").to(compute_dtype),
-                 decode_image(batch, "view2").to(compute_dtype), batch, cfg, generator,
-                 crop_frac, group)
-    loss = t["pixpro"]
-    if cfg.use_emd:
-        loss = loss + t["emd"]
-    minimize(opt, loss, group=group)
-    zero = torch.zeros((), device=loss.device)
-    return _metrics({"loss_pixpro": t["pixpro"], "loss_emd": t.get("emd", zero)}, group)
+    with span("step", step=next(_steps), images=len(batch["label"])):
+        model.eval()
+        with span("forward"):
+            t = _terms_b(model, decode_image(batch, "view1").to(compute_dtype),
+                         decode_image(batch, "view2").to(compute_dtype), batch, cfg, generator,
+                         crop_frac, group)
+            loss = t["pixpro"]
+            if cfg.use_emd:
+                loss = loss + t["emd"]
+        minimize(opt, loss, group=group)
+        zero = torch.zeros((), device=loss.device)
+        return _metrics({"loss_pixpro": t["pixpro"], "loss_emd": t.get("emd", zero)}, group)
 
 
 def mcl_term_grad_norms(model, batch: dict, generator: torch.Generator | None = None,

@@ -28,6 +28,7 @@ import os
 import torch
 
 from muscle_tpu_torch.parallel.mesh import all_reduce_flat
+from muscle_tpu_torch.utils.timers import span
 
 
 def make_adam(params, lr: float, weight_decay: float) -> torch.optim.Adam:
@@ -74,18 +75,22 @@ def minimize(opt: torch.optim.Optimizer, loss: torch.Tensor,
     run alike on every rank.  Steps A and B reach different parameters, so
     the sum covers every parameter, reached or not.  clip_norm: first
     scale every gradient by min(1, clip_norm / (g + 1e-6)), g their global
-    norm, and return g."""
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
+    norm, and return g.  Spans: ``backward``, ``exchange`` (the sum over
+    the ranks), ``update`` (the clip and the step)."""
     params = [p for pg in opt.param_groups for p in pg["params"]]
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    all_reduce_flat([p.grad for p in params], group)
-    gnorm = None
-    if clip_norm is not None:
-        gnorm = torch.nn.utils.clip_grad_norm_(params, clip_norm)
-    _promoting_step(opt)
+    with span("backward"):
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    with span("exchange"):
+        all_reduce_flat([p.grad for p in params], group)
+    with span("update"):
+        gnorm = None
+        if clip_norm is not None:
+            gnorm = torch.nn.utils.clip_grad_norm_(params, clip_norm)
+        _promoting_step(opt)
     return gnorm
 
 

@@ -163,6 +163,26 @@ def test_step_on_ranks_matches_one_process(steps, name):
     assert all(r[name]["rank_param_diff"] == 0.0 for r in ranks)
 
 
+@pytest.mark.parametrize("name", ["mcl_a", "mcl_b", "seg", "irn"])
+def test_mesh_stats_count_the_step_exchanges(steps, name):
+    """``parallel.mesh.stats`` over ``replicate`` and a 2-rank step counts
+    the all-reduces, all-gathers and broadcasts that reached
+    ``torch.distributed``, call for call and byte for byte: one broadcast
+    a dtype of the state (the state's bytes), the gradient sum's flat
+    buffer among the all-reduces, a cross-rank BN's all-gather in every
+    train-mode step; one process counts none."""
+    _, ranks, one = steps
+    ex = ranks[0][name]["exchanges"]
+    assert ex["counted"] == ex["issued"], ex
+    c = ex["counted"]
+    assert c["broadcast"]["bytes"] == ex["state_bytes"]
+    assert 1 <= c["broadcast"]["calls"] <= 2  # float32 and, with BN counts, int64
+    assert c["all_reduce"]["bytes"] >= ex["grad_bytes"]
+    if name in ("mcl_a", "seg"):  # train-mode BNs, each gathering its statistics
+        assert c["all_gather"]["calls"] >= ex["bn"] > 0
+    assert all(v == {"calls": 0, "bytes": 0} for v in one[name]["exchanges"]["counted"].values())
+
+
 def test_drawn_terms_engaged(steps):
     """The parity cases exercise what couples the batch: IMC and ER nonzero,
     BEACON engaged, drop-connect's and EMD's global draws in use (the two

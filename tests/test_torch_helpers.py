@@ -2,15 +2,13 @@
 the same names on seeded numpy inputs: ``utils.metrics.topk_accuracy``,
 ``models.blocks.SELayer`` / ``SeparableConvBlock`` (weights carried across
 from Flax variables), ``data.voc12.SBDImageDataset``,
-``data.transforms.rot90_with_mask``, ``utils.timers.profile_trace``,
-``cli.common.save_score_dict``, ``ops.random_walk.affinity_to_dense`` /
-``to_transition_matrix`` and ``utils.train_vis.denorm_uint8``.
+``data.transforms.rot90_with_mask``, ``cli.common.save_score_dict``,
+``ops.random_walk.affinity_to_dense`` / ``to_transition_matrix`` and
+``utils.train_vis.denorm_uint8``.
 
 Tolerances: the numpy and walk helpers 1e-6 (the transition matrix 1e-6
 more for each squaring), the blocks 1e-5 (the same float32 products
 summed in another order); the rest exact."""
-
-import os
 
 import numpy as np
 import pytest
@@ -33,7 +31,7 @@ from muscle_tpu_torch.data.transforms import rot90_with_mask
 from muscle_tpu_torch.data.voc12 import SBDImageDataset
 from muscle_tpu_torch.models.blocks import SELayer, SeparableConvBlock
 from muscle_tpu_torch.ops import random_walk as P
-from muscle_tpu_torch.utils import profile_trace, topk_accuracy
+from muscle_tpu_torch.utils import topk_accuracy
 from muscle_tpu_torch.utils.train_vis import denorm_uint8
 
 TOL, BLOCK_TOL = 1e-6, 1e-5
@@ -171,13 +169,3 @@ def test_denorm_uint8_matches_jax_exactly():
     np.testing.assert_array_equal(got, want)
     assert got.min() == 0 and got.max() == 255  # the clip engaged at both ends
 
-
-def test_profile_trace(tmp_path):
-    with profile_trace(None):  # does nothing: no profiler, no files
-        assert torch.autograd.profiler._is_profiler_enabled is False
-    logdir = tmp_path / "trace"
-    with profile_trace(str(logdir)):
-        assert torch.autograd.profiler._is_profiler_enabled
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    files = os.listdir(logdir)
-    assert any(f.endswith(".pt.trace.json") for f in files), files

@@ -6,12 +6,15 @@ returns what each rank returned."""
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import os
 
 import numpy as np
 import torch
 
 from muscle_tpu_torch import parallel
+from muscle_tpu_torch.parallel import mesh
 
 
 def launch(body, world: int, tmp_path, spec) -> list:
@@ -129,7 +132,45 @@ def run_step(case: dict, group, control: bool = False) -> dict:
     the global metrics, every trained parameter's gradient and value after
     the update, and the BN running statistics.  control: the naive data
     parallelism instead (local BN statistics, local losses averaged over
-    the ranks as DDP averages gradients)."""
+    the ranks as DDP averages gradients).  'exchanges': the collectives of
+    ``replicate`` and the step as ``parallel.mesh.stats`` counted them and
+    as they reached ``torch.distributed``, with the sizes they follow
+    from."""
+    from muscle_tpu_torch.models.efficientnet import BatchNorm2d
+
+    kind = case["kind"]
+    model = build_model({"mcl_a": "enc", "mcl_b": "enc", "seg": "dec", "irn": "irn"}[kind],
+                        case["state"])
+    if not case.get("drop_connect", True):
+        model.backbone.drop_connect_rate = 0.0
+    before = copy.deepcopy(mesh.stats)
+    with _issued() as issued:
+        parallel.replicate(model, group)
+        metrics, opt = _step(case, model, group, control)
+    counted = {k: {n: mesh.stats[k][n] - before[k][n] for n in v} for k, v in before.items()}
+    names = {id(p): n for n, p in model.named_parameters()}
+    params = [p for g in opt.param_groups for p in g["params"]]
+    flat = torch.cat([p.detach().reshape(-1) for p in params])
+    # every rank must hold rank 0's parameters after the step, bit for bit
+    ref = flat.clone()
+    if group is not None:
+        torch.distributed.broadcast(ref, torch.distributed.get_global_rank(group, 0), group=group)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {names[id(p)]: p.grad.clone() for p in params},
+            "params": {names[id(p)]: p.detach().clone() for p in params},
+            "stats": {k: v.clone() for k, v in model.state_dict().items()
+                      if k.endswith("running_mean") or k.endswith("running_var")},
+            "rank_param_diff": float((flat - ref).abs().max()),
+            "exchanges": {"counted": counted, "issued": issued,
+                          "bn": sum(isinstance(m, BatchNorm2d) for m in model.modules()),
+                          "grad_bytes": sum(p.numel() * p.element_size() for p in params),
+                          "state_bytes": sum(t.numel() * t.element_size() for t in
+                                             [*model.parameters(), *model.buffers()])}}
+
+
+def _step(case: dict, model, group, control: bool) -> tuple[dict, torch.optim.Optimizer]:
+    """``run_step``'s step on the replicated model: (its metrics, the
+    optimizer)."""
     from muscle_tpu_torch.training import (
         IRNTrainConfig,
         MCLConfig,
@@ -145,11 +186,6 @@ def run_step(case: dict, group, control: bool = False) -> dict:
     from muscle_tpu_torch.training.mcl import _terms_a, decode_image
 
     kind = case["kind"]
-    model = build_model({"mcl_a": "enc", "mcl_b": "enc", "seg": "dec", "irn": "irn"}[kind],
-                        case["state"])
-    if not case.get("drop_connect", True):
-        model.backbone.drop_connect_rate = 0.0
-    parallel.replicate(model, group)
     batch = {k: rows(v, group) if group is not None else torch.from_numpy(np.asarray(v))
              for k, v in case["batch"].items()}
     gen = torch.Generator().manual_seed(case["seed"])
@@ -175,19 +211,35 @@ def run_step(case: dict, group, control: bool = False) -> dict:
         else:
             metrics = seg_train_step(model, opt, batch, SegConfig(**case["seg_cfg"]), gen,
                                      group=group)
-    names = {id(p): n for n, p in model.named_parameters()}
-    params = [p for g in opt.param_groups for p in g["params"]]
-    flat = torch.cat([p.detach().reshape(-1) for p in params])
-    # every rank must hold rank 0's parameters after the step, bit for bit
-    ref = flat.clone()
-    if group is not None:
-        torch.distributed.broadcast(ref, torch.distributed.get_global_rank(group, 0), group=group)
-    return {"metrics": {k: float(v) for k, v in metrics.items()},
-            "grads": {names[id(p)]: p.grad.clone() for p in params},
-            "params": {names[id(p)]: p.detach().clone() for p in params},
-            "stats": {k: v.clone() for k, v in model.state_dict().items()
-                      if k.endswith("running_mean") or k.endswith("running_var")},
-            "rank_param_diff": float((flat - ref).abs().max())}
+    return metrics, opt
+
+
+@contextlib.contextmanager
+def _issued():
+    """{kind: {"calls", "bytes"}} of the all-reduces, all-gathers and
+    broadcasts that reach ``torch.distributed`` inside the block, the
+    bytes being each call's own tensor (an all-gather's input)."""
+    import torch.distributed as dist
+
+    out = {k: {"calls": 0, "bytes": 0} for k in ("all_reduce", "all_gather", "broadcast")}
+    real = {k: getattr(dist, k) for k in out}
+
+    def counting(kind, pos):
+        def call(*args, **kw):
+            t = args[pos]
+            out[kind]["calls"] += 1
+            out[kind]["bytes"] += t.numel() * t.element_size()
+            return real[kind](*args, **kw)
+
+        return call
+
+    for kind, pos in (("all_reduce", 0), ("all_gather", 1), ("broadcast", 0)):
+        setattr(dist, kind, counting(kind, pos))
+    try:
+        yield out
+    finally:
+        for kind, fn in real.items():
+            setattr(dist, kind, fn)
 
 
 def train_checks(group, spec: dict) -> dict:
