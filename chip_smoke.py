@@ -63,7 +63,14 @@ Phases:
            and the bf16 kernel at the edges of its channel granularity
            (widths 24, 40, 136, 232, a width that still pads, one K
            chunk, k 5 on a ragged grid) against the bf16 plain version,
-           repeating itself bit for bit;
+           repeating itself bit for bit; and the cross-rank BN's four
+           kernels (ops/sync_bn.py) at the b3 step's stem BN (one rank's
+           16 x 224 x 224 x 40; 4 ranks of 16, 12, 8 and 4 images, each
+           drawn, scaled and shifted apart), f32 and bf16, against the
+           plain stages and the whole batch's mean and variance (1e-4 /
+           2^-7 of each result's largest), each launch's device ms
+           beside its bound from bytes
+           at 3.35 TB/s and the plain stage's ms (the sync_bn_stem line);
   main     run CamTTAEngine over synthetic VOC-shaped images at scales
            0.5/1/1.5/2 with MuSCLe-b3 (fuse_mbconv=384, float32, seeded
            random weights), count the kernel launches, and hold the
@@ -183,7 +190,11 @@ Phases:
            the same global batch: steps A (IMC, ER) and B, the seg step and
            the IRN step at b1, crop 64, global batch 4, f32 (TF32 off: the
            card-vs-CPU rule) and bf16 (the train_*_bf16 rule; IRN f32
-           only), every rank's parameters bit-identical after the step; MCL
+           only), every rank's parameters bit-identical after the step,
+           and in each case's first step every rank's cross-rank BN
+           kernel launches (ops/sync_bn.py, forward and backward) equal to
+           its cross-rank BN calls (b3 step A: 77 and 77; step B, whose
+           BNs run in eval mode, and IRN: none); MCL
            b3 at batch 16, crop 448 (step A) and seg b7 + BiFPN 3 x 256 at
            3 images a rank, crop 448: 1 warm-up step (loss terms within
            1e-4 relative) and 2 timed, the step ms, the gradient all-reduce
@@ -369,6 +380,12 @@ KERNEL_SOURCES = {
     "stencil_walk": ("stencil_walk.cu", "muscle_tpu/ops/pallas/stencil_walk.py:102"),
     "banded_walk": ("banded_walk.cu", "muscle_tpu/ops/pallas/banded_walk.py:109"),
 }
+# the cross-rank BN's kernels (ops/sync_bn.py, no TPU counterpart): one
+# rank's x at the b3 step's stem BN (batch 16, crop 448: 16 x 224 x 224 x
+# 40), the statistics of 4 ranks (dp4's), launches timed back to back; the
+# check's other ranks hold fewer images, so the counts weight the combine
+SYNC_BN_SHAPE, SYNC_BN_WORLD, SYNC_BN_REPS = (16, 40, 224, 224), 4, 20
+SYNC_BN_RANK_IMAGES = (16, 12, 8, 4)
 IRN_BATCHES = 4  # timed refinement batches of 8 images per walk
 SEG_SCALES = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)
 SEG_BATCHES = 4  # timed seg TTA batches of 4 images per engine
@@ -474,6 +491,7 @@ BF16_TRAIN_RAN, BF16_CHECK_BATCHES = 0.5, 4
 # another order than the whole: 1.3e-5 of the largest apart, first run)
 DP_SHARED_RANKS, DP_MAX_RANKS = 2, 4
 DP_CHECK_BATCH, DP_MCL_BATCH, DP_SEG_PER_RANK, DP_ITERS = 4, 16, 3, 2
+DP_MCL_BN_LAUNCHES = (77, 77)  # sync_bn's [forward, backward] launches a b3 step A
 DP_CAM_BATCHES, DP_SEG_BATCHES, DP_WALK_GRID = 2, 1, 128
 DP_LOSS_RTOL, DP_WALK_RTOL = 1e-4, 1e-5
 # gates phase: the port's CLIs as a user runs them, each its own process
@@ -519,23 +537,27 @@ def log(msg: str) -> None:
 
 def _zero_counts() -> None:
     """Set every kernel wrapper's launch count to 0 (before a path runs)."""
-    from muscle_tpu_torch.ops import banded_walk, mbconv, stencil_walk
+    from muscle_tpu_torch.ops import banded_walk, mbconv, stencil_walk, sync_bn
 
     mbconv.mbconv_stride1.launches = 0
     mbconv.mbconv_stride1.launches_bf16 = 0
     stencil_walk.stencil_walk.launches = 0
     banded_walk.banded_walk.launches = 0
+    sync_bn.sync_bn.launches = 0
+    sync_bn.sync_bn.launches_backward = 0
 
 
 def _launch_counts() -> dict:
     """Every kernel's launch count, by the names of the kernels line (the
-    MBConv wrapper counts its bf16 launches apart)."""
-    from muscle_tpu_torch.ops import banded_walk, mbconv, stencil_walk
+    MBConv wrapper counts its bf16 launches apart; the cross-rank BN its
+    forward calls)."""
+    from muscle_tpu_torch.ops import banded_walk, mbconv, stencil_walk, sync_bn
 
     return {"mbconv_stride1": mbconv.mbconv_stride1.launches,
             "mbconv_bf16": mbconv.mbconv_stride1.launches_bf16,
             "stencil_walk": stencil_walk.stencil_walk.launches,
-            "banded_walk": banded_walk.banded_walk.launches}
+            "banded_walk": banded_walk.banded_walk.launches,
+            "sync_bn": sync_bn.sync_bn.launches}
 
 
 def time_ms(fn, reps: int) -> float:
@@ -556,7 +578,7 @@ def phase_build() -> float:
     from muscle_tpu_torch.ops import build
 
     t0 = time.perf_counter()
-    logs = build.build_all(["mbconv", "stencil_walk", "banded_walk"])
+    logs = build.build_all(["mbconv", "stencil_walk", "banded_walk", "sync_bn"])
     secs = time.perf_counter() - t0
     for name, text in logs.items():
         for line in text.splitlines():
@@ -1064,6 +1086,120 @@ def _check_edges() -> None:
                                  f"{BANDED_ATOL}, repeats bit for bit: {same}")
 
 
+def sync_bn_bytes(p: int, c: int, w: int, size: int) -> dict:
+    """Bytes each cross-rank BN kernel moves at the least for one rank's
+    (P, C) map of ``size``-byte elements and W ranks' statistics: x, g and
+    the maps read or written once, the float32 vectors once; {(a), (c),
+    (d), (f)} by stage name."""
+    m, row = p * c * size, 4 * (1 + 2 * c)
+    return {"stats": m + row,
+            "normalize": 2 * m + w * row + 4 * (2 * c + 4 * c + 2 * c + 1),
+            "reduce": 2 * m + 4 * (2 * c + 4 * c),
+            "dx": 3 * m + 4 * (2 * c + 1 + c + 2 * c)}
+
+
+def _check_sync_bn() -> dict:
+    """The cross-rank BN's kernels (a), (c), (d), (f) at SYNC_BN_SHAPE,
+    float32 and bfloat16, on SYNC_BN_WORLD ranks' batches of
+    SYNC_BN_RANK_IMAGES images, each from its own draw, scale and shift (so
+    the ranks' means differ and their counts weight the combine): each
+    rank's statistics row and reduce, rank 0's y and dx against the plain
+    stages on the same rows (the largest error over each result's
+    largest value), the combined mean and variance against the whole
+    batch's, each launch's device ms on rank 0's map (SYNC_BN_REPS back
+    to back, enqueued behind a spin kernel so the host's dispatch is not
+    timed) beside the plain stage's, and its bound from bytes at 3.35 TB/s
+    (``sync_bn_bytes``)."""
+    import torch
+
+    from muscle_tpu_torch.ops import sync_bn as S
+    from muscle_tpu_torch.ops.mbconv import bound_ms
+
+    def device_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)  # ~50 ms: the reps are enqueued before it ends
+        start.record()
+        for _ in range(SYNC_BN_REPS):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / SYNC_BN_REPS
+
+    def err(got, want):
+        return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+    n, c, h, w = SYNC_BN_SHAPE
+    gen = torch.Generator().manual_seed(11)
+    out = {"shape": list(SYNC_BN_SHAPE), "world": SYNC_BN_WORLD,
+           "rank_images": list(SYNC_BN_RANK_IMAGES)}
+    for dtype in (torch.float32, torch.bfloat16):
+        def cl(t):
+            return t.cuda().to(dtype).contiguous(memory_format=torch.channels_last)
+
+        xs, gs = [], []
+        for k, images in enumerate(SYNC_BN_RANK_IMAGES):
+            shape = (images, c, h, w)
+            xs.append(cl(torch.randn(shape, generator=gen) * (2 + k) + (0.5 - 0.75 * k)))
+            gs.append(cl(torch.randn(shape, generator=gen)))
+        x, g = xs[0], gs[0]
+        weight = (torch.rand(c, generator=gen) + 0.5).cuda()
+        bias = torch.randn(c, generator=gen).cuda()
+        run = (torch.zeros(c, device="cuda"), torch.ones(c, device="cuda"),
+               torch.zeros((), dtype=torch.long, device="cuda"), 0.01)
+        stats = torch.empty((SYNC_BN_WORLD, 1 + 2 * c), device="cuda")
+        plain_rows = torch.empty_like(stats)
+        for k, xk in enumerate(xs):
+            S.local_stats_kernel(xk, stats[k])
+            S.local_stats_plain(xk, plain_rows[k])
+        y, saved = S.normalize_kernel(x, stats, weight, bias, 1e-3, run)
+        var, mean = torch.var_mean(torch.cat([xk.float() for xk in xs]), (0, 2, 3),
+                                   correction=0)
+        reds = [S.backward_reduce_kernel(gk, xk, saved)[0] for gk, xk in zip(gs, xs)]
+        plain_reds = [S.backward_reduce_plain(gk, xk, saved)[0] for gk, xk in zip(gs, xs)]
+        red = torch.stack(reds).sum(0)  # the all-reduce
+        if not torch.equal(stats[:, 0], plain_rows[:, 0]):
+            raise AssertionError(f"sync_bn counts {stats[:, 0]} against {plain_rows[:, 0]}")
+        errs = {"stats": max(err(stats[:, 1: 1 + c], plain_rows[:, 1: 1 + c]),
+                             err(stats[:, 1 + c:], plain_rows[:, 1 + c:])),
+                "combine": max(err(saved[:c], mean),
+                               err(saved[c: 2 * c], torch.rsqrt(var + 1e-3))),
+                "normalize": err(y, S.normalize_plain(x, stats, weight, bias, 1e-3)[0]),
+                "reduce": max(err(a, b) for a, b in zip(reds, plain_reds)),
+                "dx": err(S.backward_dx_kernel(g, x, saved, weight, red),
+                          S.backward_dx_plain(g, x, saved, weight, red))}
+        calls = {"stats": (lambda: S.local_stats_kernel(x, stats[0]),
+                           lambda: S.local_stats_plain(x, stats[0])),
+                 "normalize": (lambda: S.normalize_kernel(x, stats, weight, bias, 1e-3, run),
+                               lambda: S.normalize_plain(x, stats, weight, bias, 1e-3, run)),
+                 "reduce": (lambda: S.backward_reduce_kernel(g, x, saved),
+                            lambda: S.backward_reduce_plain(g, x, saved)),
+                 "dx": (lambda: S.backward_dx_kernel(g, x, saved, weight, red),
+                        lambda: S.backward_dx_plain(g, x, saved, weight, red))}
+        nbytes = sync_bn_bytes(n * h * w, c, SYNC_BN_WORLD, x.element_size())
+        rec = {"combine": {"max_rel_err": errs["combine"]}}
+        for stage, (kernel, plain) in calls.items():
+            ms = device_ms(kernel)
+            bound, by = bound_ms(nbytes[stage], 0)
+            rec[stage] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                          "roofline_share": bound / ms, "plain_ms": time_ms(plain, 3),
+                          "max_rel_err": errs[stage]}
+        rec["ms"] = sum(r["ms"] for k, r in rec.items() if k in calls)
+        rec["plain_ms"] = sum(r["plain_ms"] for k, r in rec.items() if k in calls)
+        rec["bound_ms"] = sum(bound_ms(b, 0)[0] for b in nbytes.values())
+        out["f32" if dtype == torch.float32 else "bf16"] = rec
+        del xs, gs, x, g, y
+        torch.cuda.empty_cache()
+    print(json.dumps({"sync_bn_stem": out}), flush=True)
+    limit = {"f32": 1e-4, "bf16": 2.0 ** -7}
+    bad = [(d, k) for d in limit for k, r in out[d].items()
+           if isinstance(r, dict) and r["max_rel_err"] > limit[d]]
+    if bad:
+        raise AssertionError(f"sync_bn kernels off their plain stages: {bad}")
+    return out
+
+
 def phase_kernels() -> dict:
     """Every kernel against its plain version; returns the summaries the
     {"kernels": ...} line reports, at the main paths' shapes."""
@@ -1121,6 +1257,7 @@ def phase_kernels() -> dict:
     stencil = _check_stencil()[STENCIL_GRIDS[0]]
     banded = _check_banded()[BANDED_CASES[-1][0]]
     _check_edges()
+    sync = _check_sync_bn()
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
         "mbconv_stride1": {**b3, "max_abs_err": max(b3["max_abs_err"], b7["max_abs_err"],
@@ -1133,6 +1270,7 @@ def phase_kernels() -> dict:
                         "library_ms": None, "b7_seg": b7_16},
         "stencil_walk": {k: stencil[k] for k in keys},
         "banded_walk": {k: banded[k] for k in keys},
+        "sync_bn": sync,
     }
 
 
@@ -3165,6 +3303,38 @@ def _dp_rows(batch: dict, group) -> dict:
     return {k: torch.as_tensor(v[parallel.rank_rows(len(v), group)]) for k, v in batch.items()}
 
 
+@contextlib.contextmanager
+def _cross_rank_bn_calls(model):
+    """Counts, while open, the model's batch norms that take the cross-rank
+    path (training, more than one rank, no ``torch.func`` transform) and
+    the gradients that reach their outputs: [forwards, backwards], what
+    ``sync_bn``'s launch counters should read on a card."""
+    import torch
+
+    from muscle_tpu_torch.models.efficientnet import BatchNorm2d
+    from muscle_tpu_torch.parallel.mesh import world
+
+    calls = [0, 0]
+
+    def backward(grad):
+        calls[1] += 1
+
+    def forward(module, args, y):
+        if (module.training and world(module.dp_group) > 1
+                and not torch._C._functorch.is_functorch_wrapped_tensor(args[0])):
+            calls[0] += 1
+            if y.requires_grad:
+                y.register_hook(backward)
+
+    hooks = [m.register_forward_hook(forward) for m in model.modules()
+             if isinstance(m, BatchNorm2d)]
+    try:
+        yield calls
+    finally:
+        for h in hooks:
+            h.remove()
+
+
 def _dp_step(case: dict, group, dev, timed: int = 0) -> dict:
     """One step of ``case`` (step 'a' or 'b' of MCL, 'seg', 'irn'; 'dtype')
     from its weights on this rank's rows of its global batch, its
@@ -3172,12 +3342,15 @@ def _dp_step(case: dict, group, dev, timed: int = 0) -> dict:
     same batch, each timed (CUDA events), and the gradient all-reduce
     alone on the step's gradients.  Returns the first step's metrics,
     gradients, BN statistics and parameters after the update (on the CPU),
-    the timings and the peak memory."""
+    its cross-rank BN calls and ``sync_bn``'s launches (both [forward,
+    backward], counted from 0 at its start), the timings and the peak
+    memory."""
     import torch
 
     from muscle_tpu_torch import parallel
     from muscle_tpu_torch.inference.upload import to_device
     from muscle_tpu_torch.models import classifier_as
+    from muscle_tpu_torch.ops import sync_bn
     from muscle_tpu_torch.training import (
         IRNTrainConfig,
         MCLConfig,
@@ -3212,10 +3385,14 @@ def _dp_step(case: dict, group, dev, timed: int = 0) -> dict:
                                               gen, **kw)}[case["step"]]
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    metrics = {k: float(v) for k, v in step().items()}
+    _zero_counts()
+    with _cross_rank_bn_calls(model) as bn_calls:
+        metrics = {k: float(v) for k, v in step().items()}
+    out_bn = {"sync_bn_launches": [sync_bn.sync_bn.launches, sync_bn.sync_bn.launches_backward],
+              "cross_rank_bn_calls": list(bn_calls)}
     names = {id(p): n for n, p in model.named_parameters()}
     params = [p for g in opt.param_groups for p in g["params"]]
-    out = {"metrics": metrics,
+    out = {"metrics": metrics, **out_bn,
            "grads": {names[id(p)]: p.grad.detach().float().cpu() for p in params},
            "params": {names[id(p)]: p.detach().float().cpu() for p in params},
            "stats": {k: v.detach().float().cpu() for k, v in model.state_dict().items()
@@ -3547,6 +3724,19 @@ def _records_equal(got: list, want: list) -> bool:
     return True
 
 
+def _bn_launches(outs: list, part: str, name: str, want=None) -> dict:
+    """Each rank's ``sync_bn`` launches [forward, backward] in the first
+    step of a dp case beside its cross-rank BN calls: passed where they
+    agree on every rank, the kernels took part where ``want`` is None, and
+    they equal ``want`` where given."""
+    got = [o[part][name]["sync_bn_launches"] for o in outs]
+    calls = [o[part][name]["cross_rank_bn_calls"] for o in outs]
+    ok = all(g == c for g, c in zip(got, calls)) and (
+        all(g[0] > 0 for g in got) if want is None else all(g == list(want) for g in got))
+    return {"sync_bn_launches_per_rank": got, "cross_rank_bn_calls_per_rank": calls,
+            "sync_bn_launches_passed": ok}
+
+
 def _dp_readings(spec: dict, ref: dict, outs: list, world: int, backend: str) -> dict:
     """Every check of one W-rank run against the one-process references,
     and what the ranks measured."""
@@ -3561,6 +3751,12 @@ def _dp_readings(spec: dict, ref: dict, outs: list, world: int, backend: str) ->
     agree = True
     for name in spec["parity"]:
         rec["parity"][name] = _dp_parity(name, spec, ref, got["parity"][name])
+        # step B runs its BNs in eval mode (frozen statistics), IRN has none
+        launches = _bn_launches(outs, "parity", name,
+                                (0, 0) if name.startswith(("b_", "irn")) else None)
+        rec["parity"][name].update(launches,
+                                   passed=rec["parity"][name]["passed"]
+                                   and launches["sync_bn_launches_passed"])
         agree &= all(o["parity"][name]["rank_param_diff"] == 0.0 for o in outs)
     for name in spec["full"]:
         one_run = ref["full"][(name, world)]
@@ -3584,7 +3780,10 @@ def _dp_readings(spec: dict, ref: dict, outs: list, world: int, backend: str) ->
             # the global batch's step: the slowest rank against one process on card 0
             "speedup": (float(np.mean(one_run["step_ms"]))
                         / max(float(np.mean(o["full"][name]["step_ms"])) for o in outs)),
-            "passed": loss <= 1.0}
+            # b3 step A: one kernel call a BN each way, 77 BNs
+            **_bn_launches(outs, "full", name, DP_MCL_BN_LAUNCHES if name == "mcl_b3" else None)}
+        rec["full"][name]["passed"] = (loss <= 1.0
+                                       and rec["full"][name]["sync_bn_launches_passed"])
     rec["serve_mesh"] = {}
     for serve, name in [(s, n) for s in ("serve", "serve_mesh") for n in ("cam", "seg")]:
         want = ref["serve"][name]["records"]
@@ -4280,6 +4479,18 @@ def main(argv=None) -> int:
                 if isinstance(v, dict)}
         for e in entries:  # the CLIs' launches in the gates phase (its subprocesses')
             e["launches_gates"] = gates_out["launches"][e["name"]] if gates_out else None
+        # the cross-rank BN replaces no TPU kernel; one card's step never
+        # runs it; the dp phase's steps do: each rank's [forward, backward]
+        # launches in the first step of every case (b3 step A: 77 and 77)
+        entries.append({"name": "sync_bn", "route": "cuda",
+                        "source": "muscle_tpu_torch/csrc/sync_bn.cu", "replaces": None,
+                        "launches_train_mcl": (train_out["launches"]["sync_bn"]
+                                               if train_out else None),
+                        "launches_dp": None if dp_out is None else {
+                            run_name: {case: r[part][case]["sync_bn_launches_per_rank"]
+                                       for part in ("full", "parity") for case in r[part]}
+                            for run_name, r in dp_out.items() if isinstance(r, dict)},
+                        **summaries["sync_bn"]})
         print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -26,8 +26,8 @@ computed before this module existed (no collective, the same launches).
 Backends: ``nccl`` where each rank has a card of its own, ``gloo`` on the
 CPU and where ranks share a card (``chip_smoke.py`` runs two ranks on one
 card; gloo copies CUDA tensors through host memory itself).  Every
-exchange is ``all_reduce``, ``all_gather`` (list form) or ``broadcast``,
-which both backends take on CUDA and CPU tensors.
+exchange is ``all_reduce``, an all-gather into one tensor or
+``broadcast``, which both backends take on CUDA and CPU tensors.
 
 Spatial sharding (``make_mesh(model_axis=k)``, the JAX package's
 ``spatial_sharding``): the ranks form a (W / k data) x (k model) grid, k
@@ -40,10 +40,10 @@ batch and the records are gathered (``data_share``, ``gather_rows``).
 ``stats`` counts the tensor exchanges this module issues over a group,
 {"all_reduce", "all_gather", "broadcast"} -> {"calls", "bytes"}, the bytes
 being the payload this rank hands the backend (an all-gather's own part):
-``all_reduce_sum``, ``all_reduce_flat`` (one call a flat buffer), the
-``all_gather`` function and its backward's sum, ``replicate``'s
-broadcast.  Always on, as the kernels' launch counters are; read it as a
-difference, or ``reset_stats()``.  The object exchanges
+``all_reduce_sum``, ``all_reduce_flat`` (one call a flat buffer),
+``all_gather_into``, the ``all_gather`` function and its backward's sum,
+``replicate``'s broadcast.  Always on, as the kernels' launch counters
+are; read it as a difference, or ``reset_stats()``.  The object exchanges
 (``gather_rows``, ``broadcast_object``) and ``barrier`` are not counted.
 """
 
@@ -236,6 +236,17 @@ def batch_mean(x: torch.Tensor, group=None) -> torch.Tensor:
     return x.sum() / (x.numel() * world(group))
 
 
+def all_gather_into(out: torch.Tensor, part: torch.Tensor, group) -> None:
+    """Fill ``out`` (W x ``part``'s rows, contiguous) with every rank's
+    ``part`` along dim 0, in rank order, in one collective.  ``part`` may
+    be this rank's rows of ``out`` itself (NCCL then gathers in place)."""
+    _count("all_gather", part)
+    # torch 2.13 renames all_gather_into_tensor all_gather_single and
+    # deprecates the old name; earlier versions have only the old one
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    gather(out, part, group=group)
+
+
 class _AllGather(torch.autograd.Function):
     """Concatenate every rank's ``x`` along dim 0, in rank order.  The
     backward sums the cotangent over the ranks (each rank's loss took the
@@ -245,11 +256,10 @@ class _AllGather(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         ctx.rows = x.shape[0]
-        parts = [torch.empty_like(x) for _ in range(world(group))]
         x = x.contiguous()
-        _count("all_gather", x)
-        dist.all_gather(parts, x, group=group)
-        return torch.cat(parts)
+        out = x.new_empty((world(group) * x.shape[0], *x.shape[1:]))
+        all_gather_into(out, x, group)
+        return out
 
     @staticmethod
     def backward(ctx, g):

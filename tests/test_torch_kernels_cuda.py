@@ -279,3 +279,186 @@ def test_propagate_to_edge_launches_kernel_on_card(cuda, method):
     assert counter.launches == before + 1
     torch.testing.assert_close(got, plain, rtol=BANDED_RTOL, atol=BANDED_ATOL)
     torch.testing.assert_close(got, vector, rtol=BANDED_RTOL, atol=BANDED_ATOL)
+
+
+# ---- the cross-rank batch norm (ops/sync_bn.py) ---------------------------------
+
+# (N, C, H, W) of x, split over SYNC_BN_WORLD fake ranks along N: the b3
+# step's stem BN at batch 16, crop 448; a 144-channel BN at 112^2; the
+# 1536-channel head BN at 14^2; C 24; and C 7, which no 16-byte vector
+# divides (the kernels' one-channel loads)
+SYNC_BN_SHAPES = {"stem": (16, 40, 224, 224), "c144": (16, 144, 112, 112),
+                  "c1536": (16, 1536, 14, 14), "c24": (8, 24, 56, 56), "c7": (4, 7, 33, 29)}
+SYNC_BN_WORLD = 4
+# kernel against plain stage at float32: the sums over up to 200,704 rows a
+# rank in another order (the kernel's Chan merges by 4-row chunks, CTAs
+# and row blocks); relative to each result's largest
+SYNC_BN_F32 = 1e-5
+SYNC_BN_SUMS = 1e-4  # the backward's sums, whose terms cancel
+
+
+def _sync_bn_problem(shape, dtype, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    n, c, h, w = shape
+
+    def cl(t):
+        return t.to(device, dtype).contiguous(memory_format=torch.channels_last)
+
+    return {"x": cl(torch.randn(shape, generator=gen) * 2 + 0.5),
+            "g": cl(torch.randn(shape, generator=gen)),
+            "weight": (torch.rand(c, generator=gen) + 0.5).to(device),
+            "bias": torch.randn(c, generator=gen).to(device),
+            "running_mean": torch.randn(c, generator=gen).to(device),
+            "running_var": (torch.rand(c, generator=gen) + 0.5).to(device)}
+
+
+def _near(got, want, share, what):
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= share * float(want.float().abs().max()), (what, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(SYNC_BN_SHAPES))
+def test_sync_bn_kernels_match_plain_stages(cuda, shape, dtype):
+    """Kernels (a), (c), (d) and (f) against the plain stages on a fake
+    4-way split of one batch: each rank's local row, y, ``saved``, the
+    running statistics, the backward sums and dx (each kernel stage fed
+    what the kernels before it produced)."""
+    from muscle_tpu_torch.ops import sync_bn as S
+
+    p = _sync_bn_problem(SYNC_BN_SHAPES[shape], dtype, cuda, seed=len(shape))
+    c = p["x"].shape[1]
+    xs, gs = p["x"].chunk(SYNC_BN_WORLD), p["g"].chunk(SYNC_BN_WORLD)
+    rows = {k: torch.empty((SYNC_BN_WORLD, 1 + 2 * c), device=cuda) for k in ("k", "p")}
+    for r, x in enumerate(xs):
+        S.local_stats_kernel(x, rows["k"][r])
+        S.local_stats_plain(x, rows["p"][r])
+    torch.cuda.synchronize()
+    k, pl = rows["k"], rows["p"]
+    assert torch.equal(k[:, 0], pl[:, 0])
+    _near(k[:, 1: 1 + c], pl[:, 1: 1 + c], SYNC_BN_F32, "mean")
+    _near(k[:, 1 + c:], pl[:, 1 + c:], SYNC_BN_F32, "M2")
+    tol = SYNC_BN_F32 if dtype == torch.float32 else BF16_REL
+    saved, reds = [], []
+    for x, g in zip(xs, gs):
+        runs = [(p["running_mean"].clone(), p["running_var"].clone(),
+                 torch.zeros((), dtype=torch.long, device=cuda), 0.01) for _ in range(2)]
+        y_k, s_k = S.normalize_kernel(x, k, p["weight"], p["bias"], 1e-3, runs[0])
+        y_p, s_p = S.normalize_plain(x, k, p["weight"], p["bias"], 1e-3, runs[1])
+        assert y_k.dtype == dtype and y_k.is_contiguous(memory_format=torch.channels_last)
+        _near(y_k, y_p, tol, "y")
+        _near(s_k, s_p, SYNC_BN_F32, "saved")
+        for a, b in zip(runs[0][:3], runs[1][:3]):
+            _near(a, b, SYNC_BN_F32, "running")
+        got, want = S.backward_reduce_kernel(g, x, s_k), S.backward_reduce_plain(g, x, s_k)
+        for a, b, what in zip(got, want, ("red", "dw", "db")):
+            _near(a, b, SYNC_BN_SUMS, what)
+        saved.append(s_k)
+        reds.append(got[0])
+    red = sum(reds)
+    for x, g, s in zip(xs, gs, saved):
+        dx_k = S.backward_dx_kernel(g, x, s, p["weight"], red)
+        dx_p = S.backward_dx_plain(g, x, s, p["weight"], red)
+        assert dx_k.dtype == dtype
+        _near(dx_k, dx_p, SYNC_BN_SUMS if dtype == torch.float32 else BF16_REL, "dx")
+
+
+@pytest.mark.cuda
+def test_sync_bn_kernels_reject_bad_input(cuda):
+    """A card tensor takes the kernels or raises: NCHW-contiguous x, a dtype
+    without a kernel, g of another dtype."""
+    from muscle_tpu_torch.ops import sync_bn as S
+
+    row = torch.empty(1 + 2 * 8, device=cuda)
+    x = torch.zeros((2, 8, 5, 6), device=cuda)
+    with pytest.raises(ValueError, match="channels-last"):
+        S.local_stats_kernel(x, row)
+    x = x.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="bfloat16"):
+        S.local_stats_kernel(x.half(), row)
+    saved = torch.zeros(2 * 8 + 1, device=cuda)
+    with pytest.raises(ValueError, match="does not match"):
+        S.backward_reduce_kernel(x.bfloat16(), x, saved)
+    assert S.stages(x) is S.KERNELS
+
+
+def _sync_bn_rank(rank: int, world: int, backend: str, tmp: str) -> None:
+    """One rank of the two-rank b3 step: MCL step A with IMC at crop 448,
+    4 images a rank, once through the kernels and once through the plain
+    stages (``stages`` patched), each from the same weights."""
+    import os
+
+    import numpy as np
+
+    from muscle_tpu_torch import parallel
+    from muscle_tpu_torch.models import MuSCLe
+    from muscle_tpu_torch.ops import sync_bn as S
+    from muscle_tpu_torch.training import MCLConfig, make_adam, mcl_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    group = parallel.init(rank, world, f"file://{tmp}/store", dev, backend)
+    torch.manual_seed(0)
+    state = init_weights(MuSCLe(backbone_name="efficientnet-b3", mode="enc",
+                                last_pooling=False), torch.Generator().manual_seed(0)).state_dict()
+    rng = np.random.default_rng(1)
+    label = np.zeros((4 * world, 20), np.float32)
+    for i in range(4 * world):
+        label[i, (7, 11, 14)[i % 3]] = 1.0
+    img = rng.integers(0, 256, (4 * world, 448, 448, 3), dtype=np.uint8)
+    rows = slice(4 * rank, 4 * rank + 4)
+    batch = {"img": torch.from_numpy(img[rows]).to(dev),
+             "label": torch.from_numpy(label[rows]).to(dev)}
+    out = {}
+    for path in ("kernels", "plain"):
+        if path == "plain":
+            S.stages = lambda x: S.PLAIN
+        model = MuSCLe(backbone_name="efficientnet-b3", mode="enc", last_pooling=False)
+        model.load_state_dict(state)
+        model = parallel.replicate(model.to(dev), group)
+        opt = make_adam(model.trained_parameters(), 1e-4, 5e-5)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        S.sync_bn.launches = S.sync_bn.launches_backward = 0
+        metrics = mcl_train_step(model, opt, batch, MCLConfig(use_imc=True), gen, group=group)
+        torch.cuda.synchronize(dev)
+        names = {id(p): n for n, p in model.named_parameters()}
+        out[path] = {
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {names[id(p)]: p.grad.float().cpu() for g in opt.param_groups
+                      for p in g["params"]},
+            "stats": {k: v.float().cpu() for k, v in model.state_dict().items()
+                      if k.endswith("running_mean") or k.endswith("running_var")},
+            "launches": (S.sync_bn.launches, S.sync_bn.launches_backward)}
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    parallel.barrier(group)
+    parallel.shutdown(group)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_sync_bn_b3_step_on_two_ranks_matches_plain(cuda, backend, tmp_path):
+    """One b3 training step on 2 ranks (NCCL, one card a rank, where 2
+    cards are visible; gloo, both ranks on card 0) through the kernels
+    against the same step through the plain stages: the loss terms 1e-5
+    relative, every gradient within 1e-3 of its tensor's largest (or of a
+    thousandth of the model's), the running statistics 1e-5 of their
+    largest; 77 kernel calls forward and 77 backward a step, one a BN."""
+    import torch.multiprocessing as mp
+
+    if backend == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 cards for one NCCL rank a card")
+    mp.spawn(_sync_bn_rank, args=(2, backend, str(tmp_path)), nprocs=2, join=True)
+    for r in range(2):
+        res = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+        got, want = res["kernels"], res["plain"]
+        assert got["launches"] == (77, 77) and want["launches"] == (0, 0)
+        for k, v in want["metrics"].items():
+            assert abs(got["metrics"][k] - v) <= 1e-5 * abs(v) + 1e-7, k
+        top = max(float(g.abs().max()) for g in want["grads"].values())
+        for k, g in want["grads"].items():
+            scale = max(float(g.abs().max()), 1e-3 * top)
+            assert float((got["grads"][k] - g).abs().max()) <= 1e-3 * scale, k
+        for k, v in want["stats"].items():
+            _near(got["stats"][k], v, 1e-5, k)

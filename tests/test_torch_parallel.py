@@ -142,6 +142,13 @@ def test_cross_rank_batch_norm_matches_flax_on_the_global_batch(ranks, dtype):
                                        rtol=0, err_msg=k)
 
 
+def test_cross_rank_batch_norm_launches_no_kernel_on_cpu_ranks(ranks):
+    """CPU ranks run the plain stages: the kernels' counters stay 0 through
+    both batch norms, forward and backward."""
+    _, res = ranks
+    assert all(r["sync_bn_launches"] == (0, 0) for r in res)
+
+
 def test_imc_on_ranks_matches_jax(ranks):
     spec, res = ranks
     d = spec["imc"]

@@ -56,6 +56,7 @@ def module_checks(group, spec: dict) -> dict:
     from muscle_tpu_torch.losses import er_topk_loss, image_level_contrast
     from muscle_tpu_torch.models.efficientnet import BatchNorm2d
     from muscle_tpu_torch.ops.random_walk import PathIndex, propagate_to_edge_sharded
+    from muscle_tpu_torch.ops.sync_bn import sync_bn
     from muscle_tpu_torch.training.irn import irn_losses
 
     out = {}
@@ -76,6 +77,7 @@ def module_checks(group, spec: dict) -> dict:
                     "dx": x.grad.permute(0, 2, 3, 1).float(), "dscale": bn.weight.grad,
                     "dbias": bn.bias.grad, "mean": bn.running_mean, "var": bn.running_var,
                     "count": int(bn.num_batches_tracked)}
+    out["sync_bn_launches"] = (sync_bn.launches, sync_bn.launches_backward)
 
     d = spec["imc"]
     emb = rows(d["emb"], group).requires_grad_(True)
@@ -216,30 +218,34 @@ def _step(case: dict, model, group, control: bool) -> tuple[dict, torch.optim.Op
 
 @contextlib.contextmanager
 def _issued():
-    """{kind: {"calls", "bytes"}} of the all-reduces, all-gathers and
-    broadcasts that reach ``torch.distributed`` inside the block, the
-    bytes being each call's own tensor (an all-gather's input)."""
+    """{kind: {"calls", "bytes"}} of the all-reduces, all-gathers (list
+    form or into one tensor, under either of torch's names) and broadcasts
+    that reach ``torch.distributed`` inside the block, the bytes being each
+    call's own tensor (an all-gather's input)."""
     import torch.distributed as dist
 
     out = {k: {"calls": 0, "bytes": 0} for k in ("all_reduce", "all_gather", "broadcast")}
-    real = {k: getattr(dist, k) for k in out}
+    names = {"all_reduce": ("all_reduce", 0), "broadcast": ("broadcast", 0),
+             **{n: ("all_gather", 1) for n in ("all_gather", "all_gather_into_tensor",
+                                               "all_gather_single") if hasattr(dist, n)}}
+    real = {n: getattr(dist, n) for n in names}
 
-    def counting(kind, pos):
+    def counting(name, kind, pos):
         def call(*args, **kw):
             t = args[pos]
             out[kind]["calls"] += 1
             out[kind]["bytes"] += t.numel() * t.element_size()
-            return real[kind](*args, **kw)
+            return real[name](*args, **kw)
 
         return call
 
-    for kind, pos in (("all_reduce", 0), ("all_gather", 1), ("broadcast", 0)):
-        setattr(dist, kind, counting(kind, pos))
+    for name, (kind, pos) in names.items():
+        setattr(dist, name, counting(name, kind, pos))
     try:
         yield out
     finally:
-        for kind, fn in real.items():
-            setattr(dist, kind, fn)
+        for name, fn in real.items():
+            setattr(dist, name, fn)
 
 
 def train_checks(group, spec: dict) -> dict:
