@@ -96,9 +96,15 @@ def main(argv=None) -> None:
                                  allow_pickle=True).item())
         return imgs, dicts
 
+    def batches():
+        for chunk, (imgs, dicts) in prefetch_chunks(names, max(1, args.batch_size), load):
+            yield imgs, chunk, dicts
+
     done = 0
-    for chunk, (imgs, dicts) in prefetch_chunks(names, max(1, args.batch_size), load):
-        for name, scores in zip(chunk, refiner.refine_batch(imgs, dicts)):
+    # the stream's records come back in the order fed: chunk after chunk
+    for records in refiner.run_stream(batches()):
+        chunk = names[done: done + len(records)]
+        for name, scores in zip(chunk, records):
             if args.soft_output:
                 np.save(os.path.join(args.sem_seg_out_dir, name + ".npy"),
                         scores.astype(np.float16))

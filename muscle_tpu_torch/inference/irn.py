@@ -17,6 +17,15 @@ Two IO modes, as in the JAX package:
   up, and either the (21, grid, grid) f16 walk scores down, upsampled on
   the host (``output='scores'``), or one uint8 label map per image
   (``output='labels'``: the reference's tail fused on the device).
+
+``run_stream`` overlaps a batch's host packing, its device work and its
+host tail over a stream of batches (``inference/stream.py``, as the TTA
+engines do); ``refine_batch`` runs the same three stages one after the
+other.  The spans (``utils/timers.py``): ``cam_pack`` (the fast path's
+per-class CAM downscale, inside ``prep``), ``edge`` (the host's time
+enqueueing the edge net, inside ``dispatch``) and the walk's ``walk``
+(``ops/stencil_walk.py``).  ``stats`` counts the refiner's work, always
+on: read it as a difference.
 """
 
 from __future__ import annotations
@@ -26,8 +35,18 @@ import torch
 
 from muscle_tpu_torch.core.resize import dynamic_window_resize, resize_bilinear
 from muscle_tpu_torch.data import transforms as T
+from muscle_tpu_torch.inference import stream
 from muscle_tpu_torch.inference.cam import COMPUTE_DTYPES
+from muscle_tpu_torch.inference.upload import start_download, to_device
 from muscle_tpu_torch.ops.random_walk import propagate_to_edge
+from muscle_tpu_torch.utils.timers import span
+
+# The refiner's work since the process started: images refined, walks run
+# (one a size bucket of a batch), and channel-nodes: ``walked_nodes`` those
+# a walk steps over (each image's 20 classes on the whole grid x grid
+# canvas), ``labelled_nodes`` the labelled classes' (eh, ew) windows among
+# them.  Counted where the work is enqueued (not by ``bench_device_exec``).
+stats = {"images": 0, "walks": 0, "walked_nodes": 0, "labelled_nodes": 0}
 
 
 def _clamp_replicate(rw: torch.Tensor, eh: torch.Tensor, ew: torch.Tensor) -> torch.Tensor:
@@ -112,7 +131,7 @@ class RandomWalkRefiner:
         return min(self.crop_size, -(-side // self.bucket) * self.bucket)
 
     def _put(self, a) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return to_device(a, self.device)
 
     def _walk(self, crop: int, pairs: torch.Tensor, cams: torch.Tensor, sizes: torch.Tensor,
               cams_at_grid: bool) -> torch.Tensor:
@@ -121,8 +140,9 @@ class RandomWalkRefiner:
         canvas resolution (or at the walk grid with ``cams_at_grid``),
         sizes (B, 2) valid (H, W).  Returns (B, 20, grid, grid) walk output."""
         grid = crop // self.stride
-        edge = self.model.edge(pairs.to(self.compute_dtype), valid_hw=sizes,
-                               crop_size=crop).float()
+        with span("edge"):  # the host's time enqueueing the edge net
+            edge = self.model.edge(pairs.to(self.compute_dtype), valid_hw=sizes,
+                                   crop_size=crop).float()
         ehw = (sizes - 1) // self.stride + 1
         fvalid = _window(grid, ehw)
         edge = torch.where(fvalid, edge, torch.ones_like(edge))  # walls outside the window
@@ -213,98 +233,106 @@ class RandomWalkRefiner:
         return self.refine_batch([image], [cam_dict])[0]
 
     def refine_batch(self, images, cam_dicts) -> list[np.ndarray]:
-        """Batched refinement, grouped by size bucket.  images: PIL images
-        or HWC uint8 arrays; cam_dicts: {class index: (H, W) scores}.
-        Returns per-image (H, W, 21) float32 scores, or (H, W) uint8 label
-        maps with output='labels'."""
+        """Batched refinement, grouped by size bucket, one stage after the
+        other (``run_stream`` overlaps them).  images: PIL images or HWC
+        uint8 arrays; cam_dicts: {class index: (H, W) scores}.  Returns
+        per-image (H, W, 21) float32 scores, or (H, W) uint8 label maps
+        with output='labels'."""
+        names = [str(i) for i in range(len(images))]
+        prep, _ = self._prepare((images, names, cam_dicts))
+        return self._dispatch_prepped(prep)()
+
+    def run_stream(self, batches, prep_ahead: int = 2, finalize_ahead: int = 2):
+        """Overlapped refinement over an iterable of ``(images, names,
+        cam_dicts)`` batches; yields each batch's records, ``refine_batch``'s
+        for its images, in the order fed.
+
+        The stages run at once (``inference/stream.py``): ``_prepare`` on
+        the prep thread (a batch across size buckets is split there into
+        one part a bucket, each packed on the host), ``_dispatch_prepped``
+        on the caller's thread (each part's upload, edge net, walk and the
+        device's share of the tail enqueued, its download started), and
+        the finalize on its thread (the wait for the downloads and the
+        host's tail).  The records are never gathered: the refiner has no
+        mesh."""
+        yield from stream.run_stream(batches, self._prepare, self._dispatch_prepped, None,
+                                     prep_ahead, finalize_ahead)
+
+    def _prepare(self, batch: tuple) -> tuple[dict, bool]:
+        """A fed batch's host stage: its images split by size bucket (the
+        order kept in each part's indices), each part packed for its IO
+        path, and the part's labelled channel-nodes (for ``stats``).
+        Returns (prep, False: no gather)."""
+        images, names, cam_dicts = batch
         groups: dict[int, list[int]] = {}
         for i, img in enumerate(images):
             w, h = T.image_size(img)
             groups.setdefault(self._crop_for(h, w), []).append(i)
-        results: dict[int, np.ndarray] = {}
+        parts = []
         for crop, idxs in groups.items():
             imgs = [images[i] for i in idxs]
             dicts = [cam_dicts[i] for i in idxs]
-            outs = (self._refine_group_fast(crop, imgs, dicts) if self.fast_io
-                    else self._refine_group(crop, imgs, dicts))
-            results.update(zip(idxs, outs))
-        return [results[i] for i in range(len(images))]
+            pack = self._pack_fast if self.fast_io else self._pack_parity
+            labelled = 0
+            for img, cd in zip(imgs, dicts):
+                w, h = T.image_size(img)
+                labelled += len(cd) * ((h - 1) // self.stride + 1) * ((w - 1) // self.stride + 1)
+            parts.append((crop, idxs, pack(crop, imgs, dicts), labelled))
+        return {"names": list(names), "parts": parts}, False
 
-    def _refine_group(self, crop: int, images, cam_dicts) -> list[np.ndarray]:
+    def _dispatch_prepped(self, prep: dict):
+        """Enqueue each part of a prepped batch and start its download;
+        returns the ``finalize() -> records`` that waits for them."""
+        labels = self.output == "labels"
+        pending = []
+        for crop, idxs, packed, labelled in prep["parts"]:
+            args = [self._put(a) for a in packed]
+            if self.fast_io:
+                out = self._refine_fast(crop, *args, labels=labels)
+            else:
+                out = self._refine(crop, *args)
+            grid = crop // self.stride
+            stats["images"] += len(idxs)
+            stats["walks"] += 1
+            stats["walked_nodes"] += len(idxs) * 20 * grid * grid
+            stats["labelled_nodes"] += labelled
+            pending.append((crop, idxs, packed[-1], start_download(out)))
+        n = len(prep["names"])
+
+        def finalize() -> list[np.ndarray]:
+            out: list = [None] * n
+            for crop, idxs, sizes, fetch in pending:
+                for i, rec in zip(idxs, self._tail(crop, fetch(), sizes)):
+                    out[i] = rec
+            return out
+
+        return finalize
+
+    def _pack_parity(self, crop: int, images, cam_dicts):
+        """Host packing for the parity path: (pairs (B, 2, crop, crop, 3),
+        cams (B, 20, crop, crop), sizes (B, 2))."""
         b = len(images)
         pairs = np.empty((b, 2, crop, crop, 3), np.float32)
         cams = np.empty((b, 20, crop, crop), np.float32)
         sizes = np.empty((b, 2), np.int64)
         for j, (img, cd) in enumerate(zip(images, cam_dicts)):
             pairs[j], cams[j], sizes[j] = self._host_prep(img, cd, crop)
-        outs = self._refine(crop, self._put(pairs), self._put(cams), self._put(sizes))
-        return [outs[j, : sizes[j, 0], : sizes[j, 1]].cpu().numpy() for j in range(b)]
+        return pairs, cams, sizes
 
-    def _pack_fast(self, crop: int, images, cam_dicts):
-        """Host packing for the fast_io path: YCbCr canvases and K-channel
-        f16 CAM stacks at the walk grid (the host does the reference's
-        window downsample with PIL F-mode bilinear, the device resize's
-        half-pixel convention).  Returns (y, c, transposed, cam_vals,
-        cam_idx, sizes)."""
+    def _tail(self, crop: int, buf: np.ndarray, sizes: np.ndarray) -> list[np.ndarray]:
+        """The host's share of a part's tail on its download: each image's
+        window of the parity scores or of the labels, or the fast scores
+        upsampled to image size (PIL bilinear, the device resize's
+        half-pixel convention) and renormalised.  Copies: no record holds
+        the download buffer."""
+        if not self.fast_io or self.output == "labels":
+            return [buf[i, : sizes[i, 0], : sizes[i, 1]].copy() for i in range(len(sizes))]
         from PIL import Image
 
-        from muscle_tpu_torch.data.tta import pack_canvas_ycbcr
-
-        b = len(images)
-        grid = crop // self.stride
-        # the group's largest CAM dict sets the class budget: never a dropped class
-        k = max(self.max_classes, max((len(cd) for cd in cam_dicts), default=1))
-        y, c, sizes, transposed = pack_canvas_ycbcr(images, [str(i) for i in range(b)], crop,
-                                                    tight=False)
-        cam_vals = np.zeros((b, k, grid, grid), np.float16)
-        cam_idx = np.full((b, k), 20, np.int64)  # pad -> dropped channel
-        for i, cd in enumerate(cam_dicts):
-            h, w = sizes[i]
-            eh = (h - 1) // self.stride + 1
-            ew = (w - 1) // self.stride + 1
-            for j, (cls, v) in enumerate(sorted(cd.items())):
-                small = Image.fromarray(np.ascontiguousarray(v, np.float32), "F").resize(
-                    (ew, eh), Image.BILINEAR)
-                cam_vals[i, j, :eh, :ew] = np.asarray(small, np.float16)
-                cam_idx[i, j] = cls
-        return y, c, transposed, cam_vals, cam_idx, sizes.astype(np.int64)
-
-    def bench_device_exec(self, images, cam_dicts):
-        """A zero-argument closure for device-only timing (the JAX
-        refiner's ``bench_device_exec``): the fast_io host packing and the
-        upload once, here; each call re-enqueues the edge forward, the walk
-        and the tail (``_refine_fast``) on the resident tensors and returns
-        the buffer the download would fetch, without downloading or
-        synchronizing.  Needs ``fast_io`` and a batch of one size bucket."""
-        if not self.fast_io:
-            raise ValueError("bench_device_exec requires fast_io")
-        crops = {self._crop_for(h, w) for w, h in map(T.image_size, images)}
-        if len(crops) != 1:
-            raise ValueError(f"bench_device_exec needs a batch of one size bucket, got {crops}")
-        crop = crops.pop()
-        args = [self._put(a) for a in self._pack_fast(crop, images, cam_dicts)]
-        labels = self.output == "labels"
-        return lambda: self._refine_fast(crop, *args, labels=labels)
-
-    def _refine_group_fast(self, crop: int, images, cam_dicts) -> list[np.ndarray]:
-        """fast_io path for one size bucket; the 'scores' output is
-        upsampled to image size on the host (PIL bilinear, the device
-        resize's half-pixel convention)."""
-        from PIL import Image
-
-        b = len(images)
-        y, c, transposed, cam_vals, cam_idx, sizes = self._pack_fast(crop, images, cam_dicts)
-        labels = self.output == "labels"
-        out = self._refine_fast(crop, self._put(y), self._put(c), self._put(transposed),
-                                self._put(cam_vals), self._put(cam_idx), self._put(sizes),
-                                labels=labels)
-        if labels:
-            labs = out.cpu().numpy()
-            return [labs[i, : sizes[i, 0], : sizes[i, 1]] for i in range(b)]
-        outs = out.cpu().numpy().astype(np.float32)
+        outs = buf.astype(np.float32)
         grid = crop // self.stride
         results = []
-        for i in range(b):
+        for i in range(len(sizes)):
             h, w = sizes[i]
             # replicate the last valid row/column one node into the pad: the
             # half-pixel 4x upsample reaches one node past the window edge,
@@ -324,6 +352,53 @@ class RandomWalkRefiner:
             res[..., 1:] /= max(float(res[..., 1:].max()), 1e-12)
             results.append(res)
         return results
+
+    def _pack_fast(self, crop: int, images, cam_dicts):
+        """Host packing for the fast_io path: YCbCr canvases and K-channel
+        f16 CAM stacks at the walk grid (the host does the reference's
+        window downsample with PIL F-mode bilinear, the device resize's
+        half-pixel convention; the span ``cam_pack``).  Returns (y, c,
+        transposed, cam_vals, cam_idx, sizes)."""
+        from PIL import Image
+
+        from muscle_tpu_torch.data.tta import pack_canvas_ycbcr
+
+        b = len(images)
+        grid = crop // self.stride
+        # the group's largest CAM dict sets the class budget: never a dropped class
+        k = max(self.max_classes, max((len(cd) for cd in cam_dicts), default=1))
+        y, c, sizes, transposed = pack_canvas_ycbcr(images, [str(i) for i in range(b)], crop,
+                                                    tight=False)
+        cam_vals = np.zeros((b, k, grid, grid), np.float16)
+        cam_idx = np.full((b, k), 20, np.int64)  # pad -> dropped channel
+        with span("cam_pack", images=b):
+            for i, cd in enumerate(cam_dicts):
+                h, w = sizes[i]
+                eh = (h - 1) // self.stride + 1
+                ew = (w - 1) // self.stride + 1
+                for j, (cls, v) in enumerate(sorted(cd.items())):
+                    small = Image.fromarray(np.ascontiguousarray(v, np.float32), "F").resize(
+                        (ew, eh), Image.BILINEAR)
+                    cam_vals[i, j, :eh, :ew] = np.asarray(small, np.float16)
+                    cam_idx[i, j] = cls
+        return y, c, transposed, cam_vals, cam_idx, sizes.astype(np.int64)
+
+    def bench_device_exec(self, images, cam_dicts):
+        """A zero-argument closure for device-only timing (the JAX
+        refiner's ``bench_device_exec``): the fast_io host packing and the
+        upload once, here; each call re-enqueues the edge forward, the walk
+        and the tail (``_refine_fast``) on the resident tensors and returns
+        the buffer the download would fetch, without downloading or
+        synchronizing.  Needs ``fast_io`` and a batch of one size bucket."""
+        if not self.fast_io:
+            raise ValueError("bench_device_exec requires fast_io")
+        crops = {self._crop_for(h, w) for w, h in map(T.image_size, images)}
+        if len(crops) != 1:
+            raise ValueError(f"bench_device_exec needs a batch of one size bucket, got {crops}")
+        crop = crops.pop()
+        args = [self._put(a) for a in self._pack_fast(crop, images, cam_dicts)]
+        labels = self.output == "labels"
+        return lambda: self._refine_fast(crop, *args, labels=labels)
 
     def to_png_labels(self, scores_hwc: np.ndarray) -> np.ndarray:
         if scores_hwc.ndim == 2:  # output='labels': already argmaxed on the device

@@ -34,6 +34,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from muscle_tpu_torch.utils.timers import span
+
 
 def shift2d(a: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
     """out[..., r, c] = a[..., r - dy, c - dx], zero-filled (any sign)."""
@@ -142,14 +144,22 @@ def stencil_walk(x: torch.Tensor, vs: torch.Tensor, inv: torch.Tensor, *,
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (building it on first use) or raises.  ``stencil_walk.launches``
-    counts calls that launch the kernel (one call, ``steps`` launches)."""
+    counts calls that launch the kernel (one call, ``steps`` launches).
+    The span ``walk`` (``utils/timers.py``) covers a call's host work: on
+    a card the kernel's call, on the CPU the plain walk itself."""
     if x.requires_grad or vs.requires_grad or inv.requires_grad:
         raise RuntimeError("stencil_walk is inference-only (the kernel has no backward)")
     _check(x, vs, inv, dirs)
-    if x.device.type == "cpu":
-        return stencil_walk_plain(x, vs, inv, dirs=dirs, steps=steps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"stencil_walk runs on cpu or cuda, not {x.device}")
+    with span("walk"):
+        if x.device.type == "cpu":
+            return stencil_walk_plain(x, vs, inv, dirs=dirs, steps=steps)
+        return _launch(x, vs, inv, dirs, steps)
+
+
+def _launch(x, vs, inv, dirs, steps: int) -> torch.Tensor:
+    """``stencil_walk``'s card path: the kernel's one call."""
     lib = _lib()
     b, c, h, w = x.shape
     plan = stencil_plan(b, c, h, w)

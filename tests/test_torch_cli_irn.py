@@ -86,6 +86,22 @@ def test_infer_irn_png_labels(mini_voc, tmp_path):
     assert png.getpalette()[:9] == voc_color_map()[:3].reshape(-1).tolist()
 
 
+def test_infer_irn_partial_last_batch(mini_voc, tmp_path):
+    """A 3-image list at batch 2: the stream's last batch holds one image,
+    and every PNG equals ``refine_batch``'s labels on the same chunks."""
+    root, names, sd = mini_voc
+    (tmp_path / "three.txt").write_text("\n".join(names[:3]) + "\n")
+    args = _args(root, tmp_path / "rw")
+    args[args.index("--infer_list") + 1] = str(tmp_path / "three.txt")
+    infer_irn.main(args)
+    _, want = _refiner_outputs(root, names[:3], sd, fast_io=True, output="labels")
+    assert sorted(os.listdir(tmp_path / "rw_png")) == [f"{n}.png" for n in names[:3]]
+    for n, (h, w) in zip(names[:3], SIZES):
+        lab = np.asarray(Image.open(tmp_path / "rw_png" / f"{n}.png"))
+        assert lab.shape == (h, w)
+        np.testing.assert_array_equal(lab, want[n])
+
+
 def test_infer_irn_soft_npy(mini_voc, tmp_path):
     root, names, sd = mini_voc
     out = tmp_path / "rw"
